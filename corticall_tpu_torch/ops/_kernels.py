@@ -1,0 +1,113 @@
+"""Build and bind the port's CUDA kernels (`corticall_tpu_torch/csrc/*.cu`).
+
+At first use nvcc compiles every source into one shared library with a plain
+C interface, under `build/kernels/` at the repository root, named by a hash of
+the sources and flags; ctypes loads it.  Each C entry point launches on the
+stream it is given and returns `cudaGetLastError()`; `check` turns a non-zero
+code into an exception.  Nothing here is imported or built until a wrapper is
+called on a CUDA tensor.
+
+`--fmad=false` is part of the contract: the kernels must round exactly like
+their plain PyTorch twins, and a contracted multiply-add rounds once where the
+twin rounds twice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# entry point -> argtypes (every pointer and the stream are c_void_p)
+_SIGNATURES = {
+    "ctk_sw_banded": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "ctk_tesserae": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P),
+}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH, in CUDA_HOME or /usr/local/cuda")
+    return path
+
+
+def sources() -> list:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libcorticall_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build(ptxas_verbose: bool = False) -> dict:
+    """Compile csrc/*.cu unless the library for these sources exists (always
+    when `ptxas_verbose`, whose log lists each kernel's registers, shared
+    memory and spills).  Returns {"path", "seconds", "log"}; raises with
+    nvcc's output when the build fails."""
+    path = library_path()
+    if os.path.exists(path) and not ptxas_verbose:
+        return {"path": path, "seconds": 0.0, "log": ""}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if ptxas_verbose else ()),
+           "-o", tmp, *sources()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)
+    return {"path": path, "seconds": seconds, "log": proc.stdout + proc.stderr}
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build()["path"])
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.ctk_error_string.argtypes = [ctypes.c_int]
+        lib.ctk_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a launch reported a CUDA error."""
+    if err:
+        msg = library().ctk_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
+
+
+def stream(device: torch.device) -> int:
+    """PyTorch's current stream on `device`, as the int ctypes passes on."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,321 @@
+"""Tesserae mosaic-alignment DP: plain PyTorch twin + CUDA kernel wrapper.
+
+Counterpart of corticall_tpu/ops/tesserae_jax.py.  `tesserae_scan`,
+`tesserae_traceback` and `tesserae_full` are the PyTorch twins of the JAX
+functions of the same names (a Python loop over query columns of [S, W]
+tensor ops, then the packed-traceback walk); `tesserae_fused` runs them for
+CPU tensors and launches `csrc/tesserae.cu` — the whole DP and the walk in
+one launch — for CUDA tensors.  `TesseraeDevice` is the Call stage's aligner.
+
+Shapes are the section's own: query int32[L], targets int32[S, W-1] with a
+bool validity mask, W = longest target + 1.  The JAX package pads to
+power-of-two buckets to bound XLA compiles; padded targets and columns are
+masked to SMALL and the delete scan is a prefix, so the real cells are the
+same without the padding.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+import torch
+
+from corticall_tpu.models import tesserae as tz
+
+from . import _kernels
+from ..device import resolve
+
+SMALL = -1e32
+M, I, D = 1, 2, 3
+# the packed traceback word holds `who` in bits 25..30
+MAX_TARGETS = 63
+MAX_THREADS = 1024
+
+# kernel launches (plain integer; chip_smoke.py resets and reads it)
+LAUNCHES = 0
+
+
+def tesserae_params(del_: float, eps: float, rho: float, term: float,
+                    size_l: float, device=None):
+    """(scal f32[9], lsm f32[5,5], lsi f32[5]): the float32 scalars
+    (ldel, leps, lrho, lpiM, lpiI, lmm, lgm, ldm, lsize_l) and log emission
+    tables, rounded from float64 exactly as tesserae_jax.TesseraeDevice
+    builds them."""
+    pi_m = 0.75
+    scal = torch.tensor([
+        math.log(del_), math.log(eps), math.log(rho),
+        math.log(pi_m), math.log(1 - pi_m),
+        math.log(1 - 2 * del_ - rho - term),
+        math.log(1 - eps - rho - term),
+        math.log(1 - eps), math.log(size_l),
+    ], dtype=torch.float32, device=device)
+    lsm = torch.tensor(np.log(tz.EMISS_MATCH_NT), dtype=torch.float32, device=device)
+    lsi = torch.tensor(np.log(tz.EMISS_GAP_NT), dtype=torch.float32, device=device)
+    return scal, lsm, lsi
+
+
+def _pack(who, state, pos):
+    return (who << 25) | (state << 23) | pos
+
+
+def tesserae_scan(q_codes: torch.Tensor, t_codes: torch.Tensor,
+                  valid: torch.Tensor, params):
+    """Plain twin of tesserae_jax._tesserae_scan (unpadded: q_len = L).
+
+    q_codes int32[L]; t_codes int32[S, W-1]; valid bool[S, W-1].  Returns
+    (tb int32[3, L+1, S, W] — packed M/I/D traceback words indexed by query
+    column, column 1's M/I rows zero — and the final column's who, state,
+    pos, max_r as 0-dim tensors)."""
+    scal, lsm, lsi = params
+    ldel, leps, lrho, lpiM, lpiI, lmm, lgm, ldm, lsize_l = scal.unbind()
+    dev = q_codes.device
+    l1 = q_codes.shape[0]
+    s_count, w1 = t_codes.shape
+    width = w1 + 1
+    seq_ids = torch.arange(1, s_count + 1, dtype=torch.int32, device=dev)[:, None]
+    jj = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
+    jf = jj.to(torch.float32)
+    jpos = torch.clamp_min(jj - 1, 0)
+    vmask = torch.cat([torch.zeros((s_count, 1), dtype=torch.bool, device=dev),
+                       valid], dim=1)
+    small_col = torch.full((s_count, 1), SMALL, dtype=torch.float32, device=dev)
+    flat_ids = torch.arange(s_count * width * 2, device=dev)
+    t_long = t_codes.long()
+
+    def shift(x):
+        return torch.cat([small_col, x[:, :-1]], dim=1)
+
+    def delete_scan(vm, min_j):
+        adj = vm - leps * jf
+        adj = torch.where(jj >= min_j - 1, adj, SMALL)
+        run = torch.cummax(adj, dim=1).values
+        vd = ldel + leps * (jj - 1).to(torch.float32) + shift(run)
+        vd = torch.where(jj >= min_j, vd, SMALL)
+        state = torch.where(shift(vm) + ldel >= shift(vd) + leps, M, D)
+        return vd, state.to(torch.int32)
+
+    def column_max(vm, vi):
+        inter = torch.stack([torch.where(vmask, vm, SMALL),
+                             torch.where(vmask, vi, SMALL)], dim=2).reshape(-1)
+        best = inter.max()
+        flat = torch.where(inter == best, flat_ids, flat_ids.numel()).min()
+        s_idx, rem = flat // (width * 2), flat % (width * 2)
+        j, st = rem // 2, rem % 2
+        return ((s_idx + 1).to(torch.int32), torch.where(st == 0, M, I).to(torch.int32),
+                j.to(torch.int32), best)
+
+    tb = torch.zeros((3, l1 + 1, s_count, width), dtype=torch.int32, device=dev)
+
+    # column 1
+    qc = q_codes[0].long()
+    vm = torch.full((s_count, width), SMALL, dtype=torch.float32, device=dev)
+    vi = vm.clone()
+    vm[:, 1:] = torch.where(valid, lpiM - lsize_l + lsm[qc][t_long], SMALL)
+    vi[:, 1:] = torch.where(valid, lpiI - lsize_l + lsi[qc], SMALL)
+    vd, state_d = delete_scan(vm, 1)
+    tb[2, 1] = _pack(seq_ids, state_d, jpos)
+    who, state, pos, max_r = column_max(vm, vi)
+
+    for i in range(1, l1):
+        qc = q_codes[i].long()
+        em = lsm[qc][t_long]
+        c0, c1, c2 = shift(vm) + lmm, shift(vi) + lgm, shift(vd) + ldm
+        local_val = torch.maximum(c0, c1)
+        local_arg = torch.where(c1 > c0, 1, 0)
+        local_arg = torch.where(c2 > local_val, 2, local_arg)
+        local_val = torch.maximum(local_val, c2)
+        recomb = max_r + lrho + lpiM - lsize_l
+        use_local = local_val > recomb
+        nvm = torch.where(use_local, local_val, recomb)
+        tb_rec = _pack(who, state, pos)
+        tb[0, i + 1] = torch.where(
+            use_local, _pack(seq_ids, (local_arg + 1).to(torch.int32), jpos), tb_rec)
+        nvm[:, 1:] = torch.where(valid, nvm[:, 1:] + em, SMALL)
+        nvm[:, 0] = SMALL
+
+        i0, i1 = vm + ldel, vi + leps
+        arg_i = torch.where(i1 > i0, 1, 0)
+        val_i = torch.maximum(i0, i1)
+        recomb_i = max_r + lrho + lpiI - lsize_l
+        use_local_i = val_i > recomb_i
+        nvi = torch.where(use_local_i, val_i, recomb_i)
+        tb[1, i + 1] = torch.where(
+            use_local_i, _pack(seq_ids, (arg_i + 1).to(torch.int32), jj), tb_rec)
+        nvi[:, 1:] = torch.where(valid, nvi[:, 1:] + lsi[qc], SMALL)
+        nvi[:, 0] = SMALL
+
+        nvd, state_d = delete_scan(nvm, 2)
+        tb[2, i + 1] = _pack(seq_ids, state_d, jpos)
+        if i == l1 - 1:
+            nvd = torch.full_like(nvd, SMALL)
+        who, state, pos, max_r = column_max(nvm, nvi)
+        vm, vi, vd = nvm, nvi, nvd
+    return tb, who, state, pos, max_r
+
+
+def tesserae_traceback(tb: torch.Tensor, who, state, pos):
+    """Plain twin of tesserae_jax._tesserae_traceback: walk the packed
+    traceback from the final column's best cell.  Returns (cells
+    int32[cap, 3], n) with cap = L + W + 4; cells[0] is the start and
+    cells[n-1] the zero-packed boundary entry the caller drops."""
+    _, l1p1, s_count, width = tb.shape
+    l1 = l1p1 - 1
+    cap = l1 + width + 4
+    who, state, pos = int(who), int(state), int(pos)
+    cells = [(who, state, pos)]
+    pt = l1
+    while pt >= 1 and len(cells) < cap:
+        sidx = who - 1 if who >= 1 else who - 1 + s_count
+        if state in (M, I) and pt < 2:
+            v = 0
+        else:
+            v = int(tb[{M: 0, I: 1}.get(state, 2), pt, sidx, pos])
+        if state != D:
+            pt -= 1
+        who, state, pos = v >> 25, (v >> 23) & 3, v & ((1 << 23) - 1)
+        cells.append((who, state, pos))
+    out = torch.zeros((cap, 3), dtype=torch.int32)
+    out[:len(cells)] = torch.tensor(cells, dtype=torch.int32)
+    return out.to(tb.device), len(cells)
+
+
+def tesserae_full(q_codes: torch.Tensor, t_codes: torch.Tensor,
+                  valid: torch.Tensor, params):
+    """Plain twin of tesserae_jax._tesserae_full: (max_r f32 0-dim,
+    cells int32[cap, 3], n)."""
+    tb, who, state, pos, max_r = tesserae_scan(q_codes, t_codes, valid, params)
+    cells, n = tesserae_traceback(tb, who, state, pos)
+    return max_r, cells, n
+
+
+def _block_threads(s_count: int, width: int) -> int:
+    """Threads for one section: a warp per 32-column tile of every target,
+    in powers of two, at most MAX_THREADS."""
+    s_pow2 = 1 << (s_count - 1).bit_length()
+    tiles = -(-width // 32)
+    warps = s_pow2 * (1 << (tiles - 1).bit_length())
+    return 32 * min(MAX_THREADS // 32, warps)
+
+
+def tesserae_fused(q_codes: torch.Tensor, t_codes: torch.Tensor,
+                   valid: torch.Tensor, params):
+    """Tesserae DP + traceback: the plain twin for CPU tensors, one launch
+    of csrc/tesserae.cu for CUDA tensors.  Returns (max_r, cells, n) as
+    tesserae_full does (tensors on the inputs' device on CUDA)."""
+    global LAUNCHES
+    l1 = q_codes.shape[0]
+    s_count, w1 = t_codes.shape
+    if l1 < 1 or s_count < 1 or w1 < 1:
+        raise ValueError("tesserae needs a non-empty query and targets")
+    if s_count > MAX_TARGETS:
+        raise ValueError(f"at most {MAX_TARGETS} targets fit the packed traceback")
+    if valid.shape != t_codes.shape:
+        raise ValueError("valid must have t_codes' shape")
+    if q_codes.dtype != torch.int32 or t_codes.dtype != torch.int32:
+        raise TypeError("codes must be int32")
+    if q_codes.device.type == "cpu":
+        return tesserae_full(q_codes, t_codes, valid, params)
+    if q_codes.device.type != "cuda":
+        raise ValueError(f"unsupported device {q_codes.device}")
+    dev = q_codes.device
+    width = w1 + 1
+    cap = l1 + width + 4
+    scal, lsm, lsi = params
+    prm = torch.cat([scal.reshape(-1), lsm.reshape(-1), lsi.reshape(-1)]).to(
+        device=dev, dtype=torch.float32).contiguous()
+    q = q_codes.contiguous()
+    t = t_codes.to(dev).contiguous()
+    vmask = valid.to(device=dev, dtype=torch.uint8).contiguous()
+    state = torch.empty((2, 3, s_count, width), dtype=torch.float32, device=dev)
+    tb = torch.empty((3, l1 + 1, s_count, width), dtype=torch.int32, device=dev)
+    out = torch.empty(2 + 3 * cap, dtype=torch.int32, device=dev)
+    lib = _kernels.library()
+    err = lib.ctk_tesserae(q.data_ptr(), t.data_ptr(), vmask.data_ptr(),
+                           prm.data_ptr(), l1, s_count, width,
+                           _block_threads(s_count, width), state.data_ptr(),
+                           tb.data_ptr(), out.data_ptr(), cap, _kernels.stream(dev))
+    _kernels.check(err, "tesserae")
+    LAUNCHES += 1
+    return out[1:2].view(torch.float32)[0], out[2:].view(cap, 3), out[0]
+
+
+def section_inputs(query: str, seqs: list, hmm: tuple, device=None):
+    """tesserae_fused's arguments for one section on `device`: query codes
+    int32[L], target codes int32[S, W-1] (W-1 = longest target), their
+    validity mask, and tesserae_params for hmm = (del_, eps, rho, term)."""
+    t_len = np.array([len(t) for t in seqs], dtype=np.int64)
+    maxl = max(1, int(t_len.max()))
+    t_codes = np.zeros((len(seqs), maxl), dtype=np.int32)
+    for si, t in enumerate(seqs):
+        t_codes[si, :len(t)] = tz._seq_codes(t)
+    valid = np.arange(1, maxl + 1)[None, :] <= t_len[:, None]
+    return (torch.from_numpy(tz._seq_codes(query)).to(device),
+            torch.from_numpy(t_codes).to(device),
+            torch.from_numpy(valid).to(device),
+            tesserae_params(*hmm, float(t_len.sum()), device=device))
+
+
+def _bucket(n: int, lo: int = 64) -> int:
+    """tesserae_jax._bucket: next power of two at least lo."""
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+class TesseraeDevice(tz.Tesserae):
+    """Tesserae with the DP and the traceback walk on the device; segment
+    reconstruction on the host.  The class name is what caller/call.py
+    checks to report the device timer sections."""
+
+    # One section's DP + traceback state, estimated on the JAX package's
+    # padded shapes so that the same sections take the exact host oracle and
+    # the VCFs stay equal; re-deriving the budget for the card is for later.
+    HBM_BUDGET_BYTES = 2 << 30
+
+    def __init__(self, del_=0.025, eps=0.75, rho=1e-4, term=1e-3, device=None):
+        super().__init__(del_, eps, rho, term)
+        self.device = resolve(device)
+        # first call (kernel build + load) vs the rest, as the JAX class
+        # splits compile and dispatch
+        self.compile_s = 0.0
+        self.dispatch_s = 0.0
+        self.device_sections = 0
+        self.host_sections = 0
+
+    def align(self, query: str, targets: dict) -> list:
+        if not targets or not query:
+            raise ValueError("Tesserae.align requires a non-empty query and targets")
+        t_start = time.perf_counter()
+        names = list(targets.keys())
+        seqs = [targets[n] for n in names]
+        l1 = len(query)
+        est_maxl = _bucket(max([l1] + [len(t) for t in seqs]))
+        est_bytes = 4 * 4 * (_bucket(len(seqs), 2) + 1) * (est_maxl + 1) ** 2
+        if est_bytes > self.HBM_BUDGET_BYTES:
+            host = tz.Tesserae(self.del_, self.eps, self.rho, self.term)
+            out = host.align(query, targets)
+            self.llk = host.llk
+            self.combined_llk += host.llk
+            self.host_sections += 1
+            return out
+
+        max_r, cells, n = tesserae_fused(*section_inputs(
+            query, seqs, (self.del_, self.eps, self.rho, self.term), self.device))
+        n = int(n)
+        cells = cells[:n - 1].cpu().tolist()
+        self.llk = float(max_r) + math.log(self.term)
+        self.combined_llk += self.llk
+
+        dt = time.perf_counter() - t_start
+        if self.device_sections:
+            self.dispatch_s += dt
+        else:
+            self.compile_s += dt
+        self.device_sections += 1
+
+        cells = [tuple(c) for c in cells]
+        cells.reverse()
+        return self._build_path(query, names, seqs, cells)

@@ -1,0 +1,217 @@
+"""The linked DNM pipeline on the port: reads -> VCF, resumable.
+
+Counterpart of corticall_tpu.pipeline.run_pipeline with the same stage
+order, artifacts (.ctx, .ctp.bgz, FASTA, VCF, accounting, state.json) and
+stats: per-sample Build+Clean, Join, Thread (reads and references), FindROIs,
+the prefilter chain, Partition (the port's routes), Trim, Call (the port's
+Caller: CUDA Tesserae and banded-SW kernels) and FilterCalls.  It reuses the
+JAX package's Pipeline runner and file helpers, always builds graphs on the
+host (native counting core), and never imports jax.
+"""
+
+from __future__ import annotations
+
+from corticall_tpu import build as bd
+from corticall_tpu import evaluation as ev
+from corticall_tpu.caller.filter import filter_calls
+from corticall_tpu.caller.variants import write_vcf
+from corticall_tpu.commands import core as _core
+from corticall_tpu.io import ctx as ctxio
+from corticall_tpu.io import links as lkio
+from corticall_tpu.pipeline import (Pipeline, _load_vcf_variants,
+                                    _read_fasta_list, _read_graph,
+                                    _write_fasta_list)
+
+from .caller.call import Caller
+from .commands import core
+from .device import resolve
+from .ops.tesserae_torch import TesseraeDevice
+
+
+def run_pipeline(workdir: str, reads_by_sample: dict, child: str,
+                 parents: list, references=None, k: int = 47,
+                 min_coverage: int = 2, tip_length: int | None = None,
+                 link_samples=None, prefilter: bool = True,
+                 lowcov_min: int | str = "auto", max_walk: int = 2000,
+                 trim_margin: int = 500, resume: bool = True,
+                 caller_opts: dict | None = None, log=None,
+                 clean: bool = True, prefilters=None,
+                 thread_refs: bool = True,
+                 shared_graphs: dict | None = None, device=None) -> dict:
+    """Execute the production pipeline from reads to VCF; arguments and
+    result keys as corticall_tpu.pipeline.run_pipeline, plus `device` for
+    the Call stage's kernels (default: CUDA when present)."""
+    device = resolve(device)
+    pl = Pipeline(workdir, resume=resume, log=log)
+    samples = [child] + list(parents)
+    link_samples = list(link_samples if link_samples is not None else samples)
+    prefilters = list(prefilters if prefilters is not None
+                      else ("orphans", "tips", "dust", "lowcov", "lowcomplexity"))
+
+    # ---- per-sample build + clean (mccortex build/clean/inferedges) -------
+    cleaned: dict = {}
+    for s in samples:
+        if shared_graphs and s in shared_graphs:
+            cleaned[s] = shared_graphs[s]
+            continue
+        def compute(path, s=s):
+            g = bd.build_graph_from_reads(reads_by_sample[s], k, s,
+                                          use_device=False)
+            raw_records = g.num_records
+            if clean:
+                g = bd.clean_graph(g, min_coverage=min_coverage,
+                                   tip_length=tip_length)
+            ctxio.write_ctx(path, g.data)
+            return g, {"raw_records": raw_records,
+                       "clean_records": g.num_records}
+        cleaned[s] = pl.stage(f"build_clean_{s}", [f"{s}.clean.ctx"],
+                              compute, _read_graph)
+
+    # ---- join ---------------------------------------------------------------
+    def compute_join(path):
+        g = _core.join([cleaned[s] for s in samples])
+        ctxio.write_ctx(path, g.data)
+        return g, {"records": g.num_records}
+    joined = pl.stage("join", ["joined.ctx"], compute_join, _read_graph)
+
+    # ---- thread reads -> indexed links --------------------------------------
+    links: list = []
+    for s in link_samples:
+        def compute(path_bgz, s=s):
+            ld = lkio.merge_prefix_links(
+                bd.thread_reads(joined, reads_by_sample[s], s))
+            lkio.write_links_indexed(path_bgz, ld, source=f"{s}.reads")
+            return ld, {"kmers_with_links": len(ld)}
+        links.append(pl.stage(
+            f"thread_{s}", [f"{s}.ctp.bgz"], compute,
+            lambda p: lkio.open_links(p)))
+
+    # ---- thread references -> indexed links (along the child color) --------
+    if thread_refs and references:
+        for name, ref in references.items():
+            def compute(path_bgz, name=name, ref=ref):
+                ld = lkio.merge_prefix_links(bd.thread_reads(
+                    joined, list(ref.seqs.values()), child))
+                ld.source = name
+                lkio.write_links_indexed(path_bgz, ld, source=name)
+                return ld, {"kmers_with_links": len(ld)}
+            links.append(pl.stage(
+                f"thread_ref_{name}", [f"ref_{name}.ctp.bgz"], compute,
+                lambda p: lkio.open_links(p)))
+
+    # ---- FindROIs -------------------------------------------------------------
+    def compute_rois(path):
+        r = _core.find_rois(joined, child, parents)
+        ctxio.write_ctx(path, r.data)
+        return r, {"rois": r.num_records}
+    rois = pl.stage("find_rois", ["rois.ctx"], compute_rois, _read_graph)
+
+    # ---- prefilter chain + Remove ---------------------------------------------
+    if prefilter and rois.num_records:
+        def compute_pf(path):
+            excluded = []
+            per = {}
+            if "orphans" in prefilters:
+                e = _core.find_orphans(joined, rois, parents)
+                per["orphans"] = e.num_records
+                excluded.append(e)
+            if "tips" in prefilters:
+                e = _core.find_tips(joined, rois, parents)
+                per["tips"] = e.num_records
+                excluded.append(e)
+            if "dust" in prefilters:
+                e = _core.find_dust(joined, rois, parents)
+                per["dust"] = e.num_records
+                excluded.append(e)
+            if "lowcov" in prefilters:
+                m = (_core.adaptive_lowcov_threshold(joined, child)
+                     if lowcov_min == "auto" else lowcov_min)
+                e = _core.find_low_coverage(rois, min_coverage=m)
+                per["lowcov"] = e.num_records
+                per["lowcov_threshold"] = m
+                excluded.append(e)
+            if "lowcomplexity" in prefilters:
+                e = _core.find_low_complexity(joined, rois, parents)
+                per["lowcomplexity"] = e.num_records
+                excluded.append(e)
+            out = _core.remove(rois, [e for e in excluded if e.num_records])
+            ctxio.write_ctx(path, out.data)
+            return out, {"excluded": per,
+                         "excluded_union": rois.num_records - out.num_records,
+                         "roi_before": rois.num_records,
+                         "kept": out.num_records,
+                         "removed": rois.num_records - out.num_records}
+        rois = pl.stage("prefilter", ["rois.filtered.ctx"],
+                        compute_pf, _read_graph)
+
+    # ---- Partition with links -------------------------------------------------
+    def compute_partition(path):
+        stats: dict = {}
+        parts = core.partition(joined, rois, links=links, max_walk=max_walk,
+                               stats=stats,
+                               checkpoint=pl.path("partition.ckpt.npz"))
+        _write_fasta_list(path, parts)
+        stats["partitions"] = len(parts)
+        return parts, stats
+    parts = pl.stage("partition", ["partitions.fa"],
+                     compute_partition, _read_fasta_list)
+
+    # ---- TrimPartitions -------------------------------------------------------
+    def compute_trim(path):
+        roi_set = {rois.kmer_string(i) for i in range(rois.num_records)}
+        trimmed = ev.trim_partitions(parts, roi_set, k, margin=trim_margin)
+        _write_fasta_list(path, trimmed)
+        return trimmed, {"partitions": len(trimmed)}
+    parts_t = pl.stage("trim", ["partitions.trimmed.fa"],
+                       compute_trim, _read_fasta_list)
+
+    # ---- Call with links (the two CUDA kernels) -------------------------------
+    def compute_call(vcf_path, acct_path):
+        caller = Caller(joined, rois, parts_t, backgrounds=list(parents),
+                        references=references or {}, links=links,
+                        device=device, **(caller_opts or {}))
+        variants, _ = caller.write_outputs(vcf_path, acct_path)
+        breakdown = {name: round(dt, 3)
+                     for name, dt in sorted(caller.timer.sections.items(),
+                                            key=lambda kv: -kv[1])}
+        if breakdown:
+            pl.log(f"[pipeline] call breakdown: {breakdown}")
+        stats = {"calls": len(variants), "call_breakdown": breakdown,
+                 "contig_aligner": dict(caller.align_stats)}
+        if isinstance(caller.ma, TesseraeDevice):
+            stats["tesserae"] = {"device_sections": caller.ma.device_sections,
+                                 "host_sections": caller.ma.host_sections}
+        return variants, stats
+    variants = pl.stage(
+        "call", ["calls.vcf", "accounting.txt"], compute_call,
+        lambda vp, ap: _load_vcf_variants(vp))
+
+    # ---- FilterCalls: the manuscript FDR protocol -----------------------------
+    def compute_filter(path):
+        mnc = 0
+        kept, rejected = filter_calls(variants, min_novel_coverage=mnc,
+                                      references=references)
+        sd, seen = [], set()
+        for rid, ir in (references or {}).items():
+            for name, seq in ir.seqs.items():
+                if name not in seen:
+                    sd.append((name, len(seq)))
+                    seen.add(name)
+            if f"{rid}_unknown" not in seen:
+                sd.append((f"{rid}_unknown", len(parts_t)))
+                seen.add(f"{rid}_unknown")
+        write_vcf(path, kept, sd)
+        return kept, {"input_calls": len(variants), "kept": len(kept),
+                      "rejected": len(rejected),
+                      "min_novel_coverage": mnc}
+    filtered = pl.stage("filter_calls", ["calls.filtered.vcf"],
+                        compute_filter, _load_vcf_variants)
+
+    return {
+        "graph": joined, "rois": rois, "links": links,
+        "partitions": parts_t, "variants": variants,
+        "filtered_variants": filtered,
+        "stages": {n: pl.state.seconds(n) for n in pl.state.data["stages"]},
+        "stats": {n: pl.state.stats(n) for n in pl.state.data["stages"]},
+        "workdir": workdir,
+    }

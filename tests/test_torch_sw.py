@@ -1,0 +1,130 @@
+"""Port's banded SW (corticall_tpu_torch/ops/sw_device.py) against the JAX
+package's scan twin and Pallas kernel, and its CUDA kernel against the
+plain twin.  Every value is a multiple of 0.5, so all comparisons are
+bit-exact."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from corticall_tpu_torch.ops import sw_device as tsw  # noqa: E402
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _jax_sw():
+    pytest.importorskip("jax")
+    from corticall_tpu.ops import sw_device
+    return sw_device
+
+
+def _mutated_pairs(rng, batch, qlen, slen, ragged=True):
+    """Random subject windows and queries copied from them with substitutions
+    and indels; ragged lengths padded with 4, plus an all-pad row."""
+    q = np.full((batch, qlen), 4, np.int32)
+    s = np.full((batch, slen), 4, np.int32)
+    for b in range(batch):
+        sl = int(rng.integers(slen // 2, slen + 1)) if ragged else slen
+        subj = rng.integers(0, 4, sl).astype(np.int32)
+        off = int(rng.integers(0, max(1, sl - qlen // 2)))
+        qq = subj[off:off + qlen].copy()
+        mut = rng.random(len(qq)) < 0.05
+        qq[mut] = (qq[mut] + rng.integers(1, 4, mut.sum())) % 4
+        if len(qq) > 20 and b % 3 == 1:        # deletion from the query
+            p = int(rng.integers(5, len(qq) - 10))
+            qq = np.concatenate([qq[:p], qq[p + 6:]])
+        elif len(qq) > 20 and b % 3 == 2:      # insertion into the query
+            p = int(rng.integers(5, len(qq) - 10))
+            qq = np.concatenate([qq[:p], rng.integers(0, 4, 5), qq[p:]])[:qlen]
+        ql = int(rng.integers(qlen // 2, qlen + 1)) if ragged else qlen
+        qq = qq[:ql]
+        q[b, :len(qq)] = qq
+        s[b, :sl] = subj
+    q[-1] = 4                                  # all-pad query: zero result
+    return q, s
+
+
+def _bits(x):
+    """int32 view of float32 outputs (bit-exact compare), as numpy."""
+    x = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return x.view(np.int32) if x.dtype == np.float32 else x
+
+
+def _assert_same(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_bits(g), _bits(w))
+
+
+def test_codes_batch_matches_jax():
+    swd = _jax_sw()
+    strings = ["ACGTN", "acgt", "", "GGGGGGGGGGG"]
+    np.testing.assert_array_equal(tsw.codes_batch(strings, 8),
+                                  swd.codes_batch(strings, 8))
+
+
+@pytest.mark.parametrize("band", [64, 128])
+def test_plain_matches_jax_scan_and_pallas(band):
+    swd = _jax_sw()
+    from test_sw_device import _cases
+    rng = np.random.default_rng(201)
+    qs, ss = _cases(rng, 13)
+    qc = swd.codes_batch(qs, max(map(len, qs)))
+    sc = swd.codes_batch(ss, max(map(len, ss)))
+    got = tsw.banded_sw_scores(torch.from_numpy(qc), torch.from_numpy(sc), band)
+    _assert_same(got, swd.banded_sw_scores(qc, sc, band=band))
+    _assert_same(got, swd.sw_banded_pallas(qc, sc, band=band, interpret=True))
+
+
+@pytest.mark.parametrize("band", [64, 128])
+def test_plain_matches_jax_ragged_and_all_pad(band):
+    swd = _jax_sw()
+    rng = np.random.default_rng(202)
+    q, s = _mutated_pairs(rng, 12, 90, 130)
+    got = tsw.banded_sw_scores(torch.from_numpy(q), torch.from_numpy(s), band)
+    assert float(got[0][-1]) == 0 and int(got[1][-1]) == 0 and int(got[2][-1]) == 0
+    _assert_same(got, swd.banded_sw_scores(q, s, band=band))
+    _assert_same(got, swd.sw_banded_pallas(q, s, band=band, interpret=True))
+
+
+def test_padding_with_n_leaves_scores_unchanged():
+    rng = np.random.default_rng(203)
+    q, s = _mutated_pairs(rng, 10, 70, 100)
+    want = tsw.banded_sw_scores(torch.from_numpy(q), torch.from_numpy(s), 64)
+    qp = np.pad(q, ((0, 0), (0, 26)), constant_values=4)
+    sp = np.pad(s, ((0, 0), (0, 45)), constant_values=4)
+    got = tsw.banded_sw_scores(torch.from_numpy(qp), torch.from_numpy(sp), 64)
+    _assert_same(got, want)
+
+
+def test_wrapper_on_cpu_runs_plain_twin_and_validates():
+    rng = np.random.default_rng(204)
+    q, s = _mutated_pairs(rng, 6, 40, 60)
+    qt, st = torch.from_numpy(q), torch.from_numpy(s)
+    before = tsw.LAUNCHES
+    _assert_same(tsw.sw_banded(qt, st, 64), tsw.banded_sw_scores(qt, st, 64))
+    assert tsw.LAUNCHES == before
+    with pytest.raises(ValueError):
+        tsw.sw_banded(qt, st, 60)
+    with pytest.raises(TypeError):
+        tsw.sw_banded(qt.long(), st, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,qlen,slen,band", [(24, 300, 420, 64),
+                                                  (9, 250, 400, 512),
+                                                  (5, 100, 130, 24)])
+def test_kernel_matches_plain_on_card(cuda, batch, qlen, slen, band):
+    rng = np.random.default_rng(205 + band)
+    q, s = _mutated_pairs(rng, batch, qlen, slen)
+    qt, st = torch.from_numpy(q).to(cuda), torch.from_numpy(s).to(cuda)
+    before = tsw.LAUNCHES
+    got = tsw.sw_banded(qt, st, band)
+    torch.cuda.synchronize()
+    assert tsw.LAUNCHES == before + 1
+    _assert_same(got, tsw.banded_sw_scores(qt, st, band))

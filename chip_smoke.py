@@ -19,12 +19,29 @@ Phases, one JSON line each (progress goes to stderr):
    .run_pipeline, with every kernel launch counted, and the calls scored
    against the simulation truth (demo_pf_cross.evaluate's k-mer Venn);
 5. every SW batch and Tesserae section that the pipeline sent to a kernel,
-   replayed through the plain twin on the card; any difference fails.
+   replayed through the plain twin on the card; any difference fails;
+6. jump_vs_plain: the jump table of bench.py's graph at k=47 and 21M bases
+   (about the flagship trio's 23.7M records), built by the kernels and by
+   the plain twin, compared row for row and bucket for bucket; 262,144
+   walks of at most 2,000 steps (bench.py's BENCH_WALKS, BENCH_STEPS_JUMP)
+   through the walk kernel and the plain twin, every output compared; the
+   contigs of 16,384 of them against the native C++ walker's; and a sweep of
+   the native walker against the device route at 1k-64k seeds;
+7. partition_device: the port's Partition on phase 4's graph, ROIs and
+   links with the linked and the unlinked jump-table routes forced, each
+   against the native route's partitions, with the jump kernels' launches
+   counted; then every table and walk those runs built on the card replayed
+   through the plain twins (buckets, rows and every walk output compared),
+   the kernels' times at these shapes going to the kernels line;
+8. sw_full_vs_plain: the full-matrix SW kernel against its plain twin at
+   B=1024, Q=512, S=1024, full and band 64, and banded_sw_pallas (the
+   banded kernel under the JAX package's name) against the banded twin.
 
 Then one JSON line with each kernel's route, source, launches, error and
 times, the nvidia-smi line, and the result line.  Any failure raises: the
 run exits non-zero and prints no result, as it does without a CUDA device or
-outside the repository.  jax is never imported.
+outside the repository.  jax is never imported.  About 6 minutes on one
+H100, most of it host work (graph simulation and builds, the placement).
 """
 
 import json
@@ -43,6 +60,8 @@ import torch  # noqa: E402
 
 from corticall_tpu_torch.device import require_cuda  # noqa: E402
 from corticall_tpu_torch.ops import _kernels  # noqa: E402
+from corticall_tpu_torch.ops import jump as tj  # noqa: E402
+from corticall_tpu_torch.ops import kmer as tk  # noqa: E402
 from corticall_tpu_torch.ops import sw_device as tsw  # noqa: E402
 from corticall_tpu_torch.ops import tesserae_torch as tt  # noqa: E402
 
@@ -51,6 +70,12 @@ TESSERAE_TARGETS = [2, 3, 4, 6, 8, 11, 16, 16]
 CALLER_PARAMS = (0.35, 0.90, 6e-4, 1e-3)     # Caller's del_, eps, rho, term
 PF_MBP, PF_CHROMS, PF_DNMS, PF_K = 2.0, 2, 20, 47
 PF_DIVERGENCE, PF_COVERAGE, PF_READLEN, PF_ERR = 0.003, 20.0, 150, 0.002
+PF_MAX_WALK = 2000
+JUMP_K, JUMP_BASES = 47, 21_000_000          # bench.build_bench_graph's args
+JUMP_SEEDS, JUMP_STEPS = 262_144, 2000       # BENCH_WALKS, BENCH_STEPS_JUMP
+NATIVE_SEEDS = 16_384                        # BENCH_NATIVE_SEEDS
+SWEEP_SEEDS = (1024, 4096, 16384, 65536)
+SW_FULL_SHAPE, SW_FULL_BANDS = (1024, 512, 1024), (None, 64)
 
 
 def emit(phase: str, **fields) -> None:
@@ -154,7 +179,7 @@ def host_ms(fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
-def sw_diff(got, want) -> float:
+def sw_diff(got, want, name="sw_banded") -> float:
     """Max |score| difference; raises unless all three outputs are
     bit-identical."""
     g_s, g_q, g_e = (x.cpu().numpy() for x in got)
@@ -162,8 +187,65 @@ def sw_diff(got, want) -> float:
     if not (np.array_equal(g_s.view(np.int32), w_s.view(np.int32))
             and np.array_equal(g_q, w_q) and np.array_equal(g_e, w_e)):
         bad = int(np.sum((g_s != w_s) | (g_q != w_q) | (g_e != w_e)))
-        raise AssertionError(f"sw_banded disagrees with its plain twin in {bad} rows")
+        raise AssertionError(f"{name} disagrees with its plain twin in {bad} rows")
     return float(np.max(np.abs(g_s - w_s))) if len(g_s) else 0.0
+
+
+def same(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """0.0 when two integer tensors are equal; raises otherwise."""
+    if got.shape != want.shape or not torch.equal(got, want):
+        bad = int((got != want).sum()) if got.shape == want.shape else -1
+        raise AssertionError(f"{what} disagrees with its plain twin ({bad} entries)")
+    return 0.0
+
+
+def host_buckets(kmers: np.ndarray, nb: int, entry: np.ndarray) -> torch.Tensor:
+    """The bucket array of a placement (entry = 2 * bucket + position a
+    key), scattered on the host."""
+    n, w = kmers.shape
+    out = np.zeros((nb * 2, w + 1), dtype=np.uint32)
+    out[entry, :-1] = kmers
+    out[entry, -1] = np.arange(n, dtype=np.uint32) | np.uint32(1 << 31)
+    return torch.from_numpy(out.view(np.int32)).view(nb, 2, w + 1)
+
+
+def check_table(kd, ed, fd, buckets, k, rows) -> dict:
+    """Stage 0 and one compose pass re-run by their kernels and their plain
+    twins on the table's inputs, and the table's rows against the plain
+    build; raises on any difference.  Returns the times (ms)."""
+    rows0 = torch.empty_like(rows)
+    stage0_ms = event_ms(lambda: tj.stage0_kernel(kd, ed, fd, buckets, k, rows0), 3)
+    stage0_plain_ms, state = host_ms(lambda: tj.stage0_plain(kd, ed, fd, buckets, k))
+    same(rows0, tj.pack_rows(*state), "jump_stage0")
+    rows1 = torch.empty_like(rows)
+    compose_ms = event_ms(lambda: tj.compose_kernel(rows0, rows1), 3)
+    compose_plain_ms, state = host_ms(lambda: tj.jump_compose(*state))
+    same(rows1, tj.pack_rows(*state), "jump_compose")
+    del state, rows0, rows1
+    rows_plain_ms, plain_rows = host_ms(lambda: tj.jump_rows_plain(kd, ed, fd, buckets, k))
+    same(rows, plain_rows, "jump table rows")
+    return {"stage0_ms": round(stage0_ms, 4), "stage0_plain_ms": round(stage0_plain_ms, 2),
+            "compose_ms": round(compose_ms, 4),
+            "compose_plain_ms": round(compose_plain_ms, 2),
+            "rows_plain_ms": round(rows_plain_ms, 2)}
+
+
+def check_walk(buckets, rows, seeds, k, num_steps, got) -> float:
+    """A walk kernel's outputs `got` against the plain seed lookup and walk
+    on the same inputs; raises on any difference.  Returns the plain twin's
+    time (ms, after a warm-up)."""
+    def plain_walk():
+        start = tj.seed_rows(buckets, tk.from_bits32(seeds), k)
+        return tj.jump_walk(rows, start, num_steps)
+    plain_walk()
+    plain_ms, want = host_ms(plain_walk)
+    same(got[0], tk.to_bits32(want[0]), "jump_walk packed bases")
+    same(got[1], want[1].to(torch.int32), "jump_walk steps")
+    for name, a, b in zip(("cycled", "touched", "ends_junction"), got[2:], want[2:]):
+        same(a, b, f"jump_walk {name}")
+    same((got[1] >= num_steps) & ~got[2], (want[1] >= num_steps) & ~want[2],
+         "jump_walk saturated")
+    return plain_ms
 
 
 def tesserae_diff(got, want) -> float:
@@ -224,7 +306,7 @@ def run_main_path(dev, mbp):
             t0 = time.perf_counter()
             out = run_pipeline(wd, reads, child="kid", parents=["mom", "dad"],
                                references=refs, k=PF_K, min_coverage=2,
-                               max_walk=2000, resume=False, device=dev,
+                               max_walk=PF_MAX_WALK, resume=False, device=dev,
                                log=lambda *a: log(" ".join(map(str, a))))
             torch.cuda.synchronize()
             pipeline_s = time.perf_counter() - t0
@@ -260,6 +342,239 @@ def replay(mp) -> dict:
             "sw_windows": sum(int(a[0].shape[0]) for a, _ in mp["sw_sent"]),
             "tesserae_sections": len(mp["ts_sent"]),
             "seconds": time.perf_counter() - t0}
+
+
+def jump_phase(dev) -> dict:
+    """Phase 6: the jump table and walk at bench.py's graph, kernels against
+    the plain twins, and the device route against the native walker."""
+    from bench import build_bench_graph
+    from corticall_tpu import kmer as km
+    from corticall_tpu import native as nat
+    from corticall_tpu.ops import walk_np as wnp
+
+    t0 = time.perf_counter()
+    g, genome = build_bench_graph(JUMP_K, JUMP_BASES)
+    graph_s = time.perf_counter() - t0
+    k, n = JUMP_K, g.num_records
+    log(f"bench graph: {n} records in {graph_s:.1f} s")
+    edges = np.ascontiguousarray(g.edges[:, 0])
+    flags = np.random.default_rng(5).random(n) < 0.01
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # build: host placement + one scatter, then the device passes
+    t0 = time.perf_counter()
+    nb, bucket_of, pos_of = tj.place(g.kmers)
+    entry = bucket_of * 2 + pos_of
+    place_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buckets, kd = tj.scatter_buckets(g.kmers, nb, entry, dev)
+    torch.cuda.synchronize()
+    scatter_s = time.perf_counter() - t0
+    same(buckets.cpu(), host_buckets(g.kmers, nb, entry), "jump table buckets")
+    del bucket_of, pos_of, entry
+    ed = torch.from_numpy(edges).to(dev)
+    fd = torch.from_numpy(flags).to(dev)
+    rows = tj.jump_rows(kd, ed, fd, buckets, k)
+    times = check_table(kd, ed, fd, buckets, k, rows)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = tj.jump_rows(kd, ed, fd, buckets, k)      # timed warm
+    torch.cuda.synchronize()
+    passes_s = time.perf_counter() - t0
+    same(again, rows, "jump table rows, built twice")
+    del again
+    log(f"jump table: placement {place_s:.2f} s, scatter {scatter_s * 1e3:.1f} ms, "
+        f"device passes {passes_s * 1e3:.1f} ms")
+
+    # walk: 262,144 seeds, 2,000-step cap
+    rng = np.random.default_rng(11)
+    starts = rng.integers(0, len(genome) - k, size=JUMP_SEEDS)
+    seed_strs = [genome[i:i + k] for i in starts]
+    seeds = km.pack_codes(km.strings_to_codes(seed_strs), k)
+    st = tj.words_tensor(seeds, dev)
+    got = tj.walk_jumps(buckets, rows, st, k, JUMP_STEPS)
+    walk_ms = event_ms(lambda: tj.walk_jumps(buckets, rows, st, k, JUMP_STEPS), 3)
+    walk_plain_ms = check_walk(buckets, rows, st, k, JUMP_STEPS, got)
+    steps_total = int(got[1].sum())
+    mat_ms, walked = host_ms(lambda: tj.walk_forward_jumps(buckets, rows, seeds, k,
+                                                           JUMP_STEPS))
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"jump walk: kernel {walk_ms:.3f} ms, plain {walk_plain_ms:.1f} ms")
+
+    # the native walker: rate, and the same contigs for 16,384 seeds
+    t0 = time.perf_counter()
+    wt = nat.WalkTableNative(g.kmers, edges, k)
+    native_build_s = time.perf_counter() - t0
+    wt.walk(seeds[:64], JUMP_STEPS)
+    t0 = time.perf_counter()
+    nat_bases, nat_cycled, nat_steps = wt.walk(seeds[:NATIVE_SEEDS], JUMP_STEPS)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want_ext = [wnp.replay_walk(s, nat_bases[:, i], bool(nat_cycled[i]), JUMP_STEPS)
+                for i, s in enumerate(seed_strs[:NATIVE_SEEDS])]
+    native_replay_s = time.perf_counter() - t0
+    packed, cycled, steps, sat = (x[:NATIVE_SEEDS] for x in walked[:4])
+    t0 = time.perf_counter()
+    got_ext = wnp.jump_extensions_batch(seed_strs[:NATIVE_SEEDS], packed, steps,
+                                        cycled, sat, JUMP_STEPS)
+    device_decode_s = time.perf_counter() - t0
+    if got_ext != want_ext:
+        bad = sum(a != b for a, b in zip(got_ext, want_ext))
+        raise AssertionError(f"jump walk contigs differ from the native walker's in {bad} lanes")
+    del walked, nat_bases
+
+    # seed-count sweep: walks only (the host replays cost the same on both)
+    build_s = place_s + scatter_s + passes_s
+    sweep = []
+    for count in SWEEP_SEEDS:
+        t0 = time.perf_counter()
+        wt.walk(seeds[:count], JUMP_STEPS)
+        nat_s = time.perf_counter() - t0
+        dev_s, _ = host_ms(lambda: tj.walk_forward_jumps(buckets, rows, seeds[:count],
+                                                         k, JUMP_STEPS))
+        dev_s /= 1e3
+        sweep.append({"seeds": count, "native_s": round(nat_s, 4),
+                      "device_s": round(dev_s, 4),
+                      "native_with_build_s": round(nat_s + native_build_s, 3),
+                      "device_with_build_s": round(dev_s + build_s, 3)})
+    out = {
+        "records": n, "graph_s": round(graph_s, 2), "place_s": round(place_s, 3),
+        "scatter_s": round(scatter_s, 4),
+        "device_passes_s": round(passes_s, 4), **times,
+        "rows_bytes": rows.numel() * 4, "buckets_bytes": buckets.numel() * 4,
+        "seeds": JUMP_SEEDS, "max_steps": JUMP_STEPS, "steps": steps_total,
+        "walk_ms": round(walk_ms, 4), "walk_steps_per_s": round(steps_total / walk_ms * 1e3),
+        "walk_plain_ms": round(walk_plain_ms, 2),
+        "materialized_ms": round(mat_ms, 2),
+        "materialized_steps_per_s": round(steps_total / mat_ms * 1e3),
+        "native_build_s": round(native_build_s, 3),
+        "native_steps_per_s": round(int(nat_steps.sum()) / native_s),
+        "native_seeds": NATIVE_SEEDS, "contigs_identical": True,
+        "native_replay_s": round(native_replay_s, 3),
+        "device_decode_s": round(device_decode_s, 3),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "walk_peak_memory": peak, "sweep": sweep}
+    del rows, buckets, kd, ed, fd, st, got, g, genome, wt
+    torch.cuda.empty_cache()
+    return out
+
+
+def partition_phase(dev, out) -> dict:
+    """Phase 7: the port's Partition with each jump-table route forced,
+    against the native routes, on the main path's graph, ROIs and links;
+    then every table and walk those routes built on the card, replayed
+    through the plain twins."""
+    from corticall_tpu_torch.commands import core as tcore
+
+    graph, rois, links = out["graph"], out["rois"], out["links"]
+    runs, parts = {}, {}
+    keys = ("walk_kernel", "link_replays", "link_junctions_resolved",
+            "device_steps", "jump_table_build_s", "device_walk_s")
+    tables, walks = [], []
+    rows_kernel, walk_kernel = tj.jump_rows, tj.walk_jumps
+
+    def rows_recorded(*args):
+        rows = rows_kernel(*args)
+        tables.append((args, rows))
+        return rows
+
+    def walk_recorded(*args):
+        got = walk_kernel(*args)
+        walks.append((args, got))
+        return got
+
+    def run(name, **kw):
+        stats = {}
+        for key in tj.LAUNCHES:
+            tj.LAUNCHES[key] = 0
+        t0 = time.perf_counter()
+        parts[name] = tcore.partition(graph, rois, max_walk=PF_MAX_WALK,
+                                      stats=stats, device=dev, **kw)
+        torch.cuda.synchronize()
+        runs[name] = {"seconds": round(time.perf_counter() - t0, 3),
+                      "partitions": len(parts[name]), "launches": dict(tj.LAUNCHES),
+                      **{key: stats[key] for key in keys if key in stats}}
+        log(f"partition {name}: {runs[name]}")
+
+    run("linked_native", links=links)
+    run("unlinked_host")
+    old = (tcore.NATIVE_LINK_THRESHOLD, tcore.SMALL_BATCH)
+    tcore.NATIVE_LINK_THRESHOLD = tcore.SMALL_BATCH = -1
+    tj.jump_rows, tj.walk_jumps = rows_recorded, walk_recorded
+    try:
+        run("linked_device", links=links)
+        run("unlinked_device")
+    finally:
+        tcore.NATIVE_LINK_THRESHOLD, tcore.SMALL_BATCH = old
+        tj.jump_rows, tj.walk_jumps = rows_kernel, walk_kernel
+    if parts["linked_device"] != parts["linked_native"]:
+        raise AssertionError("the linked device route's partitions differ from the native route's")
+    if parts["unlinked_device"] != parts["unlinked_host"]:
+        raise AssertionError("the unlinked device route's partitions differ from the host route's")
+    for name in ("linked_device", "unlinked_device"):
+        if runs[name].get("walk_kernel") != "jump_table":
+            raise AssertionError(f"{name} did not take the jump-table route: {runs[name]}")
+        if not all(runs[name]["launches"].values()):
+            raise AssertionError(f"a jump kernel never launched in {name}: {runs[name]}")
+    if runs["linked_native"].get("walk_kernel") != "native_links":
+        raise AssertionError(f"the default linked route is not native: {runs['linked_native']}")
+    launches = {key: runs["linked_device"]["launches"][key]
+                + runs["unlinked_device"]["launches"][key] for key in tj.LAUNCHES}
+
+    # replay: buckets against the host scatter, rows against the plain
+    # build, every walk against the plain seed lookup and walk
+    t0 = time.perf_counter()
+    nb, bucket_of, pos_of = tj.place(graph.kmers)
+    want_buckets = host_buckets(graph.kmers, nb, bucket_of * 2 + pos_of)
+    times = {}
+    for (kd, ed, fd, buckets, k), rows in tables:
+        same(buckets.cpu(), want_buckets, "jump table buckets")
+        times = check_table(kd, ed, fd, buckets, k, rows)
+    walk_plain_ms = walk_ms = 0.0
+    lanes = 0
+    for args, got in walks:
+        plain_ms = check_walk(*args, got)
+        if args[2].shape[0] >= lanes:
+            lanes = args[2].shape[0]
+            walk_plain_ms = plain_ms
+            walk_ms = event_ms(lambda: walk_kernel(*args), 3)
+    replay = {"tables": len(tables), "walks": len(walks), "identical": True,
+              "walk_lanes": lanes, "walk_ms": round(walk_ms, 4),
+              "walk_plain_ms": round(walk_plain_ms, 2), **times,
+              "seconds": round(time.perf_counter() - t0, 2)}
+    log(f"partition replay: {replay}")
+    return {"seeds": rois.num_records, "records": graph.num_records,
+            "identical": True, "runs": runs, "launches": launches, "replay": replay}
+
+
+def sw_full_phase(dev, rng) -> dict:
+    """Phase 8: the full-matrix SW kernel (full and band-masked) and
+    banded_sw_pallas against their plain twins."""
+    batch, qlen, slen = SW_FULL_SHAPE
+    q, s = sw_pairs(rng, batch, qlen, slen, 64)
+    qt, st = torch.from_numpy(q).to(dev), torch.from_numpy(s).to(dev)
+    tsw.FULL_LAUNCHES = 0
+    got = {band: tsw.sw_full(qt, st, band) for band in SW_FULL_BANDS}
+    torch.cuda.synchronize()
+    launches = tsw.FULL_LAUNCHES
+    if launches != len(SW_FULL_BANDS):
+        raise AssertionError(f"sw_full launched {launches} times for {len(SW_FULL_BANDS)} calls")
+    err, shapes = 0.0, []
+    for band in SW_FULL_BANDS:
+        want = tsw.sw_full_scores(qt, st, band)         # doubles as warm-up
+        err = max(err, sw_diff(got[band], want, "sw_full"))
+        k_ms = event_ms(lambda: tsw.sw_full(qt, st, band), 5)
+        p_ms, _ = host_ms(lambda: tsw.sw_full_scores(qt, st, band))
+        cells = batch * qlen * slen
+        shapes.append({"batch": batch, "q": qlen, "s": slen, "band": band,
+                       "kernel_ms": round(k_ms, 4), "plain_ms": round(p_ms, 2),
+                       "kernel_gcups": round(cells / k_ms / 1e6, 3)})
+        log(f"sw_full band {band}: kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+    banded_err = sw_diff(tsw.banded_sw_pallas(qt, st, 64),
+                         tsw.banded_sw_scores(qt, st, 64), "banded_sw_pallas")
+    return {"launches": launches, "err": err, "shapes": shapes,
+            "banded_sw_pallas_err": banded_err}
 
 
 def main() -> int:
@@ -351,7 +666,22 @@ def main() -> int:
          sw_windows=rp["sw_windows"], tesserae_sections=rp["tesserae_sections"],
          identical=True, seconds=round(rp["seconds"], 2))
 
+    # ---- 6. the jump table and walk at bench.py's graph -------------------
+    jp = jump_phase(dev)
+    emit("jump_vs_plain", identical=True, **jp)
+
+    # ---- 7. Partition's device routes on the main path's inputs -----------
+    pp = partition_phase(dev, out)
+    emit("partition_device", **pp)
+
+    # ---- 8. the full-matrix SW kernel --------------------------------------
+    sp = sw_full_phase(dev, rng)
+    emit("sw_full_vs_plain", bit_identical=True, max_abs_err=sp["err"],
+         launches=sp["launches"], shapes=sp["shapes"],
+         banded_sw_pallas_identical=True)
+
     prod = sw_times[0]
+    full = sp["shapes"][0]
     print(json.dumps({"kernels": [
         {"name": "sw_banded", "route": "cuda",
          "source": "corticall_tpu_torch/csrc/sw_banded.cu",
@@ -364,6 +694,26 @@ def main() -> int:
          "launches": launches["tesserae"], "max_abs_err": ts_err,
          "ms": round(sum(r["kernel_ms"] for r in ts_rows), 3),
          "plain_ms": round(sum(r["plain_ms"] for r in ts_rows), 1)},
+        {"name": "jump_walk", "route": "cuda",
+         "source": "corticall_tpu_torch/csrc/jump.cu",
+         "replaces": "corticall_tpu/ops/cuckoo.py:1096",
+         "launches": pp["launches"]["jump_walk"], "max_abs_err": 0.0,
+         "ms": pp["replay"]["walk_ms"], "plain_ms": pp["replay"]["walk_plain_ms"]},
+        {"name": "jump_stage0", "route": "cuda",
+         "source": "corticall_tpu_torch/csrc/jump.cu",
+         "replaces": "corticall_tpu/ops/cuckoo.py:757",
+         "launches": pp["launches"]["jump_stage0"], "max_abs_err": 0.0,
+         "ms": pp["replay"]["stage0_ms"], "plain_ms": pp["replay"]["stage0_plain_ms"]},
+        {"name": "jump_compose", "route": "cuda",
+         "source": "corticall_tpu_torch/csrc/jump.cu",
+         "replaces": "corticall_tpu/ops/cuckoo.py:805",
+         "launches": pp["launches"]["jump_compose"], "max_abs_err": 0.0,
+         "ms": pp["replay"]["compose_ms"], "plain_ms": pp["replay"]["compose_plain_ms"]},
+        {"name": "sw_full", "route": "cuda",
+         "source": "corticall_tpu_torch/csrc/sw_banded.cu",
+         "replaces": "corticall_tpu/ops/sw_device.py:236",
+         "launches": sp["launches"], "max_abs_err": sp["err"],
+         "ms": full["kernel_ms"], "plain_ms": full["plain_ms"]},
     ]}), flush=True)
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(nvidia_smi(), flush=True)

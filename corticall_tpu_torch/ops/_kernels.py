@@ -1,10 +1,11 @@
 """Build and bind the port's CUDA kernels (`corticall_tpu_torch/csrc/*.cu`).
 
-At first use nvcc compiles every source into one shared library with a plain
-C interface, under `build/kernels/` at the repository root, named by a hash of
-the sources and flags; ctypes loads it.  Each C entry point launches on the
-stream it is given and returns `cudaGetLastError()`; `check` turns a non-zero
-code into an exception.  Nothing here is imported or built until a wrapper is
+At first use nvcc compiles every source to an object, one nvcc process a
+source, all started together, and links the objects into one shared library
+with a plain C interface, under `build/kernels/` at the repository root, named
+by a hash of the sources and flags; ctypes loads it.  Each C entry point
+launches on the stream it is given and returns `cudaGetLastError()`; `check`
+turns a non-zero code into an exception.  Nothing here is imported or built until a wrapper is
 called on a CUDA tensor.
 
 `--fmad=false` is part of the contract: the kernels must round exactly like
@@ -29,13 +30,17 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argtypes (every pointer and the stream are c_void_p)
 _SIGNATURES = {
     "ctk_sw_banded": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "ctk_sw_full": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "ctk_tesserae": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P),
+    "ctk_jump_stage0": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "ctk_jump_compose": (_P, _P, _I, _P),
+    "ctk_jump_walk": (_P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
 }
 
 _lib = None
@@ -68,22 +73,44 @@ def build(ptxas_verbose: bool = False) -> dict:
     """Compile csrc/*.cu unless the library for these sources exists (always
     when `ptxas_verbose`, whose log lists each kernel's registers, shared
     memory and spills).  Returns {"path", "seconds", "log"}; raises with
-    nvcc's output when the build fails."""
+    nvcc's output when a compile or the link fails."""
     path = library_path()
     if os.path.exists(path) and not ptxas_verbose:
         return {"path": path, "seconds": 0.0, "log": ""}
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if ptxas_verbose else ()),
-           "-o", tmp, *sources()]
+    nvcc = _nvcc()
+    verbose = ("-Xptxas", "-v") if ptxas_verbose else ()
+    tag = str(os.getpid())
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)
-    return {"path": path, "seconds": seconds, "log": proc.stdout + proc.stderr}
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+            for src in sources()]
+    tmp = f"{path}.{tag}.tmp"
+    try:
+        procs = []
+        for src, obj in zip(sources(), objs):
+            cmd = [nvcc, *NVCC_FLAGS, *verbose, "-c", "-o", obj, src]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            log.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed with code {proc.returncode}:\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)
+    finally:
+        for leftover in (*objs, tmp):
+            if os.path.exists(leftover):
+                os.remove(leftover)
+    return {"path": path, "seconds": time.perf_counter() - t0,
+            "log": "".join(log) + proc.stdout + proc.stderr}
 
 
 def library() -> ctypes.CDLL:

@@ -40,7 +40,7 @@ def run_pipeline(workdir: str, reads_by_sample: dict, child: str,
                  shared_graphs: dict | None = None, device=None) -> dict:
     """Execute the production pipeline from reads to VCF; arguments and
     result keys as corticall_tpu.pipeline.run_pipeline, plus `device` for
-    the Call stage's kernels (default: CUDA when present)."""
+    the Partition and Call stages' kernels (default: CUDA when present)."""
     device = resolve(device)
     pl = Pipeline(workdir, resume=resume, log=log)
     samples = [child] + list(parents)
@@ -149,7 +149,8 @@ def run_pipeline(workdir: str, reads_by_sample: dict, child: str,
         stats: dict = {}
         parts = core.partition(joined, rois, links=links, max_walk=max_walk,
                                stats=stats,
-                               checkpoint=pl.path("partition.ckpt.npz"))
+                               checkpoint=pl.path("partition.ckpt.npz"),
+                               device=device)
         _write_fasta_list(path, parts)
         stats["partitions"] = len(parts)
         return parts, stats

@@ -87,6 +87,32 @@ def test_pipeline_matches_jax_with_device_routes(tmp_path, monkeypatch, trio):
     assert len(got["variants"]) > 0
 
 
+def test_pipeline_matches_jax_with_linked_partition_on_device(tmp_path,
+                                                             monkeypatch, trio):
+    """Partition's linked jump-table route forced in both packages."""
+    pytest.importorskip("jax")
+    from corticall_tpu.commands import core as jcore
+    from corticall_tpu.pipeline import run_pipeline as jax_run_pipeline
+    from corticall_tpu_torch.commands import core as tcore
+    reads, refs = trio
+    monkeypatch.setattr(jcore, "_NATIVE_LINK_THRESHOLD", -1)
+    monkeypatch.setattr(tcore, "NATIVE_LINK_THRESHOLD", -1)
+    opts = dict(references=refs, k=K, min_coverage=2)
+    want = jax_run_pipeline(str(tmp_path / "jax"), reads, "kid", ["mom", "dad"],
+                            **opts)
+    got = run_pipeline(str(tmp_path / "torch"), reads, "kid", ["mom", "dad"],
+                       device="cpu", **opts)
+    for name in ARTIFACTS:
+        assert (tmp_path / "torch" / name).read_bytes() == \
+            (tmp_path / "jax" / name).read_bytes(), name
+    got_p, want_p = got["stats"]["partition"], want["stats"]["partition"]
+    assert got_p["walk_kernel"] == want_p["walk_kernel"] == "jump_table"
+    for key in ("link_replays", "device_steps", "link_junctions_resolved",
+                "partitions"):
+        assert got_p[key] == want_p[key], key
+    assert len(got["variants"]) > 0
+
+
 def test_port_runs_without_jax(tmp_path):
     """Every module of the port imports, and the pipeline runs, in a process
     where `import jax` fails."""

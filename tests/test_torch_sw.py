@@ -1,7 +1,7 @@
-"""Port's banded SW (corticall_tpu_torch/ops/sw_device.py) against the JAX
-package's scan twin and Pallas kernel, and its CUDA kernel against the
-plain twin.  Every value is a multiple of 0.5, so all comparisons are
-bit-exact."""
+"""Port's banded and full-matrix SW (corticall_tpu_torch/ops/sw_device.py)
+against the JAX package's scan twin and Pallas kernels (sw_banded_pallas,
+sw_pallas, banded_sw_pallas), and its CUDA kernels against the plain twins.
+Every value is a multiple of 0.5, so all comparisons are bit-exact."""
 
 import numpy as np
 import pytest
@@ -128,3 +128,83 @@ def test_kernel_matches_plain_on_card(cuda, batch, qlen, slen, band):
     torch.cuda.synchronize()
     assert tsw.LAUNCHES == before + 1
     _assert_same(got, tsw.banded_sw_scores(qt, st, band))
+
+
+# ---------------------------------------------------------------------------
+# the full-matrix / band-masked contract (sw_pallas) and banded_sw_pallas
+# ---------------------------------------------------------------------------
+
+def _sw_device_cases():
+    """tests/test_sw_device.py's cases: Gotoh-checked pairs (SNPs, indels)
+    and the random junk pairs whose best paths drift off the diagonal."""
+    from test_sw_device import _cases
+    swd = _jax_sw()
+    qs, ss = _cases(np.random.default_rng(105), 24)
+    out = [(swd.codes_batch(qs, max(map(len, qs))),
+            swd.codes_batch(ss, max(map(len, ss))))]
+    rng = np.random.default_rng(106)
+    qn = rng.integers(0, 4, (64, 96)).astype(np.int32)
+    sn = rng.integers(0, 4, (64, 120)).astype(np.int32)
+    for i in range(0, 64, 2):
+        sn[i, :96] = qn[i]
+    out.append((qn, sn))
+    out.append(_mutated_pairs(np.random.default_rng(107), 13, 90, 130))
+    return out
+
+
+@pytest.mark.parametrize("band", [None, 64])
+def test_full_plain_matches_jax_sw_pallas(band):
+    swd = _jax_sw()
+    for q, s in _sw_device_cases():
+        got = tsw.sw_full_scores(torch.from_numpy(q), torch.from_numpy(s), band)
+        _assert_same(got, swd.sw_pallas(q, s, band=band, interpret=True))
+
+
+def test_full_plain_band_masked_matches_banded_twin():
+    # with a band the masked full matrix scores the banded twin's cells
+    for q, s in _sw_device_cases()[1:]:
+        qt, st = torch.from_numpy(q), torch.from_numpy(s)
+        _assert_same(tsw.sw_full_scores(qt, st, 64), tsw.banded_sw_scores(qt, st, 64))
+
+
+def test_banded_sw_pallas_matches_jax():
+    swd = _jax_sw()
+    from test_sw_device import _cases
+    qs, ss = _cases(np.random.default_rng(102), 13)
+    q = swd.codes_batch(qs, max(map(len, qs)))
+    s = swd.codes_batch(ss, max(map(len, ss)))
+    got = tsw.banded_sw_pallas(torch.from_numpy(q), torch.from_numpy(s), 128)
+    _assert_same(got, swd.banded_sw_pallas(q, s, band=128, interpret=True))
+
+
+def test_full_wrapper_on_cpu_runs_plain_twin_and_validates():
+    rng = np.random.default_rng(208)
+    q, s = _mutated_pairs(rng, 6, 40, 60)
+    qt, st = torch.from_numpy(q), torch.from_numpy(s)
+    before = tsw.FULL_LAUNCHES
+    _assert_same(tsw.sw_full(qt, st), tsw.sw_full_scores(qt, st))
+    _assert_same(tsw.sw_full(qt, st, 24), tsw.sw_full_scores(qt, st, 24))
+    assert tsw.FULL_LAUNCHES == before
+    with pytest.raises(ValueError):
+        tsw.sw_full(qt, st, 0)
+    with pytest.raises(ValueError):
+        tsw.sw_full(qt, torch.full((6, tsw.MAX_FULL_S + 1), 4, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        tsw.sw_full(qt.long(), st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,qlen,slen,band", [(24, 300, 420, None),
+                                                  (24, 300, 420, 64),
+                                                  (5, 100, 4500, None),
+                                                  (4, 60, 8192, 256),
+                                                  (7, 40, 30, None)])
+def test_full_kernel_matches_plain_on_card(cuda, batch, qlen, slen, band):
+    rng = np.random.default_rng(209 + slen)
+    q, s = _mutated_pairs(rng, batch, qlen, slen)
+    qt, st = torch.from_numpy(q).to(cuda), torch.from_numpy(s).to(cuda)
+    before = tsw.FULL_LAUNCHES
+    got = tsw.sw_full(qt, st, band)
+    torch.cuda.synchronize()
+    assert tsw.FULL_LAUNCHES == before + 1
+    _assert_same(got, tsw.sw_full_scores(qt, st, band))

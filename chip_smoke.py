@@ -12,15 +12,18 @@ Phases, one JSON line each (progress goes to stderr):
 3. kernels against their plain PyTorch twins on the card: banded SW at the
    production pre-score shape (B=256, Q=4096, S=8192, band 512) and at
    B=1024, Q=512, S=1024, band 64; Tesserae on 8 recombinant sections of
-   2-16 targets of 500-4000 bp.  Outputs must be bit-identical; the times
-   are CUDA-event kernel times and synchronized host times of the twin;
-4. the main path: a 2 Mbp / 2-chromosome / 20-DNM trio (demo_pf_cross's
-   cross, 20x reads of 150 bp) through corticall_tpu_torch.pipeline
-   .run_pipeline, with every kernel launch counted, and the calls scored
-   against the simulation truth (demo_pf_cross.evaluate's k-mer Venn);
+   2-16 targets of 500-4000 bp, with the cluster each ran on.  Outputs must
+   be bit-identical; the times are CUDA-event kernel times and synchronized
+   host times of the twin, beside each kernel's bound;
+4. the main path: a 2 Mbp / 2-chromosome / 20-DNM trio (the port's
+   demo.make_cross, 20x reads of 150 bp) through corticall_tpu_torch
+   .pipeline.run_pipeline, with every kernel launch counted, and the calls
+   scored against the simulation truth (demo.evaluate's k-mer Venn);
 5. every SW batch and Tesserae section that the pipeline sent to a kernel,
-   replayed through the plain twin on the card; any difference fails;
-6. jump_vs_plain: the jump table of bench.py's graph at k=47 and 21M bases
+   replayed through the plain twin on the card (any difference fails), and
+   the kernels timed at those shapes;
+6. jump_vs_plain: the jump table of bench.py's graph (demo.build_bench_graph,
+   a copy) at k=47 and 21M bases
    (about the flagship trio's 23.7M records), built by the kernels and by
    the plain twin, compared row for row and bucket for bucket; 262,144
    walks of at most 2,000 steps (bench.py's BENCH_WALKS, BENCH_STEPS_JUMP)
@@ -37,11 +40,12 @@ Phases, one JSON line each (progress goes to stderr):
    B=1024, Q=512, S=1024, full and band 64, and banded_sw_pallas (the
    banded kernel under the JAX package's name) against the banded twin.
 
-Then one JSON line with each kernel's route, source, launches, error and
-times, the nvidia-smi line, and the result line.  Any failure raises: the
-run exits non-zero and prints no result, as it does without a CUDA device or
-outside the repository.  jax is never imported.  About 6 minutes on one
-H100, most of it host work (graph simulation and builds, the placement).
+Then one JSON line with each kernel's route, source, launches, error,
+times and bound, the nvidia-smi line, and the result line.  Any failure
+raises: the run exits non-zero and prints no result, as it does without a
+CUDA device or outside the repository.  Neither jax nor the JAX package
+(corticall_tpu) is ever imported.  About 6 minutes on one H100, most of it
+host work (graph simulation and builds, the placement).
 """
 
 import json
@@ -52,6 +56,7 @@ import tempfile
 import time
 
 sys.modules["jax"] = None          # the port must run without jax
+sys.modules["corticall_tpu"] = None  # and without the JAX package
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
@@ -77,6 +82,51 @@ NATIVE_SEEDS = 16_384                        # BENCH_NATIVE_SEEDS
 SWEEP_SEEDS = (1024, 4096, 16384, 65536)
 SW_FULL_SHAPE, SW_FULL_BANDS = (1024, 512, 1024), (None, 64)
 
+# The least time the card could take for a kernel's work: the larger of its
+# bytes (each input read once, each output written once) over the HBM rate
+# and its operations over the float32 rate outside the tensor cores, both the
+# published peaks of one H100 SXM at 700 W.  Operations a cell, counted from
+# the kernels' inner loops: SW ~12 (substitution select, diagonal add, two
+# gap maxima of two adds each, the H maximum, the prefix-scan step); Tesserae
+# ~40 a cell and column (three local candidates, two recombination compares,
+# emissions, the delete scan, the argmax and the traceback code).  The jump
+# kernels count their bytes, which bound them: a stage-0 record reads its
+# words, edges and flag and two landing buckets a orientation and writes two
+# rows; a compose pass reads and writes the rows and reads one more row a
+# row; a walk reads its seed, one 16-byte row a jump and writes its outputs.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+SW_OPS_PER_CELL = 12
+TESSERAE_OPS_PER_CELL = 40
+JUMP_ROW_BYTES = 16
+
+
+def bound_ms(nbytes: float, ops: float = 0.0):
+    """(least time in ms, "bytes" or "operations") for the work."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def bound_fields(bound) -> dict:
+    return {"bound_ms": round(bound[0], 6), "bound_by": bound[1]}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def sw_bound(q, s, cells):
+    return bound_ms(nbytes(q, s) + 3 * 4 * q.shape[0], SW_OPS_PER_CELL * cells)
+
+
+def tesserae_bound(args):
+    """Bound of one section: its inputs, its cells and columns, its path."""
+    q, t, valid, (scal, lsm, lsi) = args
+    cap = q.shape[0] + t.shape[1] + 5
+    io = nbytes(q, t, valid, scal, lsm, lsi) + 4 * (2 + 3 * cap)
+    return bound_ms(io, TESSERAE_OPS_PER_CELL * q.shape[0] * t.shape[0] * (t.shape[1] + 1))
+
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -97,7 +147,7 @@ def native_probe() -> dict:
     """Load the native core in a child process: a library built for another
     CPU may die with SIGILL, which must be reported, not crash this run."""
     code = ("import sys; sys.path.insert(0, %r); "
-            "from corticall_tpu import native; print(native.available())" % REPO)
+            "from corticall_tpu_torch import native; print(native.available())" % REPO)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=600)
     return {"returncode": proc.returncode,
@@ -224,9 +274,14 @@ def check_table(kd, ed, fd, buckets, k, rows) -> dict:
     del state, rows0, rows1
     rows_plain_ms, plain_rows = host_ms(lambda: tj.jump_rows_plain(kd, ed, fd, buckets, k))
     same(rows, plain_rows, "jump table rows")
+    bucket_bytes = 2 * buckets.shape[2] * 4                 # one bucket: 2 entries
+    stage0_bound = bound_ms(nbytes(kd, ed, fd, rows) + kd.shape[0] * 2 * 2 * bucket_bytes)
+    compose_bound = bound_ms(2 * nbytes(rows) + rows.shape[0] * JUMP_ROW_BYTES)
     return {"stage0_ms": round(stage0_ms, 4), "stage0_plain_ms": round(stage0_plain_ms, 2),
+            "stage0_bound": bound_fields(stage0_bound),
             "compose_ms": round(compose_ms, 4),
             "compose_plain_ms": round(compose_plain_ms, 2),
+            "compose_bound": bound_fields(compose_bound),
             "rows_plain_ms": round(rows_plain_ms, 2)}
 
 
@@ -248,6 +303,13 @@ def check_walk(buckets, rows, seeds, k, num_steps, got) -> float:
     return plain_ms
 
 
+def walk_bound(seeds, got) -> float:
+    """Bound of one walk: its seeds and outputs, and a 16-byte row a jump
+    (ceil(steps / 32) + 1 jumps a lane)."""
+    jumps = int(((got[1].long() + 31) // 32 + 1).sum())
+    return bound_ms(nbytes(seeds, *got) + jumps * JUMP_ROW_BYTES)
+
+
 def tesserae_diff(got, want) -> float:
     """|max_r| difference; raises unless cells, n and max_r's bits agree."""
     (g_r, g_cells, g_n), (w_r, w_cells, w_n) = got, want
@@ -264,9 +326,9 @@ def tesserae_diff(got, want) -> float:
 def run_main_path(dev, mbp):
     """Simulate the trio, run the port's pipeline with every kernel launch
     counted and every kernel input recorded, and score the calls."""
-    from demo_pf_cross import evaluate, make_cross
-    from corticall_tpu import simulate as sim
-    from corticall_tpu.models.reference_index import IndexedReference
+    from corticall_tpu_torch import simulate as sim
+    from corticall_tpu_torch.demo import evaluate, make_cross
+    from corticall_tpu_torch.models.reference_index import IndexedReference
     from corticall_tpu_torch.pipeline import run_pipeline
 
     t0 = time.perf_counter()
@@ -331,26 +393,47 @@ def check_main_path(mp) -> None:
 
 def replay(mp) -> dict:
     """Every SW batch and Tesserae section the pipeline sent to a kernel,
-    through the plain twin on the same device; raises on any difference."""
+    through the plain twin on the same device; raises on any difference.
+    Times each kernel and twin at those shapes (CUDA events for the kernel,
+    the host clock for the twin) and sums their bounds."""
     t0 = time.perf_counter()
     sw_err = ts_err = 0.0
+    sw = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "operations", "shapes": []}
     for (q, s, band), got in mp["sw_sent"]:
-        sw_err = max(sw_err, sw_diff(got, tsw.banded_sw_scores(q, s, band)))
+        p_ms, want = host_ms(lambda: tsw.banded_sw_scores(q, s, band))
+        sw_err = max(sw_err, sw_diff(got, want))
+        k_ms = event_ms(lambda: tsw.sw_banded(q, s, band), 3)
+        b_ms, sw["bound_by"] = sw_bound(q, s, q.shape[0] * q.shape[1] * band)
+        sw["ms"] += k_ms
+        sw["plain_ms"] += p_ms
+        sw["bound_ms"] += b_ms
+        sw["shapes"].append([int(q.shape[0]), int(q.shape[1]), int(s.shape[1]), band,
+                             round(k_ms, 4)])
+    ts = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "operations",
+          "clusters": {}}
     for args, got in mp["ts_sent"]:
-        ts_err = max(ts_err, tesserae_diff(got, tt.tesserae_full(*args)))
+        p_ms, want = host_ms(lambda: tt.tesserae_full(*args))
+        ts_err = max(ts_err, tesserae_diff(got, want))
+        ts["ms"] += event_ms(lambda: tt.tesserae_fused(*args), 1)
+        ts["plain_ms"] += p_ms
+        b_ms, ts["bound_by"] = tesserae_bound(args)
+        ts["bound_ms"] += b_ms
+        cluster = tt.kernel_config(args[1].shape[0], args[1].shape[1] + 1)[1]
+        ts["clusters"][cluster] = ts["clusters"].get(cluster, 0) + 1
     return {"sw_err": sw_err, "ts_err": ts_err, "sw_batches": len(mp["sw_sent"]),
             "sw_windows": sum(int(a[0].shape[0]) for a, _ in mp["sw_sent"]),
-            "tesserae_sections": len(mp["ts_sent"]),
+            "tesserae_sections": len(mp["ts_sent"]), "sw": sw, "tesserae": ts,
             "seconds": time.perf_counter() - t0}
+
 
 
 def jump_phase(dev) -> dict:
     """Phase 6: the jump table and walk at bench.py's graph, kernels against
     the plain twins, and the device route against the native walker."""
-    from bench import build_bench_graph
-    from corticall_tpu import kmer as km
-    from corticall_tpu import native as nat
-    from corticall_tpu.ops import walk_np as wnp
+    from corticall_tpu_torch import kmer as km
+    from corticall_tpu_torch import native as nat
+    from corticall_tpu_torch.demo import build_bench_graph
+    from corticall_tpu_torch.ops import walk_np as wnp
 
     t0 = time.perf_counter()
     g, genome = build_bench_graph(JUMP_K, JUMP_BASES)
@@ -532,6 +615,7 @@ def partition_phase(dev, out) -> dict:
         same(buckets.cpu(), want_buckets, "jump table buckets")
         times = check_table(kd, ed, fd, buckets, k, rows)
     walk_plain_ms = walk_ms = 0.0
+    walk_bound_ms = (0.0, "bytes")
     lanes = 0
     for args, got in walks:
         plain_ms = check_walk(*args, got)
@@ -539,9 +623,11 @@ def partition_phase(dev, out) -> dict:
             lanes = args[2].shape[0]
             walk_plain_ms = plain_ms
             walk_ms = event_ms(lambda: walk_kernel(*args), 3)
+            walk_bound_ms = walk_bound(args[2], got)
     replay = {"tables": len(tables), "walks": len(walks), "identical": True,
               "walk_lanes": lanes, "walk_ms": round(walk_ms, 4),
-              "walk_plain_ms": round(walk_plain_ms, 2), **times,
+              "walk_plain_ms": round(walk_plain_ms, 2),
+              "walk_bound": bound_fields(walk_bound_ms), **times,
               "seconds": round(time.perf_counter() - t0, 2)}
     log(f"partition replay: {replay}")
     return {"seeds": rois.num_records, "records": graph.num_records,
@@ -569,7 +655,8 @@ def sw_full_phase(dev, rng) -> dict:
         cells = batch * qlen * slen
         shapes.append({"batch": batch, "q": qlen, "s": slen, "band": band,
                        "kernel_ms": round(k_ms, 4), "plain_ms": round(p_ms, 2),
-                       "kernel_gcups": round(cells / k_ms / 1e6, 3)})
+                       "kernel_gcups": round(cells / k_ms / 1e6, 3),
+                       **bound_fields(sw_bound(qt, st, cells))})
         log(f"sw_full band {band}: kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
     banded_err = sw_diff(tsw.banded_sw_pallas(qt, st, 64),
                          tsw.banded_sw_scores(qt, st, 64), "banded_sw_pallas")
@@ -614,7 +701,8 @@ def main() -> int:
         cells = batch * qlen * band
         sw_times.append({"batch": batch, "q": qlen, "s": slen, "band": band,
                          "kernel_ms": round(k_ms, 4), "plain_ms": round(p_ms, 2),
-                         "kernel_gcups": round(cells / k_ms / 1e6, 3)})
+                         "kernel_gcups": round(cells / k_ms / 1e6, 3),
+                         **bound_fields(sw_bound(qt, st, cells))})
         log(f"sw {batch}x{qlen}x{slen} band {band}: kernel {k_ms:.3f} ms, "
             f"plain {p_ms:.1f} ms")
     emit("sw_banded_vs_plain", bit_identical=True, max_abs_err=sw_err,
@@ -633,9 +721,12 @@ def main() -> int:
         got = tt.tesserae_fused(*args)
         p_ms, want = host_ms(lambda: tt.tesserae_full(*args))
         ts_err = max(ts_err, tesserae_diff(got, want))
+        per, cluster, threads = tt.kernel_config(args[1].shape[0], args[1].shape[1] + 1)
         ts_rows.append({"targets": len(targets), "query": len(query),
                         "width": args[1].shape[1] + 1, "kernel_ms": round(k_ms, 3),
-                        "plain_ms": round(p_ms, 1), "path_cells": int(got[2])})
+                        "plain_ms": round(p_ms, 1), "path_cells": int(got[2]),
+                        "cluster": cluster, "threads": threads, "cells_per_thread": per,
+                        **bound_fields(tesserae_bound(args))})
         log(f"tesserae S={len(targets)} L={len(query)}: kernel {k_ms:.2f} ms, "
             f"plain {p_ms:.0f} ms")
     emit("tesserae_vs_plain", identical=True, max_abs_err=ts_err, sections=ts_rows)
@@ -664,7 +755,10 @@ def main() -> int:
     sw_err, ts_err = max(sw_err, rp["sw_err"]), max(ts_err, rp["ts_err"])
     emit("main_path_replay", sw_batches=rp["sw_batches"],
          sw_windows=rp["sw_windows"], tesserae_sections=rp["tesserae_sections"],
-         identical=True, seconds=round(rp["seconds"], 2))
+         identical=True, seconds=round(rp["seconds"], 2),
+         sw={key: (round(v, 5) if isinstance(v, float) else v) for key, v in rp["sw"].items()},
+         tesserae={key: (round(v, 5) if isinstance(v, float) else v)
+                   for key, v in rp["tesserae"].items()})
 
     # ---- 6. the jump table and walk at bench.py's graph -------------------
     jp = jump_phase(dev)
@@ -680,40 +774,54 @@ def main() -> int:
          launches=sp["launches"], shapes=sp["shapes"],
          banded_sw_pallas_identical=True)
 
-    prod = sw_times[0]
-    full = sp["shapes"][0]
+    prod, full, rp_sw, rp_ts = sw_times[0], sp["shapes"][0], rp["sw"], rp["tesserae"]
+    replayed = pp["replay"]
+    # no single PyTorch call computes any of these functions (banded or
+    # full Smith-Waterman, the Tesserae HMM, a cuckoo jump table): library_ms
+    # is null for each
     print(json.dumps({"kernels": [
         {"name": "sw_banded", "route": "cuda",
          "source": "corticall_tpu_torch/csrc/sw_banded.cu",
          "replaces": "corticall_tpu/ops/sw_device.py:366",
          "launches": launches["sw_banded"], "max_abs_err": sw_err,
-         "ms": prod["kernel_ms"], "plain_ms": prod["plain_ms"]},
+         "ms": prod["kernel_ms"], "plain_ms": prod["plain_ms"],
+         "bound_ms": prod["bound_ms"], "bound_by": prod["bound_by"], "library_ms": None,
+         "main_path_ms": round(rp_sw["ms"], 4), "main_path_plain_ms": round(rp_sw["plain_ms"], 2),
+         "main_path_bound_ms": round(rp_sw["bound_ms"], 5)},
         {"name": "tesserae", "route": "cuda",
          "source": "corticall_tpu_torch/csrc/tesserae.cu",
          "replaces": "corticall_tpu/ops/tesserae_jax.py:200",
          "launches": launches["tesserae"], "max_abs_err": ts_err,
          "ms": round(sum(r["kernel_ms"] for r in ts_rows), 3),
-         "plain_ms": round(sum(r["plain_ms"] for r in ts_rows), 1)},
+         "plain_ms": round(sum(r["plain_ms"] for r in ts_rows), 1),
+         "bound_ms": round(sum(r["bound_ms"] for r in ts_rows), 6),
+         "bound_by": ts_rows[0]["bound_by"], "library_ms": None,
+         "main_path_ms": round(rp_ts["ms"], 3), "main_path_plain_ms": round(rp_ts["plain_ms"], 1),
+         "main_path_bound_ms": round(rp_ts["bound_ms"], 5)},
         {"name": "jump_walk", "route": "cuda",
          "source": "corticall_tpu_torch/csrc/jump.cu",
          "replaces": "corticall_tpu/ops/cuckoo.py:1096",
          "launches": pp["launches"]["jump_walk"], "max_abs_err": 0.0,
-         "ms": pp["replay"]["walk_ms"], "plain_ms": pp["replay"]["walk_plain_ms"]},
+         "ms": replayed["walk_ms"], "plain_ms": replayed["walk_plain_ms"],
+         **replayed["walk_bound"], "library_ms": None},
         {"name": "jump_stage0", "route": "cuda",
          "source": "corticall_tpu_torch/csrc/jump.cu",
          "replaces": "corticall_tpu/ops/cuckoo.py:757",
          "launches": pp["launches"]["jump_stage0"], "max_abs_err": 0.0,
-         "ms": pp["replay"]["stage0_ms"], "plain_ms": pp["replay"]["stage0_plain_ms"]},
+         "ms": replayed["stage0_ms"], "plain_ms": replayed["stage0_plain_ms"],
+         **replayed["stage0_bound"], "library_ms": None},
         {"name": "jump_compose", "route": "cuda",
          "source": "corticall_tpu_torch/csrc/jump.cu",
          "replaces": "corticall_tpu/ops/cuckoo.py:805",
          "launches": pp["launches"]["jump_compose"], "max_abs_err": 0.0,
-         "ms": pp["replay"]["compose_ms"], "plain_ms": pp["replay"]["compose_plain_ms"]},
+         "ms": replayed["compose_ms"], "plain_ms": replayed["compose_plain_ms"],
+         **replayed["compose_bound"], "library_ms": None},
         {"name": "sw_full", "route": "cuda",
          "source": "corticall_tpu_torch/csrc/sw_banded.cu",
          "replaces": "corticall_tpu/ops/sw_device.py:236",
          "launches": sp["launches"], "max_abs_err": sp["err"],
-         "ms": full["kernel_ms"], "plain_ms": full["plain_ms"]},
+         "ms": full["kernel_ms"], "plain_ms": full["plain_ms"],
+         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"], "library_ms": None},
     ]}), flush=True)
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(nvidia_smi(), flush=True)

@@ -1,6 +1,11 @@
-"""Partition for the port: the routes of corticall_tpu.commands.core.partition.
+"""Command-layer core: graph algebra, ROI discovery, prefilters, Partition.
 
-- link_novels: the exact host engine (core._partition_host).
+The host functions (join, remove, FindROIs, the prefilters, the greedy
+partition emit and the exact host engine) are copies of
+corticall_tpu/commands/core.py.  Partition takes the routes of the JAX
+package's partition:
+
+- link_novels: the exact host engine (_partition_host).
 - with links (core.py:623-779): the native C++ linked walker when the native
   core loads and the seed batch is at most linked_device_min(records) — the
   route the pipeline takes at P. falciparum scale; otherwise the jump-table
@@ -21,23 +26,375 @@ over.
 
 from __future__ import annotations
 
+import gzip
 import time
 
 import numpy as np
 import torch
 
-from corticall_tpu import graph as gr
-from corticall_tpu import kmer as km
-from corticall_tpu import native as nat
-from corticall_tpu.commands import core as _core
-from corticall_tpu.ops import walk_np as wnp
-from corticall_tpu.traversal import (BOTH, OR, TraversalConfig, TraversalEngine,
-                                     to_contig, to_walk)
-from corticall_tpu.traversal.stopping import ContigStopper
-from corticall_tpu.utils import checkpoint as ckpt
-
-from ..device import resolve
+from .. import graph as gr
+from .. import kmer as km
+from .. import native as nat
+from ..io import ctx as ctxio
 from ..ops import jump
+from ..ops import walk_np as wnp
+from ..device import resolve
+from ..traversal import (AND, BOTH, OR, TraversalConfig, TraversalEngine,
+                         to_contig, to_walk)
+from ..traversal import utils as tu
+from ..traversal.stopping import (ContaminantStopper, ContigStopper,
+                                  NovelPartitionStopper, OrphanStopper)
+from ..utils import checkpoint as ckpt
+
+
+# ---------------------------------------------------------------------------
+# graph algebra (Join / Remove — commands/utils/Join.java, Remove.java)
+# ---------------------------------------------------------------------------
+
+def join(graphs: list) -> gr.CortexGraph:
+    """Merge graphs into one multi-color graph; colors concatenate in input
+    order, kmers union, missing colors zero-filled (CortexCollection.java:34-63)."""
+    k = graphs[0].kmer_size
+    for g in graphs:
+        if g.kmer_size != k:
+            raise ValueError(f"kmer size mismatch: {g.kmer_size} != {k}")
+
+    total_colors = sum(g.num_colors for g in graphs)
+    colors: list[ctxio.CtxColor] = []
+
+    from .. import native as nat
+    merged = nat.merge_runs_native([g.kmers for g in graphs])
+    if merged is not None:
+        # native k-way merge of the already-sorted runs: O(total) with the
+        # per-key union index returned, so payload columns scatter directly
+        kmers, idx_all = merged
+        n = len(kmers)
+        cov = np.zeros((n, total_colors), dtype=np.uint32)
+        edges = np.zeros((n, total_colors), dtype=np.uint8)
+        ac = ofs = 0
+        for g in graphs:
+            idx = idx_all[ofs:ofs + g.num_records]
+            ofs += g.num_records
+            cov[idx, ac:ac + g.num_colors] = g.coverages
+            edges[idx, ac:ac + g.num_colors] = g.edges
+            colors.extend(g.header.colors)
+            ac += g.num_colors
+        uniq = km.words_to_bytes_be(kmers, k)
+        header = ctxio.CtxHeader(6, k, km.containers_per_kmer(k), list(colors))
+        return gr.CortexGraph(ctxio.CtxData(header, kmers, cov, edges, uniq))
+
+    # numpy fallback: each graph's keys are already sorted (record-order
+    # invariant), so an adaptive stable sort merges the runs in near-linear
+    # time (~5x np.unique)
+    all_keys = np.concatenate([g.data.kmer_bytes for g in graphs])
+    srt = np.sort(all_keys, kind="stable")
+    keep = np.ones(len(srt), dtype=bool)
+    keep[1:] = srt[1:] != srt[:-1]
+    uniq = srt[keep]
+    n = len(uniq)
+
+    cov = np.zeros((n, total_colors), dtype=np.uint32)
+    edges = np.zeros((n, total_colors), dtype=np.uint8)
+    ac = 0
+    for g in graphs:
+        idx = np.searchsorted(uniq, g.data.kmer_bytes)
+        cov[idx, ac:ac + g.num_colors] = g.coverages
+        edges[idx, ac:ac + g.num_colors] = g.edges
+        colors.extend(g.header.colors)
+        ac += g.num_colors
+
+    kmers = km.bytes_be_to_words(uniq, k)
+    header = ctxio.CtxHeader(6, k, km.containers_per_kmer(k), list(colors))
+    return gr.CortexGraph(ctxio.CtxData(header, kmers, cov, edges, uniq))
+
+
+def remove(primary: gr.CortexGraph, secondaries: list) -> gr.CortexGraph:
+    """Keep union kmers with zero coverage in every secondary color, sliced to
+    the primary's colors (Remove.java:31-86)."""
+    merged = join([primary] + list(secondaries))
+    pc = primary.num_colors
+    sec_cov = merged.coverages[:, pc:]
+    keep = ~(sec_cov > 0).any(axis=1)
+    data = ctxio.CtxData(
+        primary.header,
+        merged.kmers[keep],
+        merged.coverages[keep][:, :pc].copy(),
+        merged.edges[keep][:, :pc].copy(),
+        merged.data.kmer_bytes[keep],
+    )
+    return gr.CortexGraph(data)
+
+
+def subset_colors(g: gr.CortexGraph, colors: list, mask: np.ndarray,
+                  sample_names=None) -> gr.CortexGraph:
+    """Records where mask is True, restricted to the given colors."""
+    names = sample_names or [g.sample_name(c) for c in colors]
+    header = ctxio.CtxHeader.make(names, g.kmer_size)
+    for i, c in enumerate(colors):
+        header.colors[i] = g.header.colors[c]
+    data = ctxio.CtxData(
+        header,
+        g.kmers[mask],
+        g.coverages[mask][:, colors].copy(),
+        g.edges[mask][:, colors].copy(),
+        g.data.kmer_bytes[mask],
+    )
+    return gr.CortexGraph(data)
+
+
+# ---------------------------------------------------------------------------
+# ROI discovery (FindROIs.java:31-105)
+# ---------------------------------------------------------------------------
+
+def find_rois(g: gr.CortexGraph, child: str, parents: list) -> gr.CortexGraph:
+    """Novel kmers: child coverage > 0 and every parent coverage == 0.
+    Output: single-color graph carrying the child's coverage/edges."""
+    child_color = g.color_for_sample(child)
+    parent_colors = g.colors_for_samples(parents)
+    child_cov = g.coverages[:, child_color] > 0
+    parents_lack = np.ones(g.num_records, dtype=bool)
+    for c in parent_colors:
+        parents_lack &= g.coverages[:, c] == 0
+    mask = child_cov & parents_lack
+    out = subset_colors(g, [child_color], mask)
+    # FindROIs writes a fresh single-color header with default flags
+    out.header.colors[0] = ctxio.CtxColor(sample_name=g.sample_name(child_color))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# prefilters — each returns the EXCLUDED kmers as a 1-color graph with the
+# ROI's header (the WDL pipeline then subtracts them via Remove)
+# ---------------------------------------------------------------------------
+
+def _excluded_subset(roi: gr.CortexGraph, excluded_canon: set) -> gr.CortexGraph:
+    mask = np.zeros(roi.num_records, dtype=bool)
+    for i in range(roi.num_records):
+        if roi.kmer_string(i) in excluded_canon:
+            mask[i] = True
+    return subset_colors(roi, list(range(roi.num_colors)), mask)
+
+
+def adaptive_lowcov_threshold(joined: gr.CortexGraph, child: str,
+                              lo: int = 2, hi: int = 10) -> int:
+    """Coverage-adaptive FindLowCoverage threshold.  The reference WDL fixes
+    `-m 10` (Simulate.wdl:936) for its ~75-100x Pf crosses; a fixed cutoff is
+    exactly the round-2 robustness cliff at 15-20x read depth, where real
+    novel kmers routinely sit at coverage 4-6.  Scale the cutoff with the
+    child sample's median kmer coverage (threshold ~ depth/5, so ~10 at the
+    reference's depth) and clamp to [lo, hi]."""
+    c = joined.color_for_sample(child)
+    cov = joined.coverages[:, c]
+    cov = cov[cov > 0]
+    if cov.size == 0:
+        return lo
+    lam = float(np.median(cov))
+    return int(np.clip(int(np.ceil(lam / 5.0)), lo, hi))
+
+
+def find_low_coverage(roi: gr.CortexGraph, min_coverage: int = 10) -> gr.CortexGraph:
+    """Excluded = ROI records with coverage < min (FindLowCoverage.java:32-66)."""
+    mask = roi.coverages[:, 0] < min_coverage
+    return subset_colors(roi, [0], mask)
+
+
+def find_dust(graph: gr.CortexGraph, roi: gr.CortexGraph, parents: list) -> gr.CortexGraph:
+    """Excluded = ROI records whose own in+out degree > 4 (FindDust.java:44-80,
+    using the ROI's color-0 edges)."""
+    e = roi.edges[:, 0].astype(np.uint16)
+    deg = np.zeros(roi.num_records, dtype=np.int32)
+    for b in range(8):
+        deg += ((e >> b) & 1).astype(np.int32)
+    mask = deg > 4
+    return subset_colors(roi, [0], mask)
+
+
+def compression_ratio(s: str) -> float:
+    """gzip-compressed length / raw length (SequenceUtils.java:794-813)."""
+    b = s.encode()
+    c = gzip.compress(b, compresslevel=6, mtime=0)
+    return len(c) / len(b)
+
+
+def find_low_complexity(graph: gr.CortexGraph, roi: gr.CortexGraph, parents: list,
+                        threshold: float = 0.70) -> gr.CortexGraph:
+    """Excluded = ROI kmers whose gzip compression ratio < threshold
+    (FindLowComplexity.java:41-100)."""
+    mask = np.array([compression_ratio(roi.kmer_string(i)) < threshold
+                     for i in range(roi.num_records)])
+    return subset_colors(roi, [0], mask.astype(bool))
+
+
+def find_tips(graph: gr.CortexGraph, roi: gr.CortexGraph, parents: list,
+              links=(), max_walk: int = 75000) -> gr.CortexGraph:
+    """Excluded = novel-kmer chains anchored at one end only (FindTips.java:43-140).
+
+    The production configuration (Simulate.wdl:890-904 passes no links) runs
+    ALL chain walks as one native/numpy batch plus one vectorized end-degree
+    pass — the per-ROI host engine survives only for the linked variant."""
+    child = roi.sample_name(0)
+    child_color = graph.color_for_sample(child)
+    parent_colors = graph.colors_for_samples(parents)
+
+    roi_set = {roi.kmer_string(i) for i in range(roi.num_records)}
+    used = {s: False for s in roi_set}
+    tips: set = set()
+
+    if links:
+        for s in sorted(used):
+            if used[s]:
+                continue
+            e = TraversalEngine(TraversalConfig(
+                graph=graph, traversal_colors=[child_color],
+                joining_colors=list(parent_colors), direction=BOTH,
+                combination=AND, stopping_rule=ContigStopper, rois=roi,
+                links=list(links)))
+            walk = e.walk(s)
+            if not walk:
+                continue
+            left, right = walk[0], walk[-1]
+            left_novel = left.canonical in roi_set
+            no_left = len(e.get_prev_vertices(left.kmer)) == 0
+            right_novel = right.canonical in roi_set
+            no_right = len(e.get_next_vertices(right.kmer)) == 0
+            is_tip = (left_novel and no_left) or (right_novel and no_right)
+            for v in walk:
+                if v.canonical in used:
+                    used[v.canonical] = True
+                    if is_tip:
+                        tips.add(v.canonical)
+        return _excluded_subset(roi, tips)
+
+    cks = sorted(used)
+    contigs = _batched_contigs(graph, child_color, cks, max_walk)
+    # vectorized end-degree pass: popcount of the oriented prev/next basemask
+    # of each chain's first/last kmer in child color
+    k = graph.kmer_size
+    lefts = [contigs[s][:k] for s in cks]
+    rights = [contigs[s][-k:] for s in cks]
+    lc, lf = km.canonicalize_codes(km.strings_to_codes(lefts))
+    rc_, rf = km.canonicalize_codes(km.strings_to_codes(rights))
+    li = graph.find_records(km.pack_codes(lc, k))
+    ri = graph.find_records(km.pack_codes(rc_, k))
+    le = np.where(li >= 0, graph.edges[np.maximum(li, 0), child_color], 0)
+    re_ = np.where(ri >= 0, graph.edges[np.maximum(ri, 0), child_color], 0)
+    lprev, _ = gr.edges_to_masks(le.astype(np.uint8), lf)
+    _, rnext = gr.edges_to_masks(re_.astype(np.uint8), rf)
+    pc4 = np.array([bin(x).count("1") for x in range(16)], dtype=np.uint8)
+    no_left_arr = pc4[lprev] == 0
+    no_right_arr = pc4[rnext] == 0
+    left_novel_arr = np.array(
+        [min(s, km.revcomp(s)) in roi_set for s in lefts])
+    right_novel_arr = np.array(
+        [min(s, km.revcomp(s)) in roi_set for s in rights])
+    novel_in = _novel_in_factory(roi, k)
+    for i, s in enumerate(cks):
+        if used[s]:
+            continue
+        is_tip = bool((left_novel_arr[i] and no_left_arr[i])
+                      or (right_novel_arr[i] and no_right_arr[i]))
+        for canon in novel_in(contigs[s]):
+            if canon in used:
+                used[canon] = True
+                if is_tip:
+                    tips.add(canon)
+    return _excluded_subset(roi, tips)
+
+
+def find_orphans(graph: gr.CortexGraph, roi: gr.CortexGraph, parents: list) -> gr.CortexGraph:
+    """Excluded = novel chains that never touch parental colors (FindOrphans.java)."""
+    child = roi.sample_name(0)
+    child_color = graph.color_for_sample(child)
+    parent_colors = graph.colors_for_samples(parents)
+
+    e = TraversalEngine(TraversalConfig(
+        graph=graph, traversal_colors=[child_color],
+        joining_colors=list(parent_colors), direction=BOTH, combination=AND,
+        stopping_rule=OrphanStopper, rois=roi))
+
+    orphans: set = set()
+    for i in range(roi.num_records):
+        canon = roi.kmer_string(i)
+        if canon in orphans:
+            continue
+        if (len(e.get_next_vertices(canon)) == 0
+                or len(e.get_prev_vertices(canon)) == 0):
+            dfs = e.dfs(canon)
+            if dfs is not None and dfs.num_vertices() > 0:
+                for v in dfs.vertices():
+                    orphans.add(v.canonical)
+    return _excluded_subset(roi, orphans)
+
+
+# ---------------------------------------------------------------------------
+# Partition (discover/call/Partition.java:55-269)
+# ---------------------------------------------------------------------------
+
+def _batched_contigs(graph: gr.CortexGraph, color: int, cks: list,
+                     max_walk: int, first_chunk: int = 512) -> dict:
+    """Bidirectional single-path contig per seed kmer string (ContigStopper
+    walk semantics, link-free) as one batch.  Returns {seed: contig}.
+
+    Walks run in growing rounds (first_chunk, 4x, 16x, ... up to max_walk
+    total): each round re-seeds only the walks that consumed the whole
+    previous allotment, so 20k short error-tip chains cost one small kernel
+    call while the rare chromosome-length chain still walks to its true end —
+    the classification the per-ROI host loop gave at 15x the wall-clock."""
+    k = graph.kmer_size
+    if not cks:
+        return {}
+
+    from .. import native as nat
+    wt = (nat.WalkTableNative(graph.kmers, graph.edges[:, color], k)
+          if nat.available() else None)
+
+    def batch_walk(seeds: list, steps: int):
+        if wt is not None:
+            b, cy, st = wt.walk(
+                km.pack_codes(km.strings_to_codes(seeds), k), steps)
+        else:
+            from ..ops import walk_np as wnp
+            b, cy, st = wnp.walk_forward_np(
+                graph, [color], km.strings_to_codes(seeds), steps)
+        return np.asarray(b).T, np.asarray(cy), np.asarray(st)
+
+    def extend_all(seeds: list) -> list:
+        """Full forward extension per seed (iterative rounds).  Replay and
+        revisit gates run BATCHED (ops/walk_np.batch_replay_exts /
+        batch_dedup_extensions — one rolling-hash pass per round instead of
+        a per-seed kmerize/unique, which dominated the flagship prefilter
+        at 96 s of its 103 s)."""
+        from ..ops import walk_np as wnp
+        exts = [""] * len(seeds)
+        live = list(range(len(seeds)))
+        cur = list(seeds)
+        done_steps = 0
+        chunk = min(first_chunk, max_walk)
+        while live and done_steps < max_walk:
+            chunk = min(chunk, max_walk - done_steps)
+            seeds_live = [cur[i] for i in live]
+            b, cy, st = batch_walk(seeds_live, chunk)
+            round_exts = wnp.batch_replay_exts(seeds_live, b, cy, chunk)
+            nxt_live = []
+            for row, i in enumerate(live):
+                ext = round_exts[row]
+                exts[i] += ext
+                cur[i] = (cur[i] + ext)[-k:]
+                if not cy[row] and st[row] == chunk:
+                    nxt_live.append(i)
+            live = nxt_live
+            done_steps += chunk
+            chunk *= 4
+        # chunk-local seen-sets can leak an extra lap around cycles longer
+        # than one chunk; a final whole-extension replay is the oracle
+        return wnp.batch_dedup_extensions(seeds, exts, max_walk)
+
+    rc = [km.revcomp(s) for s in cks]
+    fwd = extend_all(cks)
+    back = extend_all(rc)
+    return {s: (km.revcomp(b) if b else "") + s + f
+            for s, f, b in zip(cks, fwd, back)}
+
 
 # linked batches of at most max(NATIVE_LINK_THRESHOLD, records // 256) seeds
 # go to the native walker (core.py:614-620); a negative value forces the
@@ -64,7 +421,7 @@ def partition(graph: gr.CortexGraph, roi: gr.CortexGraph, links=(),
     order.  `device` holds the jump table on the device routes (default:
     CUDA when present)."""
     if link_novels:
-        return _core._partition_host(graph, roi, links, link_novels, max_walk)
+        return _partition_host(graph, roi, links, link_novels, max_walk)
     if links:
         return _partition_links(graph, roi, list(links), max_walk, stats,
                                 checkpoint, device)
@@ -148,11 +505,11 @@ def _partition_links(graph: gr.CortexGraph, roi: gr.CortexGraph, links: list,
             stats["walk_kernel"] = "native_links"
             stats["link_junctions_resolved"] = int(junctions.sum())
             stats["link_replays"] = len(cks)
-        return _core._greedy_emit(cks, dict(zip(cks, contig_list)), roi, k)
+        return _greedy_emit(cks, dict(zip(cks, contig_list)), roi, k)
 
     # --- device jump walks + exact linked replay of link-touching walks ---
     jt, build_s = _jump_table(graph, child_color, device,
-                              flags=_core.link_kmer_flags(graph, links))
+                              flags=link_kmer_flags(graph, links))
     rc = [km.revcomp(s) for s in cks]
     contigs: dict = {}
     start_at, payload = _resume(checkpoint, fp, "jump_table")
@@ -210,7 +567,7 @@ def _partition_links(graph: gr.CortexGraph, roi: gr.CortexGraph, links: list,
         _walk_stats(stats, build_s, walk_s, dev_steps)
         stats["link_replays"] = len(relink)
         stats["link_junctions_resolved"] = junctions_total
-    return _core._greedy_emit(cks, contigs, roi, k)
+    return _greedy_emit(cks, contigs, roi, k)
 
 
 def _partition_unlinked(graph: gr.CortexGraph, roi: gr.CortexGraph,
@@ -241,7 +598,7 @@ def _partition_unlinked(graph: gr.CortexGraph, roi: gr.CortexGraph,
             fwd_ext = wnp.replay_walk(s, fb[i], bool(fc[i]), max_walk)
             back_ext = wnp.replay_walk(rc[i], rb[i], bool(rcy[i]), max_walk)
             contigs[s] = (km.revcomp(back_ext) if back_ext else "") + s + fwd_ext
-        return _core._greedy_emit(cks, contigs, roi, k)
+        return _greedy_emit(cks, contigs, roi, k)
 
     fp = ckpt.graph_fingerprint(graph) if checkpoint else ""
     start_at, payload = _resume(checkpoint, fp, "unlinked_jump")
@@ -266,4 +623,126 @@ def _partition_unlinked(graph: gr.CortexGraph, roi: gr.CortexGraph,
         ckpt.clear_chunk_state(checkpoint)
     if stats is not None:
         _walk_stats(stats, build_s, time.perf_counter() - t0, dev_steps)
-    return _core._greedy_emit(cks, contigs, roi, k)
+    return _greedy_emit(cks, contigs, roi, k)
+
+
+def _novel_in_factory(roi: gr.CortexGraph, k: int):
+    """contig -> sorted list of canonical novel kmer strings it contains."""
+    roi_keys = np.sort(km.words_to_bytes_be(roi.kmers, k))
+
+    def novel_in(contig: str) -> list:
+        codes = km.string_to_codes_permissive(contig)
+        if len(codes) < k:
+            return []
+        windows = km.kmerize_codes(codes, k)
+        ok = (windows < 4).all(axis=1)
+        if not ok.any():
+            return []
+        canon, _ = km.canonicalize_codes(windows[ok])
+        keys = km.words_to_bytes_be(km.pack_codes(canon, k), k)
+        i = np.minimum(np.searchsorted(roi_keys, keys), roi_keys.size - 1)
+        hit = roi_keys[i] == keys
+        return km.codes_to_strings(canon[hit])
+
+    return novel_in
+
+
+def _greedy_emit(cks: list, contigs: dict, roi: gr.CortexGraph, k: int) -> list:
+    """The reference's greedy walk assignment + dedup + FASTA emit
+    (Partition.java:169-219, markUsedRois :238-256): iterate novel kmers in
+    sorted order, claim each novel kmer for the longest contig containing it,
+    dedup fwd/rc, emit sorted."""
+    novel_in = _novel_in_factory(roi, k)
+
+    used: dict = {s: None for s in cks}
+    for s in cks:
+        if used[s] is not None:
+            continue
+        contig = contigs[s]
+        for canon in novel_in(contig):
+            if canon in used and (used[canon] is None
+                                  or len(contig) > len(used[canon])):
+                used[canon] = contig
+
+    contig_set: set = set()
+    for s in cks:
+        c = used[s]
+        if c is not None and c not in contig_set and km.revcomp(c) not in contig_set:
+            contig_set.add(c)
+
+    out = []
+    for i, contig in enumerate(sorted(contig_set)):
+        num_novels = len(novel_in(contig))
+        header = f"partition{i} len={len(contig) - k + 1} numNovels={num_novels}"
+        out.append((header, contig))
+    return out
+
+
+def link_kmer_flags(graph: gr.CortexGraph, links) -> np.ndarray:
+    """bool[N] over graph records: True where the kmer carries link records
+    in ANY of the given link sets — the per-kmer attribute the jump-table
+    build propagates along runs (build_jump_table flags) so walked lanes
+    learn link contact with zero host hashing."""
+    key_strs: set = set()
+    for lm in links:
+        idx = getattr(lm, "index", None)
+        key_strs |= set(idx if idx is not None
+                        else getattr(lm, "records", {}))
+    flags = np.zeros(graph.num_records, dtype=bool)
+    if key_strs:
+        canon, _ = km.canonicalize_codes(
+            km.strings_to_codes(sorted(key_strs)))
+        idxs = graph.find_records(km.pack_codes(canon, graph.kmer_size))
+        flags[idxs[idxs >= 0]] = True
+    return flags
+
+
+def _partition_host(graph: gr.CortexGraph, roi: gr.CortexGraph, links,
+                    link_novels: bool, max_walk: int = 20000) -> list:
+    child_color = graph.color_for_sample(roi.sample_name(0))
+
+    e = TraversalEngine(TraversalConfig(
+        graph=graph, traversal_colors=[child_color], direction=BOTH,
+        combination=OR,
+        stopping_rule=NovelPartitionStopper if link_novels else ContigStopper,
+        rois=roi, links=list(links),
+        max_branch_length=max_walk,
+    ))
+
+    # used: canonical kmer -> assigned walk (or None), iterated in sorted order
+    # (reference uses a TreeMap, Partition.java:258-265)
+    used: dict = {roi.kmer_string(i): None for i in range(roi.num_records)}
+
+    from ..traversal.subgraph import Vertex
+
+    for ck in sorted(used):
+        if used[ck] is not None:
+            continue
+        g = e.dfs(ck)
+        w = to_walk(g, ck, child_color, graph=graph)
+        if not w:
+            w = [Vertex(ck, graph.find_record(ck))]
+        # claim novel kmers on the walk; keep the longest walk per kmer
+        for v in w:
+            canon = v.canonical
+            if canon in used and (used[canon] is None or len(w) > len(used[canon])):
+                used[canon] = w
+
+    contigs: list = []
+    contig_set: set = set()
+    for ck in used:
+        if used[ck] is not None:
+            fw = to_contig(used[ck])
+            rc = km.revcomp(fw)
+            if fw not in contig_set and rc not in contig_set:
+                contig_set.add(fw)
+
+    out = []
+    k = graph.kmer_size
+    for i, contig in enumerate(sorted(contig_set)):
+        num_novels = sum(
+            1 for j in range(len(contig) - k + 1)
+            if min(contig[j:j + k], km.revcomp(contig[j:j + k])) in used)
+        header = f"partition{i} len={len(contig) - k + 1} numNovels={num_novels}"
+        out.append((header, contig))
+    return out

@@ -15,8 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from corticall_tpu import kmer as km
-
+from .. import kmer as km
 from ..device import resolve
 from ..ops import sw_device as swd
 

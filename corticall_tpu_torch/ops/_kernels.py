@@ -37,7 +37,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "ctk_sw_banded": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "ctk_sw_full": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
-    "ctk_tesserae": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P),
+    "ctk_tesserae": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P),
     "ctk_jump_stage0": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "ctk_jump_compose": (_P, _P, _I, _P),
     "ctk_jump_walk": (_P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),

@@ -17,10 +17,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from corticall_tpu import kmer as km
-from corticall_tpu.models.sw import GAP_EXTEND, GAP_OPEN, MATCH, MISMATCH
-
 from . import _kernels
+from .. import kmer as km
+from ..models.sw import GAP_EXTEND, GAP_OPEN, MATCH, MISMATCH
 
 NEG = -1e30
 MAX_BAND = 1024

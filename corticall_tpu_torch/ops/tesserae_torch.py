@@ -5,7 +5,13 @@ Counterpart of corticall_tpu/ops/tesserae_jax.py.  `tesserae_scan`,
 functions of the same names (a Python loop over query columns of [S, W]
 tensor ops, then the packed-traceback walk); `tesserae_fused` runs them for
 CPU tensors and launches `csrc/tesserae.cu` — the whole DP and the walk in
-one launch — for CUDA tensors.  `TesseraeDevice` is the Call stage's aligner.
+one launch on one thread-block cluster — for CUDA tensors.
+`TesseraeDevice` is the Call stage's aligner.
+
+The kernel keeps one byte of traceback a cell and column plus one packed
+recombination word a column instead of three packed words a cell;
+`encode_traceback` and `decode_traceback` are the plain versions of that
+encoding and of the kernel's walk over it.
 
 Shapes are the section's own: query int32[L], targets int32[S, W-1] with a
 bool validity mask, W = longest target + 1.  The JAX package pads to
@@ -22,16 +28,21 @@ import time
 import numpy as np
 import torch
 
-from corticall_tpu.models import tesserae as tz
-
 from . import _kernels
 from ..device import resolve
+from ..models import tesserae as tz
 
 SMALL = -1e32
 M, I, D = 1, 2, 3
 # the packed traceback word holds `who` in bits 25..30
 MAX_TARGETS = 63
-MAX_THREADS = 1024
+# the cluster kernel: at most MAX_CLUSTER CTAs of MAX_THREADS threads, each
+# thread holding up to MAX_CELLS_PER_THREAD cells in registers
+MAX_CLUSTER = 16
+MAX_THREADS = 512
+MAX_CELLS_PER_THREAD = 16
+MAX_CELLS = MAX_CLUSTER * MAX_THREADS * MAX_CELLS_PER_THREAD
+CTA_THREADS = 256             # threads a CTA before the cluster grows
 
 # kernel launches (plain integer; chip_smoke.py resets and reads it)
 LAUNCHES = 0
@@ -190,20 +201,113 @@ def tesserae_full(q_codes: torch.Tensor, t_codes: torch.Tensor,
     return max_r, cells, n
 
 
-def _block_threads(s_count: int, width: int) -> int:
-    """Threads for one section: a warp per 32-column tile of every target,
-    in powers of two, at most MAX_THREADS."""
-    s_pow2 = 1 << (s_count - 1).bit_length()
-    tiles = -(-width // 32)
-    warps = s_pow2 * (1 << (tiles - 1).bit_length())
-    return 32 * min(MAX_THREADS // 32, warps)
+def encode_traceback(tb: torch.Tensor):
+    """The kernel's traceback encoding of tesserae_scan's packed words tb
+    int32[3, L+1, S, W]: (codes uint8[L+1, S, W], rec int32[L+1]).  A cell's
+    byte holds its M word in bits 0-1 (0: the column's recombination word,
+    else the local state, position j-1), its I word in bits 2-3 (0:
+    recombination, else the local state, position j) and its D word in bit 4
+    (1: D, 0: M, position j-1); rec[c] is the recombination word of column
+    c + 1, that is column c's argmax.  Column 1's M and I bytes stay 0: the
+    walk never reads them."""
+    _, l1p1, s_count, width = tb.shape
+    dev = tb.device
+    seq = torch.arange(1, s_count + 1, dtype=torch.int32, device=dev)[:, None]
+    jj = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
+    jpos = torch.clamp_min(jj - 1, 0)
+    codes = torch.zeros((l1p1, s_count, width), dtype=torch.uint8, device=dev)
+    rec = torch.zeros(l1p1, dtype=torch.int32, device=dev)
+    for col in range(1, l1p1):
+        d = tb[2, col]
+        if not bool(((d == _pack(seq, D, jpos)) | (d == _pack(seq, M, jpos))).all()):
+            raise ValueError(f"column {col}: a D word is not local")
+        code = (d == _pack(seq, D, jpos)).to(torch.uint8) << 4
+        if col >= 2:
+            mc = torch.zeros_like(code)
+            for st in (M, I, D):
+                mc = torch.where((mc == 0) & (tb[0, col] == _pack(seq, st, jpos)), st, mc)
+            ic = torch.zeros_like(code)
+            for st in (M, I):
+                ic = torch.where((ic == 0) & (tb[1, col] == _pack(seq, st, jj)), st, ic)
+            recs = torch.cat([tb[0, col][mc == 0], tb[1, col][ic == 0]]).unique()
+            if recs.numel() > 1:
+                raise ValueError(f"column {col}: more than one recombination word")
+            if recs.numel():
+                rec[col - 1] = recs[0]
+            code = code | mc.to(torch.uint8) | (ic.to(torch.uint8) << 2)
+        codes[col] = code
+    return codes, rec
+
+
+def _word(who: int, state: int, pos: int) -> int:
+    """_pack on Python ints, wrapped to int32 as the tensor version wraps."""
+    v = ((who << 25) | (state << 23) | pos) & 0xFFFFFFFF
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def decode_traceback(codes: torch.Tensor, rec: torch.Tensor, who, state, pos):
+    """Plain version of the kernel's walk: tesserae_traceback over the
+    encoded traceback (codes, rec) of encode_traceback, each packed word
+    rebuilt from its cell's byte.  Returns (cells int32[cap, 3], n) as
+    tesserae_traceback does."""
+    l1p1, s_count, width = codes.shape
+    l1 = l1p1 - 1
+    cap = l1 + width + 4
+    codes_h, rec_h = codes.cpu(), rec.cpu().tolist()
+    who, state, pos = int(who), int(state), int(pos)
+    cells = [(who, state, pos)]
+    pt = l1
+    while pt >= 1 and len(cells) < cap:
+        sidx = who - 1 if who >= 1 else who - 1 + s_count
+        if state in (M, I) and pt < 2:
+            v = 0
+        else:
+            code = int(codes_h[pt, sidx, pos])
+            s1 = (sidx % s_count) + 1
+            if state == M:
+                v = _word(s1, code & 3, max(pos - 1, 0)) if code & 3 else rec_h[pt - 1]
+            elif state == I:
+                c = (code >> 2) & 3
+                v = _word(s1, c, pos) if c else rec_h[pt - 1]
+            else:
+                v = _word(s1, D if code & 16 else M, max(pos - 1, 0))
+        if state != D:
+            pt -= 1
+        who, state, pos = v >> 25, (v >> 23) & 3, v & ((1 << 23) - 1)
+        cells.append((who, state, pos))
+    out = torch.zeros((cap, 3), dtype=torch.int32)
+    out[:len(cells)] = torch.tensor(cells, dtype=torch.int32)
+    return out.to(codes.device), len(cells)
+
+
+def kernel_config(s_count: int, width: int):
+    """(cells a thread, CTAs in the cluster, threads a CTA) for a section of
+    S x W cells: at least min(4, W) cells a thread (a power of two, at most
+    W, so a thread meets at most one target boundary), more when the cells
+    would not fit MAX_CLUSTER x MAX_THREADS threads; the cluster doubles
+    while a CTA would hold more than CTA_THREADS threads.  Raises for a
+    section over MAX_CELLS cells."""
+    cells = s_count * width
+    if cells > MAX_CELLS:
+        raise ValueError(f"tesserae section of {s_count} x {width} = {cells} cells: "
+                         f"the cluster kernel holds at most {MAX_CELLS}")
+    per = min(4, 1 << (width.bit_length() - 1))
+    while -(-cells // per) > MAX_CLUSTER * MAX_THREADS:
+        per *= 2
+    n_threads = -(-cells // per)
+    cluster = 1
+    while cluster < MAX_CLUSTER and n_threads > cluster * CTA_THREADS:
+        cluster *= 2
+    return per, cluster, 32 * -(-n_threads // (32 * cluster))
 
 
 def tesserae_fused(q_codes: torch.Tensor, t_codes: torch.Tensor,
-                   valid: torch.Tensor, params):
+                   valid: torch.Tensor, params, config=None):
     """Tesserae DP + traceback: the plain twin for CPU tensors, one launch
     of csrc/tesserae.cu for CUDA tensors.  Returns (max_r, cells, n) as
-    tesserae_full does (tensors on the inputs' device on CUDA)."""
+    tesserae_full does (tensors on the inputs' device on CUDA).  `config`
+    overrides kernel_config's (cells a thread, cluster, threads), so that
+    the kernel tests can place CTA edges inside targets."""
     global LAUNCHES
     l1 = q_codes.shape[0]
     s_count, w1 = t_codes.shape
@@ -215,27 +319,29 @@ def tesserae_fused(q_codes: torch.Tensor, t_codes: torch.Tensor,
         raise ValueError("valid must have t_codes' shape")
     if q_codes.dtype != torch.int32 or t_codes.dtype != torch.int32:
         raise TypeError("codes must be int32")
+    width = w1 + 1
+    per, cluster, threads = config or kernel_config(s_count, width)
     if q_codes.device.type == "cpu":
         return tesserae_full(q_codes, t_codes, valid, params)
     if q_codes.device.type != "cuda":
         raise ValueError(f"unsupported device {q_codes.device}")
     dev = q_codes.device
-    width = w1 + 1
     cap = l1 + width + 4
+    npad = -(-s_count * width // 16) * 16
     scal, lsm, lsi = params
     prm = torch.cat([scal.reshape(-1), lsm.reshape(-1), lsi.reshape(-1)]).to(
         device=dev, dtype=torch.float32).contiguous()
     q = q_codes.contiguous()
     t = t_codes.to(dev).contiguous()
     vmask = valid.to(device=dev, dtype=torch.uint8).contiguous()
-    state = torch.empty((2, 3, s_count, width), dtype=torch.float32, device=dev)
-    tb = torch.empty((3, l1 + 1, s_count, width), dtype=torch.int32, device=dev)
+    codes = torch.empty((l1 + 1, npad), dtype=torch.uint8, device=dev)
+    rec = torch.empty(l1 + 1, dtype=torch.int32, device=dev)
     out = torch.empty(2 + 3 * cap, dtype=torch.int32, device=dev)
     lib = _kernels.library()
     err = lib.ctk_tesserae(q.data_ptr(), t.data_ptr(), vmask.data_ptr(),
-                           prm.data_ptr(), l1, s_count, width,
-                           _block_threads(s_count, width), state.data_ptr(),
-                           tb.data_ptr(), out.data_ptr(), cap, _kernels.stream(dev))
+                           prm.data_ptr(), l1, s_count, width, per, cluster,
+                           threads, codes.data_ptr(), npad, rec.data_ptr(),
+                           out.data_ptr(), cap, _kernels.stream(dev))
     _kernels.check(err, "tesserae")
     LAUNCHES += 1
     return out[1:2].view(torch.float32)[0], out[2:].view(cap, 3), out[0]

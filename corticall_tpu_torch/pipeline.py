@@ -4,28 +4,99 @@ Counterpart of corticall_tpu.pipeline.run_pipeline with the same stage
 order, artifacts (.ctx, .ctp.bgz, FASTA, VCF, accounting, state.json) and
 stats: per-sample Build+Clean, Join, Thread (reads and references), FindROIs,
 the prefilter chain, Partition (the port's routes), Trim, Call (the port's
-Caller: CUDA Tesserae and banded-SW kernels) and FilterCalls.  It reuses the
-JAX package's Pipeline runner and file helpers, always builds graphs on the
-host (native counting core), and never imports jax.
+Caller: CUDA Tesserae and banded-SW kernels) and FilterCalls.  The resumable
+runner (`Pipeline`) and its file helpers are copies of the JAX package's.
+Graphs are always built on the host (native counting core).
 """
 
 from __future__ import annotations
 
-from corticall_tpu import build as bd
-from corticall_tpu import evaluation as ev
-from corticall_tpu.caller.filter import filter_calls
-from corticall_tpu.caller.variants import write_vcf
-from corticall_tpu.commands import core as _core
-from corticall_tpu.io import ctx as ctxio
-from corticall_tpu.io import links as lkio
-from corticall_tpu.pipeline import (Pipeline, _load_vcf_variants,
-                                    _read_fasta_list, _read_graph,
-                                    _write_fasta_list)
+import json
+import os
+import time
 
+from . import build as bd
+from . import evaluation as ev
+from . import graph as gr
 from .caller.call import Caller
+from .caller.filter import filter_calls
+from .caller.variants import Variant, write_vcf
 from .commands import core
 from .device import resolve
+from .io import ctx as ctxio
+from .io import fasta as faio
+from .io import links as lkio
 from .ops.tesserae_torch import TesseraeDevice
+
+STATE_FILE = "state.json"
+
+
+class _State:
+    def __init__(self, workdir: str, resume: bool):
+        self.path = os.path.join(workdir, STATE_FILE)
+        self.data: dict = {"stages": {}}
+        if resume and os.path.exists(self.path):
+            with open(self.path) as f:
+                self.data = json.load(f)
+
+    def done(self, name: str) -> bool:
+        return name in self.data["stages"]
+
+    def mark(self, name: str, seconds: float, stats: dict | None = None) -> None:
+        self.data["stages"][name] = {
+            "seconds": round(seconds, 3), **({"stats": stats} if stats else {})}
+        tmp = self.path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(self.data, f, indent=1)
+        os.replace(tmp, self.path)
+
+    def stats(self, name: str) -> dict:
+        return self.data["stages"].get(name, {}).get("stats", {})
+
+    def seconds(self, name: str) -> float:
+        return self.data["stages"].get(name, {}).get("seconds", 0.0)
+
+
+def _read_graph(path: str) -> gr.CortexGraph:
+    return gr.CortexGraph(ctxio.read_ctx(path))
+
+
+def _write_fasta_list(path: str, records: list) -> None:
+    with open(path, "w") as f:
+        for header, seq in records:
+            f.write(f">{header}\n{seq}\n")
+
+
+def _read_fasta_list(path: str) -> list:
+    return faio.read_fasta_full_headers(path)
+
+
+class Pipeline:
+    """Resumable staged runner.  Each stage writes its artifact(s) into
+    `workdir`; a stage re-runs only if its artifact or state entry is missing.
+    """
+
+    def __init__(self, workdir: str, resume: bool = True, log=None):
+        os.makedirs(workdir, exist_ok=True)
+        self.workdir = workdir
+        self.state = _State(workdir, resume)
+        self.log = log or (lambda *a: None)
+
+    def path(self, name: str) -> str:
+        return os.path.join(self.workdir, name)
+
+    def stage(self, name: str, artifacts: list, compute, load):
+        """Run `compute()` unless every artifact exists and the state says
+        the stage completed; in that case `load()` re-materializes results."""
+        paths = [self.path(a) for a in artifacts]
+        if self.state.done(name) and all(os.path.exists(p) for p in paths):
+            self.log(f"[pipeline] {name}: resume (cached)")
+            return load(*paths)
+        t0 = time.perf_counter()
+        result, stats = compute(*paths)
+        self.state.mark(name, time.perf_counter() - t0, stats)
+        self.log(f"[pipeline] {name}: {self.state.seconds(name)} s")
+        return result
 
 
 def run_pipeline(workdir: str, reads_by_sample: dict, child: str,
@@ -69,7 +140,7 @@ def run_pipeline(workdir: str, reads_by_sample: dict, child: str,
 
     # ---- join ---------------------------------------------------------------
     def compute_join(path):
-        g = _core.join([cleaned[s] for s in samples])
+        g = core.join([cleaned[s] for s in samples])
         ctxio.write_ctx(path, g.data)
         return g, {"records": g.num_records}
     joined = pl.stage("join", ["joined.ctx"], compute_join, _read_graph)
@@ -101,7 +172,7 @@ def run_pipeline(workdir: str, reads_by_sample: dict, child: str,
 
     # ---- FindROIs -------------------------------------------------------------
     def compute_rois(path):
-        r = _core.find_rois(joined, child, parents)
+        r = core.find_rois(joined, child, parents)
         ctxio.write_ctx(path, r.data)
         return r, {"rois": r.num_records}
     rois = pl.stage("find_rois", ["rois.ctx"], compute_rois, _read_graph)
@@ -112,29 +183,29 @@ def run_pipeline(workdir: str, reads_by_sample: dict, child: str,
             excluded = []
             per = {}
             if "orphans" in prefilters:
-                e = _core.find_orphans(joined, rois, parents)
+                e = core.find_orphans(joined, rois, parents)
                 per["orphans"] = e.num_records
                 excluded.append(e)
             if "tips" in prefilters:
-                e = _core.find_tips(joined, rois, parents)
+                e = core.find_tips(joined, rois, parents)
                 per["tips"] = e.num_records
                 excluded.append(e)
             if "dust" in prefilters:
-                e = _core.find_dust(joined, rois, parents)
+                e = core.find_dust(joined, rois, parents)
                 per["dust"] = e.num_records
                 excluded.append(e)
             if "lowcov" in prefilters:
-                m = (_core.adaptive_lowcov_threshold(joined, child)
+                m = (core.adaptive_lowcov_threshold(joined, child)
                      if lowcov_min == "auto" else lowcov_min)
-                e = _core.find_low_coverage(rois, min_coverage=m)
+                e = core.find_low_coverage(rois, min_coverage=m)
                 per["lowcov"] = e.num_records
                 per["lowcov_threshold"] = m
                 excluded.append(e)
             if "lowcomplexity" in prefilters:
-                e = _core.find_low_complexity(joined, rois, parents)
+                e = core.find_low_complexity(joined, rois, parents)
                 per["lowcomplexity"] = e.num_records
                 excluded.append(e)
-            out = _core.remove(rois, [e for e in excluded if e.num_records])
+            out = core.remove(rois, [e for e in excluded if e.num_records])
             ctxio.write_ctx(path, out.data)
             return out, {"excluded": per,
                          "excluded_union": rois.num_records - out.num_records,
@@ -216,3 +287,26 @@ def run_pipeline(workdir: str, reads_by_sample: dict, child: str,
         "stats": {n: pl.state.stats(n) for n in pl.state.data["stages"]},
         "workdir": workdir,
     }
+
+
+def _load_vcf_variants(vcf_path: str) -> list:
+    """Re-materialize Variant objects from a pipeline-written VCF (resume)."""
+    out = []
+    with open(vcf_path) as f:
+        for line in f:
+            if line.startswith("#"):
+                continue
+            fields = line.rstrip("\n").split("\t")
+            chrom, pos, _, ref, alt = fields[:5]
+            filt = fields[6] if len(fields) > 6 else "."
+            v = Variant(chrom, int(pos), 0, [ref] + alt.split(","))
+            if not v.is_symbolic():
+                v.compute_end_from_alleles()
+            for kv in (fields[7].split(";") if len(fields) > 7 else []):
+                if "=" in kv:
+                    kk, vv = kv.split("=", 1)
+                    v.attr(kk, vv)
+            if filt not in (".", "PASS"):
+                v.filters.update(filt.split(";"))
+            out.append(v)
+    return out

@@ -1,7 +1,9 @@
 """The port's Partition (corticall_tpu_torch/commands/core.py) against the
 JAX package's core.partition and the exact host engine, with each device
 route forced; its own routing thresholds; and its tagged chunk checkpoints.
-Partitions are lists of strings: every comparison is exact."""
+The graphs are built by the JAX package and carried to the port through
+their .ctx and .ctp bytes.  Partitions are lists of strings: every
+comparison is exact."""
 
 import numpy as np
 import pytest
@@ -9,29 +11,41 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from corticall_tpu.commands import core  # noqa: E402
-from corticall_tpu.utils import checkpoint as ckpt  # noqa: E402
 from corticall_tpu_torch.commands import core as tcore  # noqa: E402
+from corticall_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from test_partition_links import _mk_graph_with_repeats  # noqa: E402
+from test_torch_host import port_graph, port_links  # noqa: E402
+
+
+def _carried(jg, jrois, jlinks):
+    return port_graph(jg), port_graph(jrois), port_links(jlinks)
 
 
 @pytest.fixture(scope="module")
-def case():
-    rng = np.random.default_rng(17)
-    g, rois, links = _mk_graph_with_repeats(rng, 15)
-    host_linked = core._partition_host(g, rois, [links], link_novels=False,
+def jax_case():
+    return _mk_graph_with_repeats(np.random.default_rng(17), 15)
+
+
+@pytest.fixture(scope="module")
+def case(jax_case):
+    """The port's graph, ROIs and links, and the JAX package's host-engine
+    partitions of them."""
+    jg, jrois, jlinks = jax_case
+    host_linked = core._partition_host(jg, jrois, [jlinks], link_novels=False,
                                        max_walk=4096)
-    host_unlinked = core._partition_host(g, rois, [], link_novels=False,
+    host_unlinked = core._partition_host(jg, jrois, [], link_novels=False,
                                          max_walk=4096)
-    return g, rois, links, host_linked, host_unlinked
+    return (*_carried(jg, jrois, jlinks), host_linked, host_unlinked)
 
 
-def test_linked_device_route_matches_jax_and_host(monkeypatch, case):
+def test_linked_device_route_matches_jax_and_host(monkeypatch, jax_case, case):
     pytest.importorskip("jax")
     g, rois, links, host_linked, _ = case
+    jg, jrois, jlinks = jax_case
     monkeypatch.setattr(core, "_NATIVE_LINK_THRESHOLD", -1)
     monkeypatch.setattr(tcore, "NATIVE_LINK_THRESHOLD", -1)
     want_stats, got_stats = {}, {}
-    want = core.partition(g, rois, links=[links], max_walk=4096, stats=want_stats)
+    want = core.partition(jg, jrois, links=[jlinks], max_walk=4096, stats=want_stats)
     got = tcore.partition(g, rois, links=[links], max_walk=4096, stats=got_stats,
                           device="cpu")
     assert got == want == host_linked
@@ -42,13 +56,14 @@ def test_linked_device_route_matches_jax_and_host(monkeypatch, case):
     assert set(got_stats) == set(want_stats)
 
 
-def test_unlinked_device_route_matches_jax_and_host(monkeypatch, case):
+def test_unlinked_device_route_matches_jax_and_host(monkeypatch, jax_case, case):
     pytest.importorskip("jax")
     g, rois, _, _, host_unlinked = case
+    jg, jrois, _ = jax_case
     monkeypatch.setattr(tcore, "SMALL_BATCH", -1)
     stats = {}
     got = tcore.partition(g, rois, max_walk=4096, stats=stats, device="cpu")
-    want = core._partition_device(g, rois, 4096, small_batch=-1)
+    want = core._partition_device(jg, jrois, 4096, small_batch=-1)
     assert got == want == host_unlinked
     assert stats["walk_kernel"] == "jump_table" and stats["device_steps"] > 0
 
@@ -68,9 +83,10 @@ def test_without_native_core_the_device_route_runs(monkeypatch):
     core is missing, and replays the link-touching walks on the host
     engine; the port does the same (it used to raise)."""
     rng = np.random.default_rng(19)
-    g, rois, links = _mk_graph_with_repeats(rng, 15, n=500, unit_len=30)
-    host_linked = core._partition_host(g, rois, [links], link_novels=False,
+    jg, jrois, jlinks = _mk_graph_with_repeats(rng, 15, n=500, unit_len=30)
+    host_linked = core._partition_host(jg, jrois, [jlinks], link_novels=False,
                                        max_walk=1024)
+    g, rois, links = _carried(jg, jrois, jlinks)
     monkeypatch.setattr(tcore.nat, "available", lambda: False)
     stats = {}
     got = tcore.partition(g, rois, links=[links], max_walk=1024, stats=stats,

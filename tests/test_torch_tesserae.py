@@ -52,6 +52,11 @@ def _case(name):
         return t[:80] + t[90:199], {"t0": t}
     if name == "tiny":
         return "A", {"a": "C", "b": "AG"}
+    if name.startswith("w2_"):
+        # S one-base targets (W = 2) against a 40-base query
+        rng = np.random.default_rng(int(name[3:]))
+        return _genome(rng, 40), {f"t{i}": _genome(rng, 1)
+                                  for i in range(int(name[3:]))}
     n_targets = int(name[len("targets"):])
     rng = np.random.default_rng(n_targets)
     base = _genome(rng, 260)
@@ -146,6 +151,37 @@ def test_over_budget_section_takes_host_oracle():
     assert dev.host_sections == 1 and dev.device_sections == 0
 
 
+@pytest.mark.parametrize("prm", PARAMS)
+@pytest.mark.parametrize("case", CASES + ["tiny", "w2_63"])
+def test_encoded_traceback_decodes_to_same_cells(case, prm):
+    """The kernel's one-byte-a-cell traceback (encode_traceback) walked by
+    the kernel's decoding (decode_traceback) gives tesserae_traceback's
+    cells."""
+    args = _inputs(*_case(case), prm)
+    tb, who, state, pos, _ = tt.tesserae_scan(*args)
+    want, n = tt.tesserae_traceback(tb, who, state, pos)
+    codes, rec = tt.encode_traceback(tb)
+    assert codes.dtype == torch.uint8 and codes.shape == tb.shape[1:]
+    got, m = tt.decode_traceback(codes, rec, who, state, pos)
+    assert m == n
+    np.testing.assert_array_equal(got[:n].numpy(), want[:n].numpy())
+
+
+@pytest.mark.parametrize("s_count, width, want", [
+    (1, 2, (2, 1, 32)), (2, 976, (4, 2, 256)), (16, 3426, (8, 16, 448)),
+    (63, 1025, (8, 16, 512)), (4, 4097, (4, 16, 288))])
+def test_kernel_config(s_count, width, want):
+    per, cluster, threads = tt.kernel_config(s_count, width)
+    assert (per, cluster, threads) == want
+    assert per <= width and cluster * threads * per >= s_count * width
+    assert threads % 32 == 0 and threads <= tt.MAX_THREADS
+
+
+def test_kernel_config_names_its_limit():
+    with pytest.raises(ValueError, match=str(tt.MAX_CELLS)):
+        tt.kernel_config(63, 2100)
+
+
 def test_wrapper_validates_and_counts_no_cpu_launch():
     args = _inputs(*_case("small"), PARAMS[0])
     before = tt.LAUNCHES
@@ -166,6 +202,29 @@ def test_kernel_matches_plain_on_card(cuda, case):
     max_r, cells, n = tt.tesserae_fused(*args)
     torch.cuda.synchronize()
     assert tt.LAUNCHES == before + 1
+    want_r, want_cells, want_n = tt.tesserae_full(*args)
+    assert int(n) == want_n
+    np.testing.assert_array_equal(cells[:want_n].cpu().numpy(),
+                                  want_cells[:want_n].cpu().numpy())
+    assert np.float32(max_r.item()).view(np.int32) == \
+        np.float32(want_r.item()).view(np.int32)
+
+
+# forced (cells a thread, cluster, threads): every cell-count template and
+# cluster size, targets and CTA edges falling inside one another
+FORCED = [("w2_1", None), ("w2_2", None), ("w2_16", None), ("w2_63", None),
+          ("w2_16", (1, 8, 32)), ("w2_63", (1, 8, 32)), ("w2_63", (2, 2, 32)),
+          ("targets16", (1, 16, 288)), ("targets16", (2, 8, 288)),
+          ("targets16", (4, 4, 288)), ("targets16", (8, 2, 288)),
+          ("targets16", (16, 1, 288)), ("recombinant0", (1, 4, 224))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, config", FORCED)
+def test_kernel_configs_match_plain_on_card(cuda, case, config):
+    args = _inputs(*_case(case), PARAMS[1], cuda)
+    max_r, cells, n = tt.tesserae_fused(*args, config=config)
+    torch.cuda.synchronize()
     want_r, want_cells, want_n = tt.tesserae_full(*args)
     assert int(n) == want_n
     np.testing.assert_array_equal(cells[:want_n].cpu().numpy(),

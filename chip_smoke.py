@@ -10,8 +10,9 @@ Phases, one JSON line each (progress goes to stderr):
    process, so an incompatible library is reported, not a crash);
 2. build: nvcc compiles corticall_tpu_torch/csrc/*.cu for sm_90a;
 3. kernels against their plain PyTorch twins on the card: banded SW at the
-   production pre-score shape (B=256, Q=4096, S=8192, band 512) and at
-   B=1024, Q=512, S=1024, band 64; Tesserae on 8 recombinant sections of
+   production pre-score shape (B=256, Q=4096, S=8192, band 512), at
+   B=1024, Q=512, S=1024, band 64 and at the trio's widest pre-score batch
+   (B=8, Q=336, S=464, band 512); Tesserae on 8 recombinant sections of
    2-16 targets of 500-4000 bp, with the cluster each ran on.  Outputs must
    be bit-identical; the times are CUDA-event kernel times and synchronized
    host times of the twin, beside each kernel's bound;
@@ -70,7 +71,9 @@ from corticall_tpu_torch.ops import kmer as tk  # noqa: E402
 from corticall_tpu_torch.ops import sw_device as tsw  # noqa: E402
 from corticall_tpu_torch.ops import tesserae_torch as tt  # noqa: E402
 
-SW_SHAPES = [(256, 4096, 8192, 512), (1024, 512, 1024, 64)]
+# the production pre-score shape, a many-window narrow-band shape, and the
+# widest of the 2 Mbp trio's pre-score batches
+SW_SHAPES = [(256, 4096, 8192, 512), (1024, 512, 1024, 64), (8, 336, 464, 512)]
 TESSERAE_TARGETS = [2, 3, 4, 6, 8, 11, 16, 16]
 CALLER_PARAMS = (0.35, 0.90, 6e-4, 1e-3)     # Caller's del_, eps, rho, term
 PF_MBP, PF_CHROMS, PF_DNMS, PF_K = 2.0, 2, 20, 47
@@ -95,10 +98,16 @@ SW_FULL_SHAPE, SW_FULL_BANDS = (1024, 512, 1024), (None, 64)
 # rows; a compose pass reads and writes the rows and reads one more row a
 # row; a walk reads its seed, one 16-byte row a jump and writes its outputs.
 HBM_BYTES_PER_S = 3.35e12
+# the banded SW kernel's operations are int32 (DPX); the data sheet gives no
+# int32 rate, so they count against the float32 one, like the others
 FP32_OPS_PER_S = 67e12
 SW_OPS_PER_CELL = 12
 TESSERAE_OPS_PER_CELL = 40
 JUMP_ROW_BYTES = 16
+# one five-step warp-shuffle max-scan on this card, 74-75 ns
+# (corticall_tpu_torch/tools/tesserae_probe.py barriers, NVIDIA H100 80GB
+# HBM3 at 700 W): a banded SW window's Q rows are a chain of such scans
+SHFL_SCAN_MS = 75e-6
 
 
 def bound_ms(nbytes: float, ops: float = 0.0):
@@ -118,6 +127,24 @@ def nbytes(*tensors) -> int:
 
 def sw_bound(q, s, cells):
     return bound_ms(nbytes(q, s) + 3 * 4 * q.shape[0], SW_OPS_PER_CELL * cells)
+
+
+def sw_band_cells(batch, qlen, slen, band) -> int:
+    """Cells of a banded SW batch inside the subject: row i scores columns
+    [i - band/2, i + band/2) of [0, slen)."""
+    i = np.arange(qlen)
+    per_row = np.minimum(slen, i + band // 2) - np.maximum(0, i - band // 2)
+    return batch * int(np.maximum(per_row, 0).sum())
+
+
+def sw_bound_fields(q, s, band) -> dict:
+    """The banded kernel's bound on its in-subject cells, with the band's
+    cell count and the row-chain floor (Q rows, one shuffle scan each)."""
+    (batch, qlen), slen = q.shape, s.shape[1]
+    cells = sw_band_cells(batch, qlen, slen, band)
+    return {**bound_fields(sw_bound(q, s, cells)), "cells": cells,
+            "band_cells": batch * qlen * band,
+            "row_chain_floor_ms": round(qlen * SHFL_SCAN_MS, 6)}
 
 
 def tesserae_bound(args):
@@ -398,15 +425,18 @@ def replay(mp) -> dict:
     the host clock for the twin) and sums their bounds."""
     t0 = time.perf_counter()
     sw_err = ts_err = 0.0
-    sw = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "operations", "shapes": []}
+    sw = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "operations",
+          "row_chain_floor_ms": 0.0, "shapes": []}
     for (q, s, band), got in mp["sw_sent"]:
         p_ms, want = host_ms(lambda: tsw.banded_sw_scores(q, s, band))
         sw_err = max(sw_err, sw_diff(got, want))
         k_ms = event_ms(lambda: tsw.sw_banded(q, s, band), 3)
-        b_ms, sw["bound_by"] = sw_bound(q, s, q.shape[0] * q.shape[1] * band)
+        bf = sw_bound_fields(q, s, band)
         sw["ms"] += k_ms
         sw["plain_ms"] += p_ms
-        sw["bound_ms"] += b_ms
+        sw["bound_ms"] += bf["bound_ms"]
+        sw["bound_by"] = bf["bound_by"]
+        sw["row_chain_floor_ms"] += bf["row_chain_floor_ms"]
         sw["shapes"].append([int(q.shape[0]), int(q.shape[1]), int(s.shape[1]), band,
                              round(k_ms, 4)])
     ts = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "operations",
@@ -698,11 +728,11 @@ def main() -> int:
         sw_err = max(sw_err, sw_diff(got, want))
         k_ms = event_ms(lambda: tsw.sw_banded(qt, st, band), 5)
         p_ms, _ = host_ms(lambda: tsw.banded_sw_scores(qt, st, band))
-        cells = batch * qlen * band
+        bf = sw_bound_fields(qt, st, band)
         sw_times.append({"batch": batch, "q": qlen, "s": slen, "band": band,
+                         "cells_a_lane": tsw.sw_kernel_config(qlen, slen, band),
                          "kernel_ms": round(k_ms, 4), "plain_ms": round(p_ms, 2),
-                         "kernel_gcups": round(cells / k_ms / 1e6, 3),
-                         **bound_fields(sw_bound(qt, st, cells))})
+                         "kernel_gcups": round(bf["cells"] / k_ms / 1e6, 3), **bf})
         log(f"sw {batch}x{qlen}x{slen} band {band}: kernel {k_ms:.3f} ms, "
             f"plain {p_ms:.1f} ms")
     emit("sw_banded_vs_plain", bit_identical=True, max_abs_err=sw_err,

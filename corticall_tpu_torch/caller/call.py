@@ -114,7 +114,8 @@ class Caller:
         CPU), "host" keeps the numpy oracle, "auto" picks device when
         `device` is CUDA (Tesserae is the Call hot path, SURVEY §3.2 /
         Call.java:2126-2263 + Tesserae.java:127-132).  device: the kernels'
-        device (default: CUDA when present)."""
+        device (default: the CUDA card, and RuntimeError without one; "cpu"
+        runs the plain twins)."""
         self.device = resolve(device)
         self.graph = graph
         self.rois_graph = rois_graph

@@ -418,8 +418,9 @@ def partition(graph: gr.CortexGraph, roi: gr.CortexGraph, links=(),
               device=None) -> list:
     """Group novel kmers into partition contigs, as core.partition does.
     Returns [(name_header, contig_sequence), ...] in the reference's emit
-    order.  `device` holds the jump table on the device routes (default:
-    CUDA when present)."""
+    order.  `device` holds the jump table on the device routes (default: the
+    CUDA card, and RuntimeError without one; "cpu" runs the plain twins);
+    the host and native routes never read it."""
     if link_novels:
         return _partition_host(graph, roi, links, link_novels, max_walk)
     if links:

@@ -42,12 +42,15 @@ def align_contigs(queries: dict, references: dict, band: int = 512,
 
     queries: {name: sequence}; references: {ref_name: IndexedReference}.
     band: the host window extension's band.  The device pre-score always
-    uses DEV_BAND, as the JAX package does.  use_device defaults to "the
-    device is CUDA"; on a CPU device the pre-score runs the plain twin.
+    uses DEV_BAND, as the JAX package does.  device: the pre-score's device
+    (default: the CUDA card, and RuntimeError without one; "cpu" runs the
+    plain twin).  use_device defaults to "the device is CUDA"; False keeps
+    every window on the host and never reads `device`.
     """
-    device = resolve(device)
-    if use_device is None:
-        use_device = _device_ok(device)
+    if use_device is not False:
+        device = resolve(device)
+        if use_device is None:
+            use_device = _device_ok(device)
 
     # 1. seed-chain candidates per (query, reference)
     cand: dict = {qn: [] for qn in queries}

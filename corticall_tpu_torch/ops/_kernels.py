@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argtypes (every pointer and the stream are c_void_p)
 _SIGNATURES = {
-    "ctk_sw_banded": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "ctk_sw_banded": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "ctk_sw_full": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "ctk_tesserae": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P),
     "ctk_jump_stage0": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from . import _kernels
+from ..device import resolve
 from . import kmer as tk
 from .placement import GOLDEN, place
 
@@ -259,8 +260,9 @@ def build_jump_table(kmers: np.ndarray, edges: np.ndarray, k: int,
     kmers uint32 [N, W] (the graph's canonical words), edges uint8 [N] (the
     walk colour's edge bytes), flags bool [N] (a per-k-mer attribute, e.g.
     "carries link records", ORed along runs and walks into `touched`).
-    The table lives on `device` (default: the CPU)."""
-    device = torch.device("cpu") if device is None else torch.device(device)
+    The table lives on `device` (default: the CUDA card, and RuntimeError
+    without one; "cpu" runs the plain twins)."""
+    device = resolve(device)
     n = kmers.shape[0]
     buckets, kd = build_buckets(kmers, device)
     ed = torch.from_numpy(np.ascontiguousarray(edges, dtype=np.uint8)).to(device)

@@ -4,9 +4,10 @@ Counterpart of corticall_tpu/ops/sw_device.py.  `banded_sw_scores` is the
 PyTorch twin of the JAX scan (one query row per step, the band in the last
 dimension, the horizontal-gap prefix in closed form with `torch.cummax`);
 `sw_banded` runs it for CPU tensors and launches `csrc/sw_banded.cu`'s
-banded kernel for CUDA tensors; `banded_sw_pallas` is the same contract
-under the JAX package's name.  `sw_full_scores` is the twin of the JAX
-package's full-matrix (optionally band-masked) kernel, `sw_full` its
+banded kernel for CUDA tensors (one warp a window, one window a block;
+`sw_kernel_config` picks its cells a lane); `banded_sw_pallas` is the same
+contract under the JAX package's name.  `sw_full_scores` is the twin of the
+JAX package's full-matrix (optionally band-masked) kernel, `sw_full` its
 wrapper.  All return (score f32[B], q_end i32[B], s_end i32[B]), ends
 1-based inclusive, and each kernel equals its twin bit for bit: every value
 is a multiple of 0.5.
@@ -24,6 +25,11 @@ from ..models.sw import GAP_EXTEND, GAP_OPEN, MATCH, MISMATCH
 NEG = -1e30
 MAX_BAND = 1024
 MAX_FULL_S = 8192             # longest subject the full-matrix kernel takes
+# the banded kernel's limits (its -inf sentinel leaves int32 beyond them)
+# and the cells a lane it is built for
+MAX_Q = 1 << 20
+MAX_S = 1 << 27
+SW_CELLS = (1, 2, 4, 6, 8, 12, 16, 24, 32)
 
 # kernel launches (plain integers; chip_smoke.py resets and reads them):
 # LAUNCHES counts the banded kernel, FULL_LAUNCHES the full-matrix one
@@ -157,10 +163,26 @@ def _check(q_codes, s_codes, band):
         raise ValueError(f"band must be a multiple of 8 in (0, {MAX_BAND}]")
 
 
+def sw_kernel_config(qlen: int, slen: int, band: int) -> int:
+    """Cells a lane of the banded kernel.
+
+    A window is one warp (and one block) whose 32 lanes hold its
+    min(band, slen) subject slots, `cells` consecutive ones a lane: the
+    fewest of SW_CELLS that cover them.  Raises ValueError on a shape the
+    kernel does not take."""
+    if band % 8 or not 0 < band <= MAX_BAND:
+        raise ValueError(f"band must be a multiple of 8 in (0, {MAX_BAND}]")
+    if not 0 <= qlen <= MAX_Q or not 0 <= slen <= MAX_S:
+        raise ValueError(f"the banded kernel takes qlen <= {MAX_Q} and "
+                         f"slen <= {MAX_S}, got qlen {qlen}, slen {slen}")
+    return next(c for c in SW_CELLS if 32 * c >= min(band, slen))
+
+
 def _launch(entry: str, q_codes: torch.Tensor, s_codes: torch.Tensor,
-            band: int):
+            band: int, *config: int):
     """Allocate the outputs and launch one of csrc/sw_banded.cu's entry
-    points (same signature) on CUDA tensors.  Returns (outputs, launched)."""
+    points on CUDA tensors: (q, s, batch, qlen, slen, band, *config,
+    outputs..., stream).  Returns (outputs, launched)."""
     if q_codes.device.type != "cuda":
         raise ValueError(f"unsupported device {q_codes.device}")
     q = q_codes.contiguous()
@@ -172,7 +194,7 @@ def _launch(entry: str, q_codes: torch.Tensor, s_codes: torch.Tensor,
     if bsz == 0:
         return (score, q_end, s_end), False
     err = getattr(_kernels.library(), entry)(
-        q.data_ptr(), s.data_ptr(), bsz, qlen, s.shape[1], band,
+        q.data_ptr(), s.data_ptr(), bsz, qlen, s.shape[1], band, *config,
         score.data_ptr(), q_end.data_ptr(), s_end.data_ptr(),
         _kernels.stream(q.device))
     _kernels.check(err, entry)
@@ -185,9 +207,10 @@ def sw_banded(q_codes: torch.Tensor, s_codes: torch.Tensor, band: int = 128):
     package's production TPU kernel (corticall_tpu/ops/sw_device.py:350)."""
     global LAUNCHES
     _check(q_codes, s_codes, band)
+    cells = sw_kernel_config(q_codes.shape[1], s_codes.shape[1], band)
     if q_codes.device.type == "cpu":
         return banded_sw_scores(q_codes, s_codes, band)
-    out, launched = _launch("ctk_sw_banded", q_codes, s_codes, band)
+    out, launched = _launch("ctk_sw_banded", q_codes, s_codes, band, cells)
     LAUNCHES += launched
     return out
 

@@ -373,8 +373,9 @@ def _bucket(n: int, lo: int = 64) -> int:
 
 class TesseraeDevice(tz.Tesserae):
     """Tesserae with the DP and the traceback walk on the device; segment
-    reconstruction on the host.  The class name is what caller/call.py
-    checks to report the device timer sections."""
+    reconstruction on the host.  `device` defaults to the CUDA card (and
+    RuntimeError without one); "cpu" runs the plain twins.  The class name
+    is what caller/call.py checks to report the device timer sections."""
 
     # One section's DP + traceback state, estimated on the JAX package's
     # padded shapes so that the same sections take the exact host oracle and

@@ -111,7 +111,8 @@ def run_pipeline(workdir: str, reads_by_sample: dict, child: str,
                  shared_graphs: dict | None = None, device=None) -> dict:
     """Execute the production pipeline from reads to VCF; arguments and
     result keys as corticall_tpu.pipeline.run_pipeline, plus `device` for
-    the Partition and Call stages' kernels (default: CUDA when present)."""
+    the Partition and Call stages' kernels (default: the CUDA card, and
+    RuntimeError without one; "cpu" runs the plain twins)."""
     device = resolve(device)
     pl = Pipeline(workdir, resume=resume, log=log)
     samples = [child] + list(parents)

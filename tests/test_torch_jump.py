@@ -69,7 +69,7 @@ def test_rows_and_buckets_match_jax(k, with_flags):
     g, _, rng = _branchy(k)
     flags = rng.random(g.num_records) < 0.02 if with_flags else None
     want = ck.build_jump_table(g.kmers, g.edges[:, 0], k, flags=flags)
-    got = tj.build_jump_table(g.kmers, g.edges[:, 0], k, flags=flags)
+    got = tj.build_jump_table(g.kmers, g.edges[:, 0], k, flags=flags, device="cpu")
     n, w = g.kmers.shape
     rows = got.rows.numpy().view(np.uint32)
     assert rows.shape == (2 * n, 4)
@@ -93,7 +93,7 @@ def test_walks_match_jax_branchy(cap):
     g, genome, rng = _branchy(k)
     flags = rng.random(g.num_records) < 0.02
     jt = ck.build_jump_table(g.kmers, g.edges[:, 0], k, flags=flags)
-    pt = tj.build_jump_table(g.kmers, g.edges[:, 0], k, flags=flags)
+    pt = tj.build_jump_table(g.kmers, g.edges[:, 0], k, flags=flags, device="cpu")
     starts = rng.integers(0, len(genome) - k, size=96)
     seeds = _pack([genome[i:i + k] for i in starts], k)
     want = ck.walk_forward_jumps(jt.buckets, jt.rows, jnp.asarray(seeds), k, cap)
@@ -107,7 +107,7 @@ def test_missing_seed_matches_jax():
     genome = "".join(rng.choice(list("ACGT"), 20000))
     g = fixtures.build_graph({"s": [genome]}, 31)
     jt = ck.build_jump_table(g.kmers, g.edges[:, 0], 31)
-    pt = tj.build_jump_table(g.kmers, g.edges[:, 0], 31)
+    pt = tj.build_jump_table(g.kmers, g.edges[:, 0], 31, device="cpu")
     seeds = _pack([genome[:31], "A" * 31], 31)
     got = tj.walk_forward_jumps(pt.buckets, pt.rows, seeds, 31, 50)
     _assert_same_walks(got, ck.walk_forward_jumps(jt.buckets, jt.rows,
@@ -122,7 +122,7 @@ def test_cycles_match_jax(length):
     k = 31
     g, hap = _cycle(k, length)
     jt = ck.build_jump_table(g.kmers, g.edges[:, 0], k)
-    pt = tj.build_jump_table(g.kmers, g.edges[:, 0], k)
+    pt = tj.build_jump_table(g.kmers, g.edges[:, 0], k, device="cpu")
     seed_strs = [hap[:k], hap[7:7 + k]]
     seeds = _pack(seed_strs, k)
     for cap in (3000, length + 50):
@@ -149,7 +149,7 @@ def test_long_k_walks_match_host_walkers(k):
     them; the JAX package asserts there, so the host walkers are the
     reference."""
     g, genome, rng = _branchy(k, seed=k, n=6000)
-    pt = tj.build_jump_table(g.kmers, g.edges[:, 0], k)
+    pt = tj.build_jump_table(g.kmers, g.edges[:, 0], k, device="cpu")
     assert pt.buckets.shape[2] == 5
     starts = rng.integers(0, len(genome) - k, size=48)
     seed_strs = [genome[i:i + k] for i in starts] + ["C" * k]
@@ -172,7 +172,7 @@ def test_long_k_walks_match_host_walkers(k):
 @pytest.mark.parametrize("k", [55, 63])
 def test_long_k_cycle_matches_host_walker(k):
     g, hap = _cycle(k, 300, seed=k)
-    pt = tj.build_jump_table(g.kmers, g.edges[:, 0], k)
+    pt = tj.build_jump_table(g.kmers, g.edges[:, 0], k, device="cpu")
     seed_strs = [hap[:k], hap[11:11 + k]]
     for cap in (2000, 350):
         packed, cycled, steps, saturated, _, _ = tj.walk_forward_jumps(
@@ -186,7 +186,7 @@ def test_long_k_cycle_matches_host_walker(k):
 def test_wrappers_on_cpu_run_the_twins_and_validate():
     g, genome, _ = _branchy(31, n=3000)
     before = dict(tj.LAUNCHES)
-    pt = tj.build_jump_table(g.kmers, g.edges[:, 0], 31)
+    pt = tj.build_jump_table(g.kmers, g.edges[:, 0], 31, device="cpu")
     seeds = tj.words_tensor(_pack([genome[:31], genome[100:131]], 31), "cpu")
     out = tj.walk_jumps(pt.buckets, pt.rows, seeds, 31, 100)
     assert out[0].shape == (2, 2 * tj.jump_iters(100)) and out[0].dtype == torch.int32
@@ -224,7 +224,7 @@ def test_table_kernels_match_plain_on_card(cuda, k):
     assert tj.LAUNCHES["jump_compose"] == before["jump_compose"] + 5
     want = tj.jump_rows_plain(kd, ed, fl, buckets, k)
     assert torch.equal(got, want)
-    cpu = tj.build_jump_table(g.kmers, g.edges[:, 0], k, flags=flags)
+    cpu = tj.build_jump_table(g.kmers, g.edges[:, 0], k, flags=flags, device="cpu")
     assert torch.equal(got.cpu(), cpu.rows) and torch.equal(buckets.cpu(), cpu.buckets)
 
 
@@ -255,7 +255,7 @@ def test_walk_kernel_on_cycles_matches_plain_on_card(cuda):
     for length in (616, 90):
         g, hap = _cycle(31, length)
         pt = tj.build_jump_table(g.kmers, g.edges[:, 0], 31, device=cuda)
-        cpu = tj.build_jump_table(g.kmers, g.edges[:, 0], 31)
+        cpu = tj.build_jump_table(g.kmers, g.edges[:, 0], 31, device="cpu")
         seeds = _pack([hap[:31], hap[7:38]], 31)
         for cap in (3000, length + 50):
             got = tj.walk_forward_jumps(pt.buckets, pt.rows, seeds, 31, cap)

@@ -72,10 +72,38 @@ def test_default_routes_match_host(case):
     g, rois, links, host_linked, host_unlinked = case
     stats = {}
     assert tcore.partition(g, rois, links=[links], max_walk=4096,
-                           stats=stats) == host_linked
+                           stats=stats, device="cpu") == host_linked
     assert stats["walk_kernel"] == ("native_links" if tcore.nat.available()
                                     else "jump_table")
     assert tcore.partition(g, rois, max_walk=4096) == host_unlinked
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("linked", [True, False])
+def test_jump_route_without_device_raises(monkeypatch, no_card, case, linked):
+    g, rois, links = case[:3]
+    monkeypatch.setattr(tcore, "NATIVE_LINK_THRESHOLD", -1)
+    monkeypatch.setattr(tcore, "SMALL_BATCH", -1)
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        tcore.partition(g, rois, links=[links] if linked else (), max_walk=4096)
+
+
+def test_host_routes_need_no_device(monkeypatch, no_card, case):
+    """The host routes (native linked walker, host unlinked walks,
+    link_novels) never read `device`, so None does not raise there."""
+    g, rois, links, host_linked, host_unlinked = case
+    assert tcore.partition(g, rois, max_walk=4096) == host_unlinked
+    assert tcore.partition(g, rois, links=[links], link_novels=True,
+                           max_walk=4096)
+    if tcore.nat.available():
+        stats = {}
+        assert tcore.partition(g, rois, links=[links], max_walk=4096,
+                               stats=stats) == host_linked
+        assert stats["walk_kernel"] == "native_links"
 
 
 def test_without_native_core_the_device_route_runs(monkeypatch):

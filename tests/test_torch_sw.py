@@ -50,6 +50,31 @@ def _mutated_pairs(rng, batch, qlen, slen, ragged=True):
     return q, s
 
 
+def _tandem_pairs(rng, batch, qlen, slen):
+    """Tie-heavy windows: query and subject cut from one tandem repeat of a
+    2-7 base unit, so one best value recurs on several rows and cells;
+    ragged ends, a substitution in every fourth query, an all-pad query."""
+    q = np.full((batch, qlen), 4, np.int32)
+    s = np.full((batch, slen), 4, np.int32)
+    for b in range(batch):
+        unit = rng.integers(0, 4, int(rng.integers(2, 8)))
+        rep = np.tile(unit, (qlen + slen) // len(unit) + 2)
+        ql = int(rng.integers(qlen // 2, qlen + 1))
+        sl = int(rng.integers(slen // 2, slen + 1))
+        off = int(rng.integers(0, len(unit)))
+        q[b, :ql] = rep[off:off + ql]
+        s[b, :sl] = rep[:sl]
+        if b % 4 == 3:
+            p = int(rng.integers(0, ql))
+            q[b, p] = (q[b, p] + 1) % 4
+    q[-1] = 4
+    return q, s
+
+
+# the main path's batches on the 2 Mbp trio (B, Q, S after _round8), band 512
+MAIN_SHAPES = [(8, 248, 376), (32, 80, 208), (64, 80, 208), (8, 336, 464)]
+
+
 def _bits(x):
     """int32 view of float32 outputs (bit-exact compare), as numpy."""
     x = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
@@ -92,6 +117,56 @@ def test_plain_matches_jax_ragged_and_all_pad(band):
     _assert_same(got, swd.sw_banded_pallas(q, s, band=band, interpret=True))
 
 
+@pytest.mark.parametrize("shape", MAIN_SHAPES[:2], ids=lambda t: "x".join(map(str, t)))
+@pytest.mark.parametrize("pairs", [_mutated_pairs, _tandem_pairs],
+                         ids=["mutated", "tandem"])
+def test_plain_matches_jax_at_main_path_shapes(shape, pairs):
+    """Band 512 over subjects narrower than the band, as on the main path."""
+    swd = _jax_sw()
+    batch, qlen, slen = shape
+    q, s = pairs(np.random.default_rng(210 + batch), batch, qlen, slen)
+    got = tsw.banded_sw_scores(torch.from_numpy(q), torch.from_numpy(s), 512)
+    assert float(got[0][-1]) == 0 and int(got[1][-1]) == 0 and int(got[2][-1]) == 0
+    assert (got[0][:-1] > 0).all()
+    _assert_same(got, swd.banded_sw_scores(q, s, band=512))
+    _assert_same(got, swd.sw_banded_pallas(q, s, band=512, interpret=True))
+
+
+def test_sw_kernel_config_picks_and_limits():
+    cfg = tsw.sw_kernel_config
+    assert cfg(336, 464, 512) == 16        # slots = the subject
+    assert cfg(80, 208, 512) == 8
+    assert cfg(248, 376, 512) == 12
+    assert cfg(4096, 8192, 512) == 16      # slots = the band
+    assert cfg(512, 1024, 64) == 2
+    assert cfg(700, 1500, 1024) == 32
+    assert cfg(10, 0, 8) == 1
+    assert cfg(100, 40, 8) == 1
+    for qlen, slen, band in [(80, 208, 1032), (80, 208, 60), (80, 208, 0),
+                             (tsw.MAX_Q + 1, 208, 64), (80, tsw.MAX_S + 1, 64),
+                             (-1, 208, 64)]:
+        with pytest.raises(ValueError):
+            cfg(qlen, slen, band)
+    for slen, band in ((208, 512), (8192, 512), (2000, 1024), (300, 8)):
+        cells = cfg(80, slen, band)
+        smaller = [c for c in tsw.SW_CELLS if c < cells]
+        assert 32 * cells >= min(band, slen)
+        assert not smaller or 32 * smaller[-1] < min(band, slen)
+
+
+def test_wrapper_refuses_shapes_beyond_the_kernel():
+    """The wrapper checks the kernel's limits before it runs either side,
+    so a CPU call refuses what a CUDA call would."""
+    q = torch.full((1, tsw.MAX_Q + 1), 4, dtype=torch.int32)
+    s = torch.full((1, 64), 4, dtype=torch.int32)
+    before = tsw.LAUNCHES
+    with pytest.raises(ValueError, match="qlen"):
+        tsw.sw_banded(q, s, 64)
+    with pytest.raises(ValueError, match="qlen"):
+        tsw.banded_sw_pallas(q, s, 64)
+    assert tsw.LAUNCHES == before
+
+
 def test_padding_with_n_leaves_scores_unchanged():
     rng = np.random.default_rng(203)
     q, s = _mutated_pairs(rng, 10, 70, 100)
@@ -116,9 +191,14 @@ def test_wrapper_on_cpu_runs_plain_twin_and_validates():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,qlen,slen,band", [(24, 300, 420, 64),
-                                                  (9, 250, 400, 512),
-                                                  (5, 100, 130, 24)])
+@pytest.mark.parametrize("batch,qlen,slen,band", [
+    (24, 300, 420, 64), (9, 250, 400, 512), (5, 100, 130, 24),
+    *[(b, q, s, 512) for b, q, s in MAIN_SHAPES],    # the main path's batches
+    (16, 200, 300, 8), (6, 700, 1500, 1024),         # the narrowest and widest band
+    (1, 300, 420, 64), (1, 336, 464, 512),           # a single window
+    (2, 3000, 2200, 512),                            # slots slide, then pin right
+    (4, 9, 300, 512), (6, 40, 64, 64),               # fewer rows than lanes; S == band
+    (2, 2500, 300, 512)])                            # rows past one 2048-row key chunk
 def test_kernel_matches_plain_on_card(cuda, batch, qlen, slen, band):
     rng = np.random.default_rng(205 + band)
     q, s = _mutated_pairs(rng, batch, qlen, slen)
@@ -128,6 +208,27 @@ def test_kernel_matches_plain_on_card(cuda, batch, qlen, slen, band):
     torch.cuda.synchronize()
     assert tsw.LAUNCHES == before + 1
     _assert_same(got, tsw.banded_sw_scores(qt, st, band))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,qlen,slen,band", [(8, 248, 376, 512), (32, 80, 208, 512),
+                                                  (12, 160, 700, 64), (7, 90, 60, 8)])
+def test_kernel_matches_plain_on_tandem_repeats(cuda, batch, qlen, slen, band):
+    q, s = _tandem_pairs(np.random.default_rng(212 + band), batch, qlen, slen)
+    qt, st = torch.from_numpy(q).to(cuda), torch.from_numpy(s).to(cuda)
+    _assert_same(tsw.sw_banded(qt, st, band), tsw.banded_sw_scores(qt, st, band))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cells", [32, 16, 12, 24])
+def test_kernel_with_forced_config_on_card(cuda, monkeypatch, cells):
+    """More cells a lane than the slots need (idle slots at the warp's end)
+    on an odd batch."""
+    q, s = _mutated_pairs(np.random.default_rng(213), 13, 336, 376)
+    qt, st = torch.from_numpy(q).to(cuda), torch.from_numpy(s).to(cuda)
+    monkeypatch.setattr(tsw, "sw_kernel_config", lambda qlen, slen, band: cells)
+    for band in (512, 256):
+        _assert_same(tsw.sw_banded(qt, st, band), tsw.banded_sw_scores(qt, st, band))
 
 
 # ---------------------------------------------------------------------------

@@ -26,11 +26,13 @@ Phases, one JSON line each (progress goes to stderr):
 6. jump_vs_plain: the jump table of bench.py's graph (demo.build_bench_graph,
    a copy) at k=47 and 21M bases
    (about the flagship trio's 23.7M records), built by the kernels and by
-   the plain twin, compared row for row and bucket for bucket; 262,144
+   the plain twin, compared row for row and bucket for bucket, stage 0 and
+   each compose pass held against the twin's state on their own; 262,144
    walks of at most 2,000 steps (bench.py's BENCH_WALKS, BENCH_STEPS_JUMP)
-   through the walk kernel and the plain twin, every output compared; the
-   contigs of 16,384 of them against the native C++ walker's; and a sweep of
-   the native walker against the device route at 1k-64k seeds;
+   through the walk kernel and the plain twin, every output compared, the
+   kernel also timed alone and beside its bound; the contigs of 16,384 of
+   them against the native C++ walker's; and a sweep of the native walker
+   against the device route at 1k-64k seeds;
 7. partition_device: the port's Partition on phase 4's graph, ROIs and
    links with the linked and the unlinked jump-table routes forced, each
    against the native route's partitions, with the jump kernels' launches
@@ -93,17 +95,18 @@ SW_FULL_SHAPE, SW_FULL_BANDS = (1024, 512, 1024), (None, 64)
 # gap maxima of two adds each, the H maximum, the prefix-scan step); Tesserae
 # ~40 a cell and column (three local candidates, two recombination compares,
 # emissions, the delete scan, the argmax and the traceback code).  The jump
-# kernels count their bytes, which bound them: a stage-0 record reads its
-# words, edges and flag and two landing buckets a orientation and writes two
-# rows; a compose pass reads and writes the rows and reads one more row a
-# row; a walk reads its seed, one 16-byte row a jump and writes its outputs.
+# kernels count their bytes, which bound them, each input byte once and each
+# output byte once: stage 0 its words, edges, flags and rows out, and the
+# distinct buckets that its landing lookups must read (`probed_buckets`); a
+# compose pass its rows in and out; a walk its seeds and outputs, the
+# distinct buckets of its seed lookups and the distinct rows its lanes read.
 HBM_BYTES_PER_S = 3.35e12
 # the banded SW kernel's operations are int32 (DPX); the data sheet gives no
 # int32 rate, so they count against the float32 one, like the others
 FP32_OPS_PER_S = 67e12
 SW_OPS_PER_CELL = 12
 TESSERAE_OPS_PER_CELL = 40
-JUMP_ROW_BYTES = 16
+JUMP_ROW_BYTES = 16                          # a wide row, as the walk reads it
 # one five-step warp-shuffle max-scan on this card, 74-75 ns
 # (corticall_tpu_torch/tools/tesserae_probe.py barriers, NVIDIA H100 80GB
 # HBM3 at 700 W): a banded SW window's Q rows are a chain of such scans
@@ -286,30 +289,74 @@ def host_buckets(kmers: np.ndarray, nb: int, entry: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(out.view(np.int32)).view(nb, 2, w + 1)
 
 
+def probed_buckets(buckets, canon) -> torch.Tensor:
+    """Bucket ids that two-choice lookups of canonical keys (int64 [B, W])
+    must read: each key's primary bucket, and its second bucket where the
+    primary does not hold the key."""
+    nb, _, e = buckets.shape
+    w = e - 1
+    h = tk.hash_words(canon)
+    first = h & (nb - 1)
+    ent = tk.from_bits32(buckets[first])                   # [B, 2, W+1]
+    held = ((ent[..., w] >= 1 << 31) & (ent[..., :w] == canon[:, None, :]).all(-1)).any(-1)
+    second = tk.mix32(h[~held] ^ tj.GOLDEN) & (nb - 1)
+    return torch.cat([first, second])
+
+
+def bucket_bytes(buckets, ids) -> int:
+    """Bytes of the distinct buckets among `ids` (at most the whole array)."""
+    return int(torch.unique(ids).numel()) * buckets.shape[1] * buckets.shape[2] * 4
+
+
+def landing_buckets(kd, ed, buckets, k) -> torch.Tensor:
+    """Bucket ids stage 0's landing lookups must read: those of the rows with
+    exactly one successor, in both orientations."""
+    words, e = tk.from_bits32(kd), ed.to(torch.int64)
+    ids = []
+    for d in (0, 1):
+        cur = words if d == 0 else tk.revcomp_words(words, k)
+        mask = (e & 0xF) if d == 0 else (e >> 4)
+        single = tk.popcount4(mask) == 1
+        nxt = tk.shift_append(cur[single], tk.lowest_set_base(mask[single]), k)
+        ids.append(probed_buckets(buckets, tk.canonicalize_words(nxt, k)[0]))
+    return torch.cat(ids)
+
+
 def check_table(kd, ed, fd, buckets, k, rows) -> dict:
-    """Stage 0 and one compose pass re-run by their kernels and their plain
-    twins on the table's inputs, and the table's rows against the plain
-    build; raises on any difference.  Returns the times (ms)."""
-    rows0 = torch.empty_like(rows)
-    stage0_ms = event_ms(lambda: tj.stage0_kernel(kd, ed, fd, buckets, k, rows0), 3)
+    """Stage 0 and each compose pass re-run by their kernels, each from the
+    previous kernel's rows, and held against the plain twins' state (narrow
+    rows decoded by `widen_rows`); the table's rows against the plain build;
+    raises on any difference.  Returns the times (ms) and bounds."""
+    n2 = rows.shape[0]
+    src = torch.empty((n2, 2), dtype=torch.int32, device=rows.device)
+    stage0_ms = event_ms(lambda: tj.stage0_kernel(kd, ed, fd, buckets, k, src), 3)
     stage0_plain_ms, state = host_ms(lambda: tj.stage0_plain(kd, ed, fd, buckets, k))
-    same(rows0, tj.pack_rows(*state), "jump_stage0")
-    rows1 = torch.empty_like(rows)
-    compose_ms = event_ms(lambda: tj.compose_kernel(rows0, rows1), 3)
-    compose_plain_ms, state = host_ms(lambda: tj.jump_compose(*state))
-    same(rows1, tj.pack_rows(*state), "jump_compose")
-    del state, rows0, rows1
+    same(tj.widen_rows(src, 0), tj.pack_rows(*state), "jump_stage0")
+    landing = bucket_bytes(buckets, landing_buckets(kd, ed, buckets, k))
+    stage0_bound = bound_ms(nbytes(kd, ed, fd, src) + landing)
+    passes = []
+    for p in range(tj.COMPOSE_PASSES):
+        dst = torch.empty((n2, 2 if p < tj.NARROW_PASSES else 4), dtype=torch.int32,
+                          device=rows.device)
+        ms = event_ms(lambda: tj.compose_kernel(src, dst, p), 3)
+        plain_ms, state = host_ms(lambda: tj.jump_compose(*state))
+        got = dst if dst.shape[1] == 4 else tj.widen_rows(dst, p + 1)
+        same(got, tj.pack_rows(*state), f"jump_compose pass {p + 1}")
+        passes.append({"ms": round(ms, 4), "plain_ms": round(plain_ms, 2),
+                       "row_bytes": [src.shape[1] * 4, dst.shape[1] * 4],
+                       **bound_fields(bound_ms(nbytes(src, dst)))})
+        src = dst
+    del state
+    same(src, rows, "jump table rows, the kernels' pass by pass")
     rows_plain_ms, plain_rows = host_ms(lambda: tj.jump_rows_plain(kd, ed, fd, buckets, k))
     same(rows, plain_rows, "jump table rows")
-    bucket_bytes = 2 * buckets.shape[2] * 4                 # one bucket: 2 entries
-    stage0_bound = bound_ms(nbytes(kd, ed, fd, rows) + kd.shape[0] * 2 * 2 * bucket_bytes)
-    compose_bound = bound_ms(2 * nbytes(rows) + rows.shape[0] * JUMP_ROW_BYTES)
     return {"stage0_ms": round(stage0_ms, 4), "stage0_plain_ms": round(stage0_plain_ms, 2),
-            "stage0_bound": bound_fields(stage0_bound),
-            "compose_ms": round(compose_ms, 4),
-            "compose_plain_ms": round(compose_plain_ms, 2),
-            "compose_bound": bound_fields(compose_bound),
-            "rows_plain_ms": round(rows_plain_ms, 2)}
+            "stage0_bound": bound_fields(stage0_bound), "landing_bucket_bytes": landing,
+            "compose_ms": round(sum(p["ms"] for p in passes), 4),
+            "compose_plain_ms": round(sum(p["plain_ms"] for p in passes), 2),
+            "compose_bound": {"bound_ms": round(sum(p["bound_ms"] for p in passes), 6),
+                              "bound_by": "bytes"},
+            "compose_passes": passes, "rows_plain_ms": round(rows_plain_ms, 2)}
 
 
 def check_walk(buckets, rows, seeds, k, num_steps, got) -> float:
@@ -330,11 +377,28 @@ def check_walk(buckets, rows, seeds, k, num_steps, got) -> float:
     return plain_ms
 
 
-def walk_bound(seeds, got) -> float:
-    """Bound of one walk: its seeds and outputs, and a 16-byte row a jump
-    (ceil(steps / 32) + 1 jumps a lane)."""
-    jumps = int(((got[1].long() + 31) // 32 + 1).sum())
-    return bound_ms(nbytes(seeds, *got) + jumps * JUMP_ROW_BYTES)
+def walk_bound(buckets, rows, seeds, k, num_steps, got):
+    """Bound of one walk: its seeds and outputs, the distinct buckets its
+    seed lookups must read and the distinct 16-byte rows its lanes read (from
+    the plain walk on the same inputs)."""
+    words = tk.from_bits32(seeds)
+    visited = []
+    tj.jump_walk(rows, tj.seed_rows(buckets, words, k), num_steps, visited)
+    rows_read = int(torch.unique(torch.cat(visited)).numel()) if visited else 0
+    seed_buckets = bucket_bytes(buckets, probed_buckets(buckets,
+                                                        tk.canonicalize_words(words, k)[0]))
+    return bound_ms(nbytes(seeds, *got) + seed_buckets + rows_read * JUMP_ROW_BYTES)
+
+
+def walk_kernel_ms(buckets, rows, seeds, k, num_steps, reps=3) -> float:
+    """CUDA-event time of the walk kernel alone: outputs allocated and
+    zero-filled once, no transposing copy."""
+    b, iters = seeds.shape[0], tj.jump_iters(num_steps)
+    out = torch.zeros((iters, b, 2), dtype=torch.int32, device=seeds.device)
+    steps = torch.zeros(b, dtype=torch.int32, device=seeds.device)
+    flags = torch.zeros((3, b), dtype=torch.bool, device=seeds.device)
+    return event_ms(lambda: tj.walk_kernel(buckets, rows, seeds, k, num_steps, out, steps,
+                                           flags), reps)
 
 
 def tesserae_diff(got, want) -> float:
@@ -508,12 +572,15 @@ def jump_phase(dev) -> dict:
     st = tj.words_tensor(seeds, dev)
     got = tj.walk_jumps(buckets, rows, st, k, JUMP_STEPS)
     walk_ms = event_ms(lambda: tj.walk_jumps(buckets, rows, st, k, JUMP_STEPS), 3)
+    walk_alone_ms = walk_kernel_ms(buckets, rows, st, k, JUMP_STEPS)
     walk_plain_ms = check_walk(buckets, rows, st, k, JUMP_STEPS, got)
+    walk_bound_ms = walk_bound(buckets, rows, st, k, JUMP_STEPS, got)
     steps_total = int(got[1].sum())
     mat_ms, walked = host_ms(lambda: tj.walk_forward_jumps(buckets, rows, seeds, k,
                                                            JUMP_STEPS))
     peak = torch.cuda.max_memory_allocated(dev)
-    log(f"jump walk: kernel {walk_ms:.3f} ms, plain {walk_plain_ms:.1f} ms")
+    log(f"jump walk: kernel {walk_alone_ms:.3f} ms ({walk_ms:.3f} with the wrapper), "
+        f"plain {walk_plain_ms:.1f} ms")
 
     # the native walker: rate, and the same contigs for 16,384 seeds
     t0 = time.perf_counter()
@@ -557,7 +624,9 @@ def jump_phase(dev) -> dict:
         "device_passes_s": round(passes_s, 4), **times,
         "rows_bytes": rows.numel() * 4, "buckets_bytes": buckets.numel() * 4,
         "seeds": JUMP_SEEDS, "max_steps": JUMP_STEPS, "steps": steps_total,
-        "walk_ms": round(walk_ms, 4), "walk_steps_per_s": round(steps_total / walk_ms * 1e3),
+        "walk_ms": round(walk_ms, 4), "walk_kernel_ms": round(walk_alone_ms, 4),
+        "walk_bound": bound_fields(walk_bound_ms),
+        "walk_steps_per_s": round(steps_total / walk_ms * 1e3),
         "walk_plain_ms": round(walk_plain_ms, 2),
         "materialized_ms": round(mat_ms, 2),
         "materialized_steps_per_s": round(steps_total / mat_ms * 1e3),
@@ -585,15 +654,15 @@ def partition_phase(dev, out) -> dict:
     keys = ("walk_kernel", "link_replays", "link_junctions_resolved",
             "device_steps", "jump_table_build_s", "device_walk_s")
     tables, walks = [], []
-    rows_kernel, walk_kernel = tj.jump_rows, tj.walk_jumps
+    rows_wrapper, walk_wrapper = tj.jump_rows, tj.walk_jumps
 
     def rows_recorded(*args):
-        rows = rows_kernel(*args)
+        rows = rows_wrapper(*args)
         tables.append((args, rows))
         return rows
 
     def walk_recorded(*args):
-        got = walk_kernel(*args)
+        got = walk_wrapper(*args)
         walks.append((args, got))
         return got
 
@@ -620,7 +689,7 @@ def partition_phase(dev, out) -> dict:
         run("unlinked_device")
     finally:
         tcore.NATIVE_LINK_THRESHOLD, tcore.SMALL_BATCH = old
-        tj.jump_rows, tj.walk_jumps = rows_kernel, walk_kernel
+        tj.jump_rows, tj.walk_jumps = rows_wrapper, walk_wrapper
     if parts["linked_device"] != parts["linked_native"]:
         raise AssertionError("the linked device route's partitions differ from the native route's")
     if parts["unlinked_device"] != parts["unlinked_host"]:
@@ -644,7 +713,7 @@ def partition_phase(dev, out) -> dict:
     for (kd, ed, fd, buckets, k), rows in tables:
         same(buckets.cpu(), want_buckets, "jump table buckets")
         times = check_table(kd, ed, fd, buckets, k, rows)
-    walk_plain_ms = walk_ms = 0.0
+    walk_plain_ms = walk_ms = walk_alone_ms = 0.0
     walk_bound_ms = (0.0, "bytes")
     lanes = 0
     for args, got in walks:
@@ -652,10 +721,12 @@ def partition_phase(dev, out) -> dict:
         if args[2].shape[0] >= lanes:
             lanes = args[2].shape[0]
             walk_plain_ms = plain_ms
-            walk_ms = event_ms(lambda: walk_kernel(*args), 3)
-            walk_bound_ms = walk_bound(args[2], got)
+            walk_ms = event_ms(lambda: walk_wrapper(*args), 3)
+            walk_alone_ms = walk_kernel_ms(*args)
+            walk_bound_ms = walk_bound(*args, got)
     replay = {"tables": len(tables), "walks": len(walks), "identical": True,
               "walk_lanes": lanes, "walk_ms": round(walk_ms, 4),
+              "walk_kernel_ms": round(walk_alone_ms, 4),
               "walk_plain_ms": round(walk_plain_ms, 2),
               "walk_bound": bound_fields(walk_bound_ms), **times,
               "seconds": round(time.perf_counter() - t0, 2)}
@@ -832,7 +903,7 @@ def main() -> int:
          "source": "corticall_tpu_torch/csrc/jump.cu",
          "replaces": "corticall_tpu/ops/cuckoo.py:1096",
          "launches": pp["launches"]["jump_walk"], "max_abs_err": 0.0,
-         "ms": replayed["walk_ms"], "plain_ms": replayed["walk_plain_ms"],
+         "ms": replayed["walk_kernel_ms"], "plain_ms": replayed["walk_plain_ms"],
          **replayed["walk_bound"], "library_ms": None},
         {"name": "jump_stage0", "route": "cuda",
          "source": "corticall_tpu_torch/csrc/jump.cu",
@@ -845,7 +916,8 @@ def main() -> int:
          "replaces": "corticall_tpu/ops/cuckoo.py:805",
          "launches": pp["launches"]["jump_compose"], "max_abs_err": 0.0,
          "ms": replayed["compose_ms"], "plain_ms": replayed["compose_plain_ms"],
-         **replayed["compose_bound"], "library_ms": None},
+         **replayed["compose_bound"], "library_ms": None,
+         "pass_ms": [p["ms"] for p in replayed["compose_passes"]]},
         {"name": "sw_full", "route": "cuda",
          "source": "corticall_tpu_torch/csrc/sw_banded.cu",
          "replaces": "corticall_tpu/ops/sw_device.py:236",

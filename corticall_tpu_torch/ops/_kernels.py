@@ -39,7 +39,7 @@ _SIGNATURES = {
     "ctk_sw_full": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "ctk_tesserae": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P),
     "ctk_jump_stage0": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
-    "ctk_jump_compose": (_P, _P, _I, _P),
+    "ctk_jump_compose": (_P, _P, _I, _I, _I, _P),
     "ctk_jump_walk": (_P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
 }
 

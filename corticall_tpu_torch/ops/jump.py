@@ -20,7 +20,10 @@ power-of-two row or lane padding, no chunked landing lookup.
 Each stage has a plain twin (`jump_stage0`, `jump_compose`, `pack_rows`,
 `seed_rows`, `jump_walk`) on words held in int64 (ops/kmer.py), run for CPU
 tensors; CUDA tensors launch csrc/jump.cu (`ctk_jump_stage0`,
-`ctk_jump_compose`, `ctk_jump_walk`) or raise.
+`ctk_jump_compose`, `ctk_jump_walk`) or raise.  On the card, stage 0 and the
+first NARROW_PASSES doubling passes write narrow rows int32 [2N, 2] (runs of
+at most NARROW_MAX bases, 8 bytes a row; `narrow_rows` / `widen_rows` are the
+plain encode and decode), and the last pass the [2N, 4] rows above.
 """
 
 from __future__ import annotations
@@ -39,6 +42,9 @@ JUMP_MAX = 32                 # bases a row: a power of two, 64 bits of (hi, lo)
 JUMP_END = 0xFFFFFFFF         # next_row of a run that ends the walk
 _TAG = 0x80000000
 COMPOSE_PASSES = 5           # log2(JUMP_MAX) doubling passes after stage 0
+NARROW_MAX = 16              # bases a narrow row holds: the 32 bits of its first word
+NARROW_PASSES = 4            # passes whose runs fit a narrow row (2^4 = NARROW_MAX)
+NARROW_ENDED = 0x7FFFFF80    # a narrow row's link: the run ended; row ids stay below it
 
 # kernel launches (plain integers; chip_smoke.py resets and reads them)
 LAUNCHES = {"jump_walk": 0, "jump_stage0": 0, "jump_compose": 0}
@@ -167,6 +173,38 @@ def pack_rows(hi, lo, length, cyc, flag, endj, ptr) -> torch.Tensor:
     return tk.to_bits32(torch.stack([hi, lo, ptr, meta], dim=1))
 
 
+def narrow_rows(hi, lo, length, cyc, flag, endj, ptr, stage: int) -> torch.Tensor:
+    """-> int32 [2N, 2] narrow rows (bases, link) of the state after `stage`
+    (0: stage 0, p: compose pass p <= NARROW_PASSES), the format
+    `ctk_jump_stage0` and the first NARROW_PASSES compose passes write.
+    bases = the run's bases as a wide row's hi; link = flag << 31 | next_row
+    for a live row, whose run is full (2^stage bases) with no junction and no
+    cycle (cuckoo.py::_jump_compose's invariant: next_row != END <=> the run
+    is full and continuing), else flag << 31 | NARROW_ENDED | cyc << 6 |
+    endj << 5 | length."""
+    live = ptr != JUMP_END
+    full = 1 << stage
+    if (not 0 <= stage <= NARROW_PASSES or hi.shape[0] > NARROW_ENDED
+            or bool((lo != 0).any()) or bool((length > full).any())
+            or bool((live & ((length != full) | endj | cyc)).any())):
+        raise ValueError(f"not the rows of stage {stage} of at most {NARROW_MAX} bases")
+    link = torch.where(live, ptr, NARROW_ENDED | (cyc.to(torch.int64) << 6)
+                       | (endj.to(torch.int64) << 5) | length)
+    return tk.to_bits32(torch.stack([hi, (flag.to(torch.int64) << 31) | link], dim=1))
+
+
+def widen_rows(narrow: torch.Tensor, stage: int) -> torch.Tensor:
+    """Narrow rows int32 [2N, 2] of `stage` -> the int32 [2N, 4] rows that
+    `pack_rows` gives for the same state."""
+    bases, link = tk.from_bits32(narrow).unbind(1)
+    ended = (link & NARROW_ENDED) == NARROW_ENDED
+    ptr = torch.where(ended, JUMP_END, link & 0x7FFFFFFF)
+    length = torch.where(ended, link & 0x1F, 1 << stage)
+    meta = (length | (torch.where(ended, (link >> 5) & 1, 0) << 29) | ((link >> 31) << 30)
+            | (torch.where(ended, (link >> 6) & 1, 0) << 31))
+    return tk.to_bits32(torch.stack([bases, torch.zeros_like(bases), ptr, meta], dim=1))
+
+
 def stage0_plain(kd: torch.Tensor, edges: torch.Tensor, flags: torch.Tensor,
                  buckets: torch.Tensor, k: int):
     """Stage 0 in both orientations, interleaved to rows 2*i + d (the
@@ -211,11 +249,23 @@ def _check_table_inputs(kd, edges, flags, buckets, k):
         raise ValueError("all table inputs must be on one device")
 
 
+def _check_rows(rows: torch.Tensor, n2: int, width: int) -> None:
+    if rows.shape != (n2, width) or rows.dtype != torch.int32 or not rows.is_contiguous():
+        raise ValueError(f"rows must be contiguous int32 [{n2}, {width}]")
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must be 16-byte aligned")
+    if n2 > NARROW_ENDED:
+        raise ValueError(f"a jump table holds at most {NARROW_ENDED} rows")
+
+
 def stage0_kernel(kd: torch.Tensor, edges: torch.Tensor, flags: torch.Tensor,
                   buckets: torch.Tensor, k: int, rows: torch.Tensor) -> None:
-    """One `ctk_jump_stage0` launch: packed stage-0 rows of both
-    orientations into `rows` (int32 [2N, 4], on the card)."""
+    """One `ctk_jump_stage0` launch: narrow stage-0 rows of both
+    orientations into `rows` (int32 [2N, 2], on the card)."""
     n, w = kd.shape
+    _check_rows(rows, 2 * n, 2)
+    if buckets.data_ptr() % 16:
+        raise ValueError("buckets must be 16-byte aligned")
     err = _kernels.library().ctk_jump_stage0(
         kd.data_ptr(), edges.data_ptr(), flags.data_ptr(), buckets.data_ptr(),
         buckets.shape[0], n, w, k, rows.data_ptr(), _kernels.stream(kd.device))
@@ -223,11 +273,18 @@ def stage0_kernel(kd: torch.Tensor, edges: torch.Tensor, flags: torch.Tensor,
     LAUNCHES["jump_stage0"] += 1
 
 
-def compose_kernel(src: torch.Tensor, dst: torch.Tensor) -> None:
-    """One `ctk_jump_compose` launch: a doubling pass from `src` rows into
-    `dst` rows (int32 [2N, 4], on the card)."""
+def compose_kernel(src: torch.Tensor, dst: torch.Tensor, stage: int) -> None:
+    """One `ctk_jump_compose` launch: the doubling pass from the narrow rows
+    of `stage` (int32 [2N, 2], on the card) into `dst`: the narrow rows of
+    stage + 1 (stage < NARROW_PASSES) or the wide rows int32 [2N, 4]."""
+    n2 = src.shape[0]
+    _check_rows(src, n2, 2)
+    out_wide = dst.dim() == 2 and dst.shape[1] == 4
+    _check_rows(dst, n2, 4 if out_wide else 2)
+    if not 0 <= stage <= NARROW_PASSES or (stage == NARROW_PASSES and not out_wide):
+        raise ValueError(f"stage {stage}: a narrow row holds at most {NARROW_MAX} bases")
     err = _kernels.library().ctk_jump_compose(
-        src.data_ptr(), dst.data_ptr(), src.shape[0], _kernels.stream(src.device))
+        src.data_ptr(), dst.data_ptr(), n2, stage, int(out_wide), _kernels.stream(src.device))
     _kernels.check(err, "jump_compose")
     LAUNCHES["jump_compose"] += 1
 
@@ -236,21 +293,24 @@ def jump_rows(kd: torch.Tensor, edges: torch.Tensor, flags: torch.Tensor,
               buckets: torch.Tensor, k: int) -> torch.Tensor:
     """Rows int32 [2N, 4] of the jump table: the plain twins for CPU
     tensors; for CUDA tensors one `ctk_jump_stage0` launch and five
-    `ctk_jump_compose` launches (the last one's rows are the table)."""
+    `ctk_jump_compose` launches (the last one's rows are the table).  Stage 0
+    and the first NARROW_PASSES passes ping-pong between two narrow buffers;
+    the last pass widens into the table."""
     _check_table_inputs(kd, edges, flags, buckets, k)
     if kd.device.type == "cpu":
         return jump_rows_plain(kd, edges, flags, buckets, k)
     if kd.device.type != "cuda":
         raise ValueError(f"unsupported device {kd.device}")
     kd, edges, flags, buckets = (t.contiguous() for t in (kd, edges, flags, buckets))
-    rows = torch.empty((2 * kd.shape[0], 4), dtype=torch.int32, device=kd.device)
-    if kd.shape[0] == 0:
+    n2 = 2 * kd.shape[0]
+    rows = torch.empty((n2, 4), dtype=torch.int32, device=kd.device)
+    if n2 == 0:
         return rows
-    stage0_kernel(kd, edges, flags, buckets, k, rows)
-    other = torch.empty_like(rows)
-    for _ in range(COMPOSE_PASSES):
-        compose_kernel(rows, other)
-        rows, other = other, rows
+    narrow = torch.empty((2, n2, 2), dtype=torch.int32, device=kd.device)
+    stage0_kernel(kd, edges, flags, buckets, k, narrow[0])
+    for stage in range(COMPOSE_PASSES):
+        dst = narrow[(stage + 1) % 2] if stage < NARROW_PASSES else rows
+        compose_kernel(narrow[stage % 2], dst, stage)
     return rows
 
 
@@ -293,11 +353,14 @@ def _keep_mask(keep: torch.Tensor) -> torch.Tensor:
                                    (full << (32 - keep).clamp(0, 32)) & tk.M32, 0))
 
 
-def jump_walk(rows: torch.Tensor, start: torch.Tensor, num_steps: int):
+def jump_walk(rows: torch.Tensor, start: torch.Tensor, num_steps: int,
+              visited: list | None = None):
     """Plain twin of cuckoo.py::_jump_walk: jump_iters(num_steps) pointer
     jumps over a batch of lanes from row ids `start` (int64, -1 =
     inactive), Brent cycle detection at jump stride.  Returns (packed int64
-    [B, 2T] words (e_hi, e_lo) a jump, steps, cycled, touched, endj)."""
+    [B, 2T] words (e_hi, e_lo) a jump, steps, cycled, touched, endj).  A
+    `visited` list receives the ids of the rows the active lanes read, a
+    tensor a jump."""
     table = tk.from_bits32(rows)
     iters = jump_iters(num_steps)
     b = start.shape[0]
@@ -311,6 +374,8 @@ def jump_walk(rows: torch.Tensor, start: torch.Tensor, num_steps: int):
     out = torch.zeros((b, iters, 2), dtype=torch.int64, device=dev)
     for t in range(iters):
         hi, lo, ptr, meta = table[row.clamp(min=0)].unbind(1)
+        if visited is not None:
+            visited.append(row[active])
         run_len = meta & 0x3F
         run_cyc = (meta >> 31) != 0
         touched = touched | (active & (((meta >> 30) & 1) != 0))
@@ -368,21 +433,31 @@ def walk_jumps(buckets: torch.Tensor, rows: torch.Tensor, seeds: torch.Tensor,
     iters = jump_iters(num_steps)
     dev = seeds.device
     seeds, rows, buckets = seeds.contiguous(), rows.contiguous(), buckets.contiguous()
-    if rows.data_ptr() % 16:
-        raise ValueError("rows must be 16-byte aligned")
+    if rows.data_ptr() % 16 or buckets.data_ptr() % 16:
+        raise ValueError("rows and buckets must be 16-byte aligned")
     out = torch.zeros((iters, b, 2), dtype=torch.int32, device=dev)
     steps = torch.zeros(b, dtype=torch.int32, device=dev)
     flags = torch.zeros((3, b), dtype=torch.bool, device=dev)
     if b:
-        err = _kernels.library().ctk_jump_walk(
-            rows.data_ptr(), buckets.data_ptr(), buckets.shape[0], w, k,
-            seeds.data_ptr(), b, num_steps, iters, out.data_ptr(),
-            steps.data_ptr(), flags[0].data_ptr(), flags[1].data_ptr(),
-            flags[2].data_ptr(), _kernels.stream(dev))
-        _kernels.check(err, "jump_walk")
-        LAUNCHES["jump_walk"] += 1
+        walk_kernel(buckets, rows, seeds, k, num_steps, out, steps, flags)
     packed = out.permute(1, 0, 2).reshape(b, 2 * iters)
     return packed, steps, flags[0], flags[1], flags[2]
+
+
+def walk_kernel(buckets: torch.Tensor, rows: torch.Tensor, seeds: torch.Tensor,
+                k: int, num_steps: int, out: torch.Tensor, steps: torch.Tensor,
+                flags: torch.Tensor) -> None:
+    """One `ctk_jump_walk` launch on checked, contiguous card tensors into
+    zero-filled outputs: out int32 [T, B, 2], steps int32 [B], flags bool
+    [3, B] (cycled, touched, endj)."""
+    b = seeds.shape[0]
+    err = _kernels.library().ctk_jump_walk(
+        rows.data_ptr(), buckets.data_ptr(), buckets.shape[0], seeds.shape[1], k,
+        seeds.data_ptr(), b, num_steps, out.shape[0], out.data_ptr(),
+        steps.data_ptr(), flags[0].data_ptr(), flags[1].data_ptr(),
+        flags[2].data_ptr(), _kernels.stream(seeds.device))
+    _kernels.check(err, "jump_walk")
+    LAUNCHES["jump_walk"] += 1
 
 
 def walk_forward_jumps(buckets: torch.Tensor, rows: torch.Tensor,

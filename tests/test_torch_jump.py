@@ -205,6 +205,83 @@ def test_wrappers_on_cpu_run_the_twins_and_validate():
     assert tj.jump_iters(2000) == 65 and tj.jump_iters(32) == 3
 
 
+@pytest.mark.parametrize("k", [21, 31, 47, 63])
+@pytest.mark.parametrize("with_flags", [False, True])
+def test_narrow_rows_round_trip_the_twin_states(k, with_flags):
+    """The narrow rows that stage 0 and the first NARROW_PASSES compose
+    passes write on the card decode (widen_rows) to the wide rows of the
+    plain twins' state after each of those stages; the next pass's runs no
+    longer fit, and a state is not taken for another stage's."""
+    g, _, rng = _branchy(k, seed=k, n=5000)
+    flags = rng.random(g.num_records) < 0.05 if with_flags else None
+    pt = tj.build_jump_table(g.kmers, g.edges[:, 0], k, flags=flags, device="cpu")
+    kd = tj.words_tensor(g.kmers, "cpu")
+    ed = torch.from_numpy(g.edges[:, 0].copy())
+    fl = torch.from_numpy(np.zeros(g.num_records, bool) if flags is None else flags)
+    state = tj.stage0_plain(kd, ed, fl, pt.buckets, k)
+    for stage in range(tj.NARROW_PASSES + 1):
+        narrow = tj.narrow_rows(*state, stage)
+        assert narrow.shape == (2 * g.num_records, 2) and narrow.dtype == torch.int32
+        assert torch.equal(tj.widen_rows(narrow, stage), tj.pack_rows(*state)), stage
+        with pytest.raises(ValueError):
+            tj.narrow_rows(*state, stage + 1)
+        state = tj.jump_compose(*state)
+    meta = tj.pack_rows(*state)[:, 3]
+    assert int((meta & 0x3F).max()) == 2 * tj.NARROW_MAX     # runs this graph fills
+    with pytest.raises(ValueError):
+        tj.narrow_rows(*state, tj.NARROW_PASSES + 1)
+    link = tk.from_bits32(tj.narrow_rows(*tj.stage0_plain(kd, ed, fl, pt.buckets, k), 0)[:, 1])
+    assert int((link >> 31).sum()) == 2 * int(fl.sum())       # the flag bit, both rows
+
+
+@pytest.mark.parametrize("k,n", [(21, 900), (31, 6000), (47, 20000), (63, 3000)])
+def test_place_stores_every_key_once(k, n):
+    """ctk_jump_stage0 and ctk_jump_walk stop a lookup at the first bucket
+    that holds the key: that equals the twin's maximum over both buckets'
+    matches because the placement stores each of a graph's keys in exactly
+    one slot, in one of its two candidate buckets."""
+    from corticall_tpu_torch.ops import placement as tp
+    rng = np.random.default_rng(k + n)
+    g = fixtures.build_graph({"s": ["".join(rng.choice(list("ACGT"), n))]}, k)
+    nb, bucket_of, pos_of = tp.place(g.kmers)
+    slot = bucket_of * 2 + pos_of
+    assert (bucket_of >= 0).all() and len(np.unique(slot)) == g.num_records
+    h = tp.np_hash_words(g.kmers)
+    first = (h & np.uint32(nb - 1)).astype(np.int64)
+    second = (tp.np_h2(h) & np.uint32(nb - 1)).astype(np.int64)
+    assert ((bucket_of == first) | (bucket_of == second)).all()
+    assert (bucket_of == first).mean() > 0.5               # most sit in their first
+    # the scattered buckets hold each key once across its two candidates
+    buckets, _ = tj.build_buckets(g.kmers, "cpu")
+    ent = tk.from_bits32(buckets).numpy()
+    w = g.kmers.shape[1]
+
+    def matches(cand):
+        e = ent[cand]                                      # [N, 2, W+1]
+        return ((e[..., w] >= 1 << 31) & (e[..., :w] == g.kmers[:, None, :]).all(-1)).sum(-1)
+    hits = matches(first) + np.where(second != first, matches(second), 0)
+    assert (hits == 1).all()
+
+
+def test_kernel_wrappers_check_row_formats():
+    n2 = 8
+    wide = torch.zeros((n2, 4), dtype=torch.int32)
+    narrow = torch.zeros((n2, 2), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tj.compose_kernel(wide, narrow, 0)                   # rows in are narrow
+    with pytest.raises(ValueError, match="at most 16 bases"):
+        tj.compose_kernel(narrow, narrow.clone(), tj.NARROW_PASSES)
+    with pytest.raises(ValueError):
+        tj.compose_kernel(narrow, torch.zeros((n2, 3), dtype=torch.int32), 0)
+    with pytest.raises(ValueError):
+        tj.compose_kernel(narrow, torch.zeros((n2 + 2, 4), dtype=torch.int32), 0)
+    kd = torch.zeros((n2 // 2, 2), dtype=torch.int32)
+    buckets = torch.zeros((4, 2, 3), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tj.stage0_kernel(kd, torch.zeros(n2 // 2, dtype=torch.uint8),
+                         torch.zeros(n2 // 2, dtype=torch.bool), buckets, 31, wide)
+
+
 # ---------------------------------------------------------------------------
 # kernels against the plain twins (card only)
 # ---------------------------------------------------------------------------
@@ -226,6 +303,30 @@ def test_table_kernels_match_plain_on_card(cuda, k):
     assert torch.equal(got, want)
     cpu = tj.build_jump_table(g.kmers, g.edges[:, 0], k, flags=flags, device="cpu")
     assert torch.equal(got.cpu(), cpu.rows) and torch.equal(buckets.cpu(), cpu.buckets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [21, 31, 47, 63])
+def test_each_build_kernel_matches_its_twin_on_card(cuda, k):
+    """Stage 0 and every compose pass on their own, each from the previous
+    kernel's rows: narrow rows through pass NARROW_PASSES, then wide."""
+    g, _, rng = _branchy(k, seed=k + 1, n=8000)
+    buckets, kd = tj.build_buckets(g.kmers, cuda)
+    ed = torch.from_numpy(g.edges[:, 0].copy()).to(cuda)
+    fl = torch.from_numpy(rng.random(g.num_records) < 0.05).to(cuda)
+    n2 = 2 * g.num_records
+    src = torch.empty((n2, 2), dtype=torch.int32, device=cuda)
+    tj.stage0_kernel(kd, ed, fl, buckets, k, src)
+    state = tj.stage0_plain(kd, ed, fl, buckets, k)
+    assert torch.equal(tj.widen_rows(src, 0), tj.pack_rows(*state))
+    for p in range(tj.COMPOSE_PASSES):
+        dst = torch.empty((n2, 2 if p < tj.NARROW_PASSES else 4), dtype=torch.int32,
+                          device=cuda)
+        tj.compose_kernel(src, dst, p)
+        state = tj.jump_compose(*state)
+        got = dst if dst.shape[1] == 4 else tj.widen_rows(dst, p + 1)
+        assert torch.equal(got, tj.pack_rows(*state)), p
+        src = dst
 
 
 @pytest.mark.cuda

@@ -13,13 +13,16 @@ Phases, one JSON line each (progress goes to stderr):
    production pre-score shape (B=256, Q=4096, S=8192, band 512), at
    B=1024, Q=512, S=1024, band 64 and at the trio's widest pre-score batch
    (B=8, Q=336, S=464, band 512); Tesserae on 8 recombinant sections of
-   2-16 targets of 500-4000 bp, with the cluster each ran on.  Outputs must
-   be bit-identical; the times are CUDA-event kernel times and synchronized
-   host times of the twin, beside each kernel's bound;
+   2-16 targets of 500-4000 bp and one of 80 targets of 200-300 bp (past
+   the JAX package's 63-target word; its path also held against the host
+   oracle), with the cluster each ran on.  Outputs must be bit-identical;
+   the times are CUDA-event kernel times and synchronized host times of the
+   twin, beside each kernel's bound;
 4. the main path: a 2 Mbp / 2-chromosome / 20-DNM trio (the port's
    demo.make_cross, 20x reads of 150 bp) through corticall_tpu_torch
-   .pipeline.run_pipeline, with every kernel launch counted, and the calls
-   scored against the simulation truth (demo.evaluate's k-mer Venn);
+   .pipeline.run_pipeline, with every kernel launch counted, the target
+   counts of the sections Call aligned, and the calls scored against the
+   simulation truth (demo.evaluate's k-mer Venn);
 5. every SW batch and Tesserae section that the pipeline sent to a kernel,
    replayed through the plain twin on the card (any difference fails), and
    the kernels timed at those shapes;
@@ -30,18 +33,22 @@ Phases, one JSON line each (progress goes to stderr):
    each compose pass held against the twin's state on their own; 262,144
    walks of at most 2,000 steps (bench.py's BENCH_WALKS, BENCH_STEPS_JUMP)
    through the walk kernel and the plain twin, every output compared, the
-   kernel also timed alone and beside its bound; the contigs of 16,384 of
-   them against the native C++ walker's; and a sweep of the native walker
-   against the device route at 1k-64k seeds;
+   kernel timed alone and through walk_jumps beside its bound, and the walks
+   materialized on the host (walk_forward_jumps), in Partition's batches of
+   forward and reverse walks and in one call; the contigs of 16,384 of them
+   against the native C++ walker's; and a sweep of the native walker against
+   the device route at 1k-64k seeds;
 7. partition_device: the port's Partition on phase 4's graph, ROIs and
    links with the linked and the unlinked jump-table routes forced, each
    against the native route's partitions, with the jump kernels' launches
    counted; then every table and walk those runs built on the card replayed
    through the plain twins (buckets, rows and every walk output compared),
    the kernels' times at these shapes going to the kernels line;
-8. sw_full_vs_plain: the full-matrix SW kernel against its plain twin at
-   B=1024, Q=512, S=1024, full and band 64, and banded_sw_pallas (the
-   banded kernel under the JAX package's name) against the banded twin.
+8. sw_full_vs_plain: sw_full against its plain twin at B=1024, Q=512,
+   S=1024, full and band 64, and at B=128, Q=512, S=8192, full and band 63,
+   with the kernel each call took (sw_device.sw_full_form), and
+   banded_sw_pallas (the banded kernel under the JAX package's name)
+   against the banded twin.
 
 Then one JSON line with each kernel's route, source, launches, error,
 times and bound, the nvidia-smi line, and the result line.  Any failure
@@ -67,6 +74,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from corticall_tpu_torch.device import require_cuda  # noqa: E402
+from corticall_tpu_torch.models import tesserae as tz  # noqa: E402
 from corticall_tpu_torch.ops import _kernels  # noqa: E402
 from corticall_tpu_torch.ops import jump as tj  # noqa: E402
 from corticall_tpu_torch.ops import kmer as tk  # noqa: E402
@@ -77,6 +85,7 @@ from corticall_tpu_torch.ops import tesserae_torch as tt  # noqa: E402
 # widest of the 2 Mbp trio's pre-score batches
 SW_SHAPES = [(256, 4096, 8192, 512), (1024, 512, 1024, 64), (8, 336, 464, 512)]
 TESSERAE_TARGETS = [2, 3, 4, 6, 8, 11, 16, 16]
+WIDE_TARGETS = 80                            # a section past the int32 word's 63
 CALLER_PARAMS = (0.35, 0.90, 6e-4, 1e-3)     # Caller's del_, eps, rho, term
 PF_MBP, PF_CHROMS, PF_DNMS, PF_K = 2.0, 2, 20, 47
 PF_DIVERGENCE, PF_COVERAGE, PF_READLEN, PF_ERR = 0.003, 20.0, 150, 0.002
@@ -85,7 +94,11 @@ JUMP_K, JUMP_BASES = 47, 21_000_000          # bench.build_bench_graph's args
 JUMP_SEEDS, JUMP_STEPS = 262_144, 2000       # BENCH_WALKS, BENCH_STEPS_JUMP
 NATIVE_SEEDS = 16_384                        # BENCH_NATIVE_SEEDS
 SWEEP_SEEDS = (1024, 4096, 16384, 65536)
-SW_FULL_SHAPE, SW_FULL_BANDS = (1024, 512, 1024), (None, 64)
+# (B, Q, S, band): the full matrix and band 64 (the banded kernel) at the
+# earlier smoke shape, the longest subject full and at an odd band (the masked
+# full-matrix kernel)
+SW_FULL_CASES = [(1024, 512, 1024, None), (1024, 512, 1024, 64),
+                 (128, 512, 8192, None), (128, 512, 8192, 63)]
 
 # The least time the card could take for a kernel's work: the larger of its
 # bytes (each input read once, each output written once) over the HBM rate
@@ -148,6 +161,17 @@ def sw_bound_fields(q, s, band) -> dict:
     return {**bound_fields(sw_bound(q, s, cells)), "cells": cells,
             "band_cells": batch * qlen * band,
             "row_chain_floor_ms": round(qlen * SHFL_SCAN_MS, 6)}
+
+
+def sw_full_bound_fields(q, s, band) -> dict:
+    """sw_full's bound on the cells its contract scores: every cell of the
+    full matrix, or with a band b the in-band cells, columns [i - b//2,
+    i + b//2) of row i inside the subject (the banded twin's at band
+    2 * (b // 2)), whichever kernel computes them."""
+    (batch, qlen), slen = q.shape, s.shape[1]
+    cells = (batch * qlen * slen if band is None
+             else sw_band_cells(batch, qlen, slen, 2 * (band // 2)))
+    return {**bound_fields(sw_bound(q, s, cells)), "cells": cells}
 
 
 def tesserae_bound(args):
@@ -236,6 +260,17 @@ def tesserae_sections(rng):
             targets[f"t{i}"] = lut[c[a:b]].tobytes().decode()
         out.append((lut[query].tobytes().decode(), targets))
     return out
+
+
+def wide_section(rng):
+    """WIDE_TARGETS unrelated targets of 200-300 bases; the query a mosaic
+    of targets 63, 0 and the last, with 0.5% substitutions."""
+    lut = np.frombuffer(b"ACGT", np.uint8)
+    seqs = [rng.integers(0, 4, int(rng.integers(200, 301))) for _ in range(WIDE_TARGETS)]
+    query = mutate(rng, np.concatenate([seqs[63][:90], seqs[0][90:170],
+                                        seqs[-1][170:200]]), 0.005)
+    return (lut[query].tobytes().decode(),
+            {f"t{i}": lut[c].tobytes().decode() for i, c in enumerate(seqs)})
 
 
 def event_ms(fn, reps):
@@ -391,14 +426,30 @@ def walk_bound(buckets, rows, seeds, k, num_steps, got):
 
 
 def walk_kernel_ms(buckets, rows, seeds, k, num_steps, reps=3) -> float:
-    """CUDA-event time of the walk kernel alone: outputs allocated and
-    zero-filled once, no transposing copy."""
-    b, iters = seeds.shape[0], tj.jump_iters(num_steps)
-    out = torch.zeros((iters, b, 2), dtype=torch.int32, device=seeds.device)
-    steps = torch.zeros(b, dtype=torch.int32, device=seeds.device)
-    flags = torch.zeros((3, b), dtype=torch.bool, device=seeds.device)
-    return event_ms(lambda: tj.walk_kernel(buckets, rows, seeds, k, num_steps, out, steps,
-                                           flags), reps)
+    """CUDA-event time of the walk kernel alone, into outputs allocated
+    once."""
+    b = seeds.shape[0]
+    out = torch.empty((b, 2 * tj.walk_pitch(num_steps)), dtype=torch.int32,
+                      device=seeds.device)
+    lanes = torch.empty(7 * b, dtype=torch.uint8, device=seeds.device)
+    return event_ms(lambda: tj.walk_kernel(buckets, rows, seeds, k, num_steps, out, lanes),
+                    reps)
+
+
+def partition_walks_ms(walk, fwd, rev, chunk) -> list:
+    """Host times (ms) of the walks that Partition's device routes make for
+    these seeds (commands/core._partition_links and _partition_unlinked): a
+    batch of `chunk` seeds at a time, the forward walks, then the reverse
+    ones, each call's arrays alive until the next batch's call of the same
+    direction replaces them.  `walk(seeds)` materializes one call."""
+    times, f, r = [], None, None
+    for lo in range(0, len(fwd), chunk):
+        ms, f = host_ms(lambda: walk(fwd[lo:lo + chunk]))
+        times.append(ms)
+        ms, r = host_ms(lambda: walk(rev[lo:lo + chunk]))
+        times.append(ms)
+    del f, r
+    return times
 
 
 def tesserae_diff(got, want) -> float:
@@ -412,6 +463,19 @@ def tesserae_diff(got, want) -> float:
     if g_r.view(np.int32) != w_r.view(np.int32):
         raise AssertionError(f"tesserae max_r {g_r!r} != plain {w_r!r}")
     return float(abs(g_r - w_r))
+
+
+def oracle_check(query, targets, dev) -> list:
+    """The device class's path of a section against the host oracle's
+    (models/tesserae.py, float64): the same segments, llk within 1e-4
+    relative; raises otherwise.  Returns the path's target names."""
+    host = tz.Tesserae(*CALLER_PARAMS)
+    want = host.align(query, targets)
+    device = tt.TesseraeDevice(*CALLER_PARAMS, device=dev)
+    if device.align(query, targets) != want or \
+            abs(device.llk - host.llk) > 1e-4 * abs(host.llk):
+        raise AssertionError(f"{len(targets)} targets: the device path differs from the oracle's")
+    return [seg[0] for seg in want[1:]]
 
 
 def run_main_path(dev, mbp):
@@ -439,8 +503,13 @@ def run_main_path(dev, mbp):
     simulate_s = time.perf_counter() - t0
     log(f"simulated the trio in {simulate_s:.1f} s")
 
-    sw_sent, ts_sent = [], []
+    sw_sent, ts_sent, section_targets = [], [], []
     sw_kernel, ts_kernel = tsw.sw_banded, tt.tesserae_fused
+    align = tt.TesseraeDevice.align
+
+    def align_recorded(self, query, targets):
+        section_targets.append(len(targets))
+        return align(self, query, targets)
 
     def sw_recorded(q, s, band=128):
         out = sw_kernel(q, s, band)
@@ -453,6 +522,7 @@ def run_main_path(dev, mbp):
         return out
 
     tsw.sw_banded, tt.tesserae_fused = sw_recorded, ts_recorded
+    tt.TesseraeDevice.align = align_recorded
     tsw.LAUNCHES = tt.LAUNCHES = 0
     try:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
@@ -466,10 +536,12 @@ def run_main_path(dev, mbp):
         launches = {"sw_banded": tsw.LAUNCHES, "tesserae": tt.LAUNCHES}
     finally:
         tsw.sw_banded, tt.tesserae_fused = sw_kernel, ts_kernel
+        tt.TesseraeDevice.align = align
     ev = evaluate(out["variants"], res["truth_vcf"], mom, dad, PF_K,
                   recombs=res.get("recombs"))
     return {"out": out, "res": res, "ev": ev, "launches": launches,
-            "sw_sent": sw_sent, "ts_sent": ts_sent, "simulate_s": simulate_s,
+            "sw_sent": sw_sent, "ts_sent": ts_sent, "section_targets": section_targets,
+            "simulate_s": simulate_s,
             "pipeline_s": pipeline_s}
 
 
@@ -526,6 +598,7 @@ def jump_phase(dev) -> dict:
     the plain twins, and the device route against the native walker."""
     from corticall_tpu_torch import kmer as km
     from corticall_tpu_torch import native as nat
+    from corticall_tpu_torch.commands import core as tcore
     from corticall_tpu_torch.demo import build_bench_graph
     from corticall_tpu_torch.ops import walk_np as wnp
 
@@ -576,6 +649,19 @@ def jump_phase(dev) -> dict:
     walk_plain_ms = check_walk(buckets, rows, st, k, JUMP_STEPS, got)
     walk_bound_ms = walk_bound(buckets, rows, st, k, JUMP_STEPS, got)
     steps_total = int(got[1].sum())
+    # what Partition pays for these seeds: its batches of forward and reverse
+    # walks, the run's first calls of walk_forward_jumps (each new pinned
+    # buffer size is allocated, later ones reuse freed buffers)
+    rev = km.pack_codes(km.strings_to_codes([km.revcomp(s) for s in seed_strs]), k)
+    part_ms = partition_walks_ms(
+        lambda sd: tj.walk_forward_jumps(buckets, rows, sd, k, JUMP_STEPS), seeds, rev,
+        tcore.CHUNK)
+    del rev
+    # one call of all the seeds: the first allocates pinned buffers of its
+    # size, the second reuses them from torch's caching host allocator
+    mat_first_ms, walked = host_ms(lambda: tj.walk_forward_jumps(buckets, rows, seeds, k,
+                                                                 JUMP_STEPS))
+    del walked
     mat_ms, walked = host_ms(lambda: tj.walk_forward_jumps(buckets, rows, seeds, k,
                                                            JUMP_STEPS))
     peak = torch.cuda.max_memory_allocated(dev)
@@ -628,8 +714,12 @@ def jump_phase(dev) -> dict:
         "walk_bound": bound_fields(walk_bound_ms),
         "walk_steps_per_s": round(steps_total / walk_ms * 1e3),
         "walk_plain_ms": round(walk_plain_ms, 2),
-        "materialized_ms": round(mat_ms, 2),
+        "materialized_ms": round(mat_ms, 2), "materialized_first_ms": round(mat_first_ms, 2),
         "materialized_steps_per_s": round(steps_total / mat_ms * 1e3),
+        "partition_walks": {"chunk": tcore.CHUNK, "calls": len(part_ms),
+                            "calls_ms": [round(x, 3) for x in part_ms],
+                            "first_batch_ms": round(sum(part_ms[:2]), 3),
+                            "total_ms": round(sum(part_ms), 3)},
         "native_build_s": round(native_build_s, 3),
         "native_steps_per_s": round(int(nat_steps.sum()) / native_s),
         "native_seeds": NATIVE_SEEDS, "contigs_identical": True,
@@ -721,7 +811,7 @@ def partition_phase(dev, out) -> dict:
         if args[2].shape[0] >= lanes:
             lanes = args[2].shape[0]
             walk_plain_ms = plain_ms
-            walk_ms = event_ms(lambda: walk_wrapper(*args), 3)
+            walk_ms = event_ms(lambda: tj.walk_jumps(*args), 3)
             walk_alone_ms = walk_kernel_ms(*args)
             walk_bound_ms = walk_bound(*args, got)
     replay = {"tables": len(tables), "walks": len(walks), "identical": True,
@@ -736,29 +826,41 @@ def partition_phase(dev, out) -> dict:
 
 
 def sw_full_phase(dev, rng) -> dict:
-    """Phase 8: the full-matrix SW kernel (full and band-masked) and
-    banded_sw_pallas against their plain twins."""
-    batch, qlen, slen = SW_FULL_SHAPE
-    q, s = sw_pairs(rng, batch, qlen, slen, 64)
-    qt, st = torch.from_numpy(q).to(dev), torch.from_numpy(s).to(dev)
+    """Phase 8: sw_full (full and band-masked, in the form sw_full_form
+    picks) and banded_sw_pallas against their plain twins."""
     tsw.FULL_LAUNCHES = 0
-    got = {band: tsw.sw_full(qt, st, band) for band in SW_FULL_BANDS}
+    cases, got = [], []
+    for batch, qlen, slen, band in SW_FULL_CASES:
+        q, s = sw_pairs(rng, batch, qlen, slen, 64)
+        qt, st = torch.from_numpy(q).to(dev), torch.from_numpy(s).to(dev)
+        cases.append((qt, st, band))
+        got.append(tsw.sw_full(qt, st, band))
     torch.cuda.synchronize()
     launches = tsw.FULL_LAUNCHES
-    if launches != len(SW_FULL_BANDS):
-        raise AssertionError(f"sw_full launched {launches} times for {len(SW_FULL_BANDS)} calls")
+    if launches != len(SW_FULL_CASES):
+        raise AssertionError(f"sw_full launched {launches} times for {len(SW_FULL_CASES)} calls")
     err, shapes = 0.0, []
-    for band in SW_FULL_BANDS:
+    for (qt, st, band), out in zip(cases, got):
+        (batch, qlen), slen = qt.shape, st.shape[1]
         want = tsw.sw_full_scores(qt, st, band)         # doubles as warm-up
-        err = max(err, sw_diff(got[band], want, "sw_full"))
+        err = max(err, sw_diff(out, want, "sw_full"))
         k_ms = event_ms(lambda: tsw.sw_full(qt, st, band), 5)
         p_ms, _ = host_ms(lambda: tsw.sw_full_scores(qt, st, band))
-        cells = batch * qlen * slen
+        entry, kernel_band = tsw.sw_full_form(band)
+        if entry == "ctk_sw_banded":
+            bf = sw_bound_fields(qt, st, kernel_band)
+            config = {"cells_a_lane": tsw.sw_kernel_config(qlen, slen, kernel_band)}
+        else:
+            bf = sw_full_bound_fields(qt, st, band)
+            config = dict(zip(("cells_a_lane", "warps"), tsw.sw_full_config(slen)))
         shapes.append({"batch": batch, "q": qlen, "s": slen, "band": band,
+                       "route": entry, **config,
                        "kernel_ms": round(k_ms, 4), "plain_ms": round(p_ms, 2),
-                       "kernel_gcups": round(cells / k_ms / 1e6, 3),
-                       **bound_fields(sw_bound(qt, st, cells))})
-        log(f"sw_full band {band}: kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+                       "us_a_row": round(k_ms / qlen * 1e3, 4),
+                       "kernel_gcups": round(bf["cells"] / k_ms / 1e6, 3), **bf})
+        log(f"sw_full {batch}x{qlen}x{slen} band {band} ({entry}): kernel {k_ms:.3f} ms, "
+            f"plain {p_ms:.1f} ms")
+    qt, st, _ = cases[0]
     banded_err = sw_diff(tsw.banded_sw_pallas(qt, st, 64),
                          tsw.banded_sw_scores(qt, st, 64), "banded_sw_pallas")
     return {"launches": launches, "err": err, "shapes": shapes,
@@ -809,7 +911,7 @@ def main() -> int:
     emit("sw_banded_vs_plain", bit_identical=True, max_abs_err=sw_err,
          shapes=sw_times)
 
-    sections = tesserae_sections(rng)
+    sections = tesserae_sections(rng) + [wide_section(rng)]
     ts_err, ts_rows = 0.0, []
     small = min(range(len(sections)), key=lambda i: len(sections[i][0]))
     warm = tt.section_inputs(sections[small][0], list(sections[small][1].values()),
@@ -823,11 +925,14 @@ def main() -> int:
         p_ms, want = host_ms(lambda: tt.tesserae_full(*args))
         ts_err = max(ts_err, tesserae_diff(got, want))
         per, cluster, threads = tt.kernel_config(args[1].shape[0], args[1].shape[1] + 1)
-        ts_rows.append({"targets": len(targets), "query": len(query),
-                        "width": args[1].shape[1] + 1, "kernel_ms": round(k_ms, 3),
-                        "plain_ms": round(p_ms, 1), "path_cells": int(got[2]),
-                        "cluster": cluster, "threads": threads, "cells_per_thread": per,
-                        **bound_fields(tesserae_bound(args))})
+        row = {"targets": len(targets), "query": len(query),
+               "width": args[1].shape[1] + 1, "kernel_ms": round(k_ms, 3),
+               "plain_ms": round(p_ms, 1), "path_cells": int(got[2]),
+               "cluster": cluster, "threads": threads, "cells_per_thread": per,
+               **bound_fields(tesserae_bound(args))}
+        if len(targets) > tz.INT32_TARGETS:
+            row["oracle_path"] = oracle_check(query, targets, dev)
+        ts_rows.append(row)
         log(f"tesserae S={len(targets)} L={len(query)}: kernel {k_ms:.2f} ms, "
             f"plain {p_ms:.0f} ms")
     emit("tesserae_vs_plain", identical=True, max_abs_err=ts_err, sections=ts_rows)
@@ -837,6 +942,7 @@ def main() -> int:
     out, res, ev, launches = mp["out"], mp["res"], mp["ev"], mp["launches"]
     stats = out["stats"]
     call = stats["call"]
+    sizes = mp["section_targets"]
     emit("main_path", genome_mbp=PF_MBP, chromosomes=PF_CHROMS, dnms=PF_DNMS,
          k=PF_K, simulate_s=round(mp["simulate_s"], 2),
          pipeline_s=round(mp["pipeline_s"], 2),
@@ -847,6 +953,8 @@ def main() -> int:
          calls_after_filter=len(out["filtered_variants"]),
          contig_aligner=call["contig_aligner"], tesserae=call.get("tesserae"),
          call_breakdown=call["call_breakdown"], launches=launches,
+         tesserae_sections=len(sizes), largest_section_targets=max(sizes, default=0),
+         sections_over_63_targets=sum(n > tz.INT32_TARGETS for n in sizes),
          kmer_venn=ev["kmer_venn"], strict_recovered=ev["strict_recovered"],
          truth=len(res["truth_vcf"]))
     check_main_path(mp)

@@ -54,9 +54,9 @@
 //   is one 16-byte read whose address is the previous read's next_row, so a
 //   lane is a chain of dependent random loads.  The design lever is many
 //   lanes in flight per SM: 128-thread blocks and few registers, so that up
-//   to 2048 lanes a SM (about 270k on the card) wait on their loads at once;
-//   a lane that stops leaves the loop, and the zero-filled output needs no
-//   stores for the jumps it does not take.  Its seed lookup is stage 0's.
+//   to 2048 lanes a SM (about 270k on the card) wait on their loads at once.
+//   Every jump slot is written, lane-major, a DRAM sector at a time (see
+//   jump_walk_kernel).  Its seed lookup is stage 0's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -334,75 +334,124 @@ jump_compose_kernel(const uint2* __restrict__ in, void* __restrict__ out, int n2
     static_cast<uint2*>(out)[i] = narrow_row(hi, ptr, meta);
 }
 
+// A walking lane's state (cuckoo.py::_jump_init / _jump_step_fn's carry).
+struct Lane {
+  int row, emitcnt, saved, power, lam;
+  bool active, cycled, touched, endj;
+};
+
+// One jump of a lane (_jump_step_fn): the bases it emits, (0, 0) when it
+// emits none, and the lane's state advanced.  An inactive lane's state never
+// changes again, so it reads nothing.
+__device__ __forceinline__ uint2 jump_step(const uint4* __restrict__ rows,
+                                           int num_steps, Lane& s) {
+  if (!s.active) return make_uint2(0u, 0u);
+  const uint4 r = __ldg(rows + s.row);
+  const uint32_t meta = r.w;
+  const int run_len = (int)(meta & 0x3Fu);
+  const bool run_cyc = (meta >> 31) != 0u;
+  s.touched = s.touched || ((meta >> 30) & 1u);
+  s.endj = (meta >> 29) & 1u;
+
+  const int m = min(run_len, num_steps - s.emitcnt);
+  const bool emit = m > 0;
+  const int mm = emit ? m : 0;
+  const int nxt = (int)r.z;
+  const bool has_next = emit && m == run_len && r.z != kEnd && !run_cyc;
+  const bool is_cycle = has_next && nxt == s.saved;
+  const bool ends_cycle = (emit && run_cyc && m == run_len) || (run_cyc && run_len == 0);
+  const bool advance = has_next && !is_cycle && s.emitcnt + mm < num_steps;
+
+  uint2 out = make_uint2(0u, 0u);
+  if (emit) {
+    // keep the first mm bases (the cap may clamp the final jump)
+    const uint32_t keep = 2u * (uint32_t)mm;  // (0, 64]
+    const uint32_t hi_mask = keep >= 32u ? 0xFFFFFFFFu : 0xFFFFFFFFu << (32u - keep);
+    const uint32_t lo_keep = keep > 32u ? keep - 32u : 0u;
+    const uint32_t lo_mask = lo_keep >= 32u ? 0xFFFFFFFFu
+                             : lo_keep ? 0xFFFFFFFFu << (32u - lo_keep) : 0u;
+    out = make_uint2(r.x & hi_mask, r.y & lo_mask);
+  }
+  if (advance && s.power == s.lam) {  // Brent: move the anchor
+    s.saved = nxt;
+    s.power *= 2;
+    s.lam = 0;
+  }
+  if (advance) {
+    s.lam += 1;
+    s.row = nxt;
+  }
+  s.emitcnt += mm;
+  s.cycled = s.cycled || is_cycle || ends_cycle;
+  s.active = advance;
+  return out;
+}
+
+// One thread a lane.  The lane writes every one of its jump slots, zeros
+// after it stops, into its own row of the output: lane-major, so the [B, 2T]
+// contract needs no zero fill and no transposing copy.  A row holds `pitch`
+// slots, a multiple of four (32 bytes, one DRAM sector), of which the first
+// `iters` are the contract's [B, 2T] (a strided view; the rest are zeros).  A
+// lane keeps four jumps (one sector) in registers; the warp stages its 32
+// sectors in shared memory and stores them as two instructions of 16 full
+// sectors, two lanes a sector, so that every sector is written whole by one
+// instruction (the lanes' rows are `pitch` slots apart, so a sector a lane is
+// as coalesced as lane-major rows allow).  Steps and the three flags go to
+// one byte buffer: int32 steps [B], then cycled, touched and ends-junction
+// bytes [3][B].
 template <int W>
 __global__ void __launch_bounds__(128)
 jump_walk_kernel(const uint4* __restrict__ rows,
                  const uint32_t* __restrict__ buckets, uint32_t nb_mask, int k,
                  const uint32_t* __restrict__ seeds, int batch, int num_steps,
-                 int iters, uint2* __restrict__ out, int* __restrict__ steps_out,
-                 uint8_t* __restrict__ cycled_out,
-                 uint8_t* __restrict__ touched_out,
-                 uint8_t* __restrict__ endj_out) {
+                 int iters, int pitch, uint2* __restrict__ out,
+                 uint8_t* __restrict__ lanes) {
+  __shared__ uint4 stage[128][2];  // each thread's four jumps
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= batch) return;
-  uint32_t v[W], canon[1][W];
+  const int wl = threadIdx.x & 31;
+  const int warp0 = threadIdx.x - wl;  // the warp's first thread in the block
+  // a lane past the batch walks nothing and stores nothing, but stays in its
+  // warp's staging
+  int row = -1;
+  if (lane < batch) {
+    uint32_t v[W], canon[1][W];
 #pragma unroll
-  for (int j = 0; j < W; ++j) v[j] = seeds[(size_t)lane * W + j];
-  const bool flipped = canonicalize<W>(v, canon[0], k);
-  const bool want[1] = {true};
-  uint32_t pay[1];
-  bool present[1];
-  lookup<W, 1>(buckets, nb_mask, canon, want, pay, present);
-  int row = present[0] ? (int)(2u * pay[0] + (flipped ? 1u : 0u)) : -1;
-
-  bool active = row >= 0;
-  int emitcnt = 0, saved = row, power = 1, lam = 0;
-  bool cycled = false, touched = false, endj = false;
-  // an inactive lane's state never changes again, so the lane may stop
-  for (int t = 0; t < iters && active; ++t) {
-    const uint4 r = __ldg(rows + row);
-    const uint32_t meta = r.w;
-    const int run_len = (int)(meta & 0x3Fu);
-    const bool run_cyc = (meta >> 31) != 0u;
-    touched = touched || ((meta >> 30) & 1u);
-    endj = (meta >> 29) & 1u;
-
-    const int m = min(run_len, num_steps - emitcnt);
-    const bool emit = m > 0;
-    const int mm = emit ? m : 0;
-    const int nxt = (int)r.z;
-    const bool has_next = emit && m == run_len && r.z != kEnd && !run_cyc;
-    const bool is_cycle = has_next && nxt == saved;
-    const bool ends_cycle = (emit && run_cyc && m == run_len) ||
-                            (run_cyc && run_len == 0);
-    const bool advance = has_next && !is_cycle && emitcnt + mm < num_steps;
-
-    if (emit) {
-      // keep the first mm bases (the cap may clamp the final jump)
-      const uint32_t keep = 2u * (uint32_t)mm;  // (0, 64]
-      const uint32_t hi_mask = keep >= 32u ? 0xFFFFFFFFu : 0xFFFFFFFFu << (32u - keep);
-      const uint32_t lo_keep = keep > 32u ? keep - 32u : 0u;
-      const uint32_t lo_mask = lo_keep >= 32u ? 0xFFFFFFFFu
-                               : lo_keep ? 0xFFFFFFFFu << (32u - lo_keep) : 0u;
-      out[(size_t)t * batch + lane] = make_uint2(r.x & hi_mask, r.y & lo_mask);
-    }
-    if (advance && power == lam) {  // Brent: move the anchor
-      saved = nxt;
-      power *= 2;
-      lam = 0;
-    }
-    if (advance) {
-      lam += 1;
-      row = nxt;
-    }
-    emitcnt += mm;
-    cycled = cycled || is_cycle || ends_cycle;
-    active = advance;
+    for (int j = 0; j < W; ++j) v[j] = seeds[(size_t)lane * W + j];
+    const bool flipped = canonicalize<W>(v, canon[0], k);
+    const bool want[1] = {true};
+    uint32_t pay[1];
+    bool present[1];
+    lookup<W, 1>(buckets, nb_mask, canon, want, pay, present);
+    row = present[0] ? (int)(2u * pay[0] + (flipped ? 1u : 0u)) : -1;
   }
-  steps_out[lane] = emitcnt;
-  cycled_out[lane] = cycled;
-  touched_out[lane] = touched;
-  endj_out[lane] = endj;
+
+  Lane s = {row, 0, row, 1, 0, row >= 0, false, false, false};
+  for (int t = 0; t < pitch; t += 4) {
+    uint2 x[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      s.active = s.active && t + u < iters;
+      x[u] = jump_step(rows, num_steps, s);
+    }
+    __syncwarp();  // the warp's reads of the previous group are done
+    stage[threadIdx.x][0] = make_uint4(x[0].x, x[0].y, x[1].x, x[1].y);
+    stage[threadIdx.x][1] = make_uint4(x[2].x, x[2].y, x[3].x, x[3].y);
+    __syncwarp();
+#pragma unroll
+    for (int part = 0; part < 2; ++part) {
+      const int src = part * 16 + (wl >> 1);  // the warp lane whose sector this lane halves
+      const int dst = lane - wl + src;
+      if (dst < batch)
+        reinterpret_cast<uint4*>(out + (size_t)dst * pitch + t)[wl & 1] =
+            stage[warp0 + src][wl & 1];
+    }
+  }
+  if (lane < batch) {
+    reinterpret_cast<int*>(lanes)[lane] = s.emitcnt;
+    lanes[4 * (size_t)batch + lane] = s.cycled;
+    lanes[5 * (size_t)batch + lane] = s.touched;
+    lanes[6 * (size_t)batch + lane] = s.endj;
+  }
 }
 
 bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
@@ -452,13 +501,16 @@ extern "C" int ctk_jump_compose(const void* in, void* out, int n2, int in_stage,
   return (int)cudaGetLastError();
 }
 
+// out: [batch][pitch] jump slots (uint2), pitch a multiple of 4 and at
+// least iters, 32-byte aligned; lanes: int32 steps [batch] then cycled,
+// touched, ends-junction bytes [3][batch]
 extern "C" int ctk_jump_walk(const void* rows, const void* buckets, int nb,
                              int w, int k, const void* seeds, int batch,
-                             int num_steps, int iters, void* out, void* steps,
-                             void* cycled, void* touched, void* endj,
-                             cudaStream_t stream) {
+                             int num_steps, int iters, int pitch, void* out,
+                             void* lanes, cudaStream_t stream) {
   if (!pow2(nb) || batch <= 0 || num_steps < 0 || iters <= 0 || k < 1 ||
-      k > 63 || w != (k + 15) / 16)
+      k > 63 || w != (k + 15) / 16 || pitch < iters || pitch % 4 ||
+      reinterpret_cast<uintptr_t>(out) % 32)
     return (int)cudaErrorInvalidValue;
   const int threads = 128;
   const unsigned blocks = (unsigned)((batch + threads - 1) / threads);
@@ -466,16 +518,23 @@ extern "C" int ctk_jump_walk(const void* rows, const void* buckets, int nb,
   const uint32_t* bk = static_cast<const uint32_t*>(buckets);
   const uint32_t* sd = static_cast<const uint32_t*>(seeds);
   uint2* o = static_cast<uint2*>(out);
-  int* st = static_cast<int*>(steps);
-  uint8_t* cy = static_cast<uint8_t*>(cycled);
-  uint8_t* tc = static_cast<uint8_t*>(touched);
-  uint8_t* ej = static_cast<uint8_t*>(endj);
+  uint8_t* ln = static_cast<uint8_t*>(lanes);
   const uint32_t mask = (uint32_t)nb - 1u;
   switch (w) {
-    case 1: jump_walk_kernel<1><<<blocks, threads, 0, stream>>>(rw, bk, mask, k, sd, batch, num_steps, iters, o, st, cy, tc, ej); break;
-    case 2: jump_walk_kernel<2><<<blocks, threads, 0, stream>>>(rw, bk, mask, k, sd, batch, num_steps, iters, o, st, cy, tc, ej); break;
-    case 3: jump_walk_kernel<3><<<blocks, threads, 0, stream>>>(rw, bk, mask, k, sd, batch, num_steps, iters, o, st, cy, tc, ej); break;
-    default: jump_walk_kernel<4><<<blocks, threads, 0, stream>>>(rw, bk, mask, k, sd, batch, num_steps, iters, o, st, cy, tc, ej); break;
+    case 1: jump_walk_kernel<1><<<blocks, threads, 0, stream>>>(rw, bk, mask, k, sd, batch, num_steps, iters, pitch, o, ln); break;
+    case 2: jump_walk_kernel<2><<<blocks, threads, 0, stream>>>(rw, bk, mask, k, sd, batch, num_steps, iters, pitch, o, ln); break;
+    case 3: jump_walk_kernel<3><<<blocks, threads, 0, stream>>>(rw, bk, mask, k, sd, batch, num_steps, iters, pitch, o, ln); break;
+    default: jump_walk_kernel<4><<<blocks, threads, 0, stream>>>(rw, bk, mask, k, sd, batch, num_steps, iters, pitch, o, ln); break;
   }
   return (int)cudaGetLastError();
+}
+
+// The walk's [B, 2T] jump slots from the card's padded rows into host
+// memory (pinned, for an asynchronous copy): one pitched 2-D copy of `rows`
+// rows of `width` bytes on `stream`.
+extern "C" int ctk_copy_rows_to_host(void* dst, int dst_pitch, const void* src, int src_pitch,
+                                     int width, int rows, cudaStream_t stream) {
+  if (rows <= 0) return 0;
+  return (int)cudaMemcpy2DAsync(dst, (size_t)dst_pitch, src, (size_t)src_pitch, (size_t)width,
+                                (size_t)rows, cudaMemcpyDeviceToHost, stream);
 }

@@ -65,32 +65,31 @@
 // diagonal feed of column 0 is 0, cells outside the band are -inf -- and
 // its tie rule: the earliest row whose best strictly beats the running
 // best, then the first column of that row.  Plain twin:
-// corticall_tpu_torch/ops/sw_device.py::sw_full_scores.
+// corticall_tpu_torch/ops/sw_device.py::sw_full_scores.  A band-masked call
+// whose band ctk_sw_banded takes goes to the banded kernel instead
+// (ops/sw_device.py::sw_full_form): there the two twins are equal.
 //
-// Form: one block per alignment; the subject is tiled across the block,
-// thread t owning the C consecutive columns [t*C, t*C + C) in registers
-// (H, F, subject code, and each column's best value and the first row that
-// reached it).  A row: every thread publishes its last column's H of the
-// previous row (the next thread's diagonal feed), a barrier, the row update
-// of its C columns, the horizontal-gap prefix as a block-wide max-scan (the
-// in-thread run, warp shuffles over the thread totals, the warp totals in
-// shared memory after a second barrier), then the E pass over the columns.
-// The best cell is found once at the end from the per-column bests, which
-// gives the tie rule above: the earliest row holding the final best value,
-// then the lowest column in it.  C is 8 up to S = 4096 (at most 512
-// threads) and 16 up to kMaxFullS = 8192; longer subjects are refused.
-// Bound: two barriers and C columns a row, latency-bound like the banded
-// kernel; the inputs are a few KiB an alignment.
+// Form: the banded kernel's machinery with a full start.  One warp owns a
+// tile of up to 1,024 subject columns, C a lane in registers (H, F, subject
+// selector, each column's best value and first row), in integer half-units
+// on DPX, the tie rule applied at the end by `better`.  A row is
+// cells_update / cells_finish with no sliding: the slots are the columns.
+// Subjects of up to 1,024 columns are one warp an alignment, one alignment a
+// block.  Longer ones (up to kMaxFullS = 8192) are a block of ceil(S/1024)
+// warps, warp w owning columns [w * 32C, (w + 1) * 32C) and running one
+// query row behind warp w - 1: a row's E carry (max over the columns left
+// of the tile of H + column, in half-units) and the tile's last H (the next
+// row's diagonal feed at the tile edge) go from warp w - 1 to warp w through
+// a ring of kFullRing slots in shared memory, handed over by a per-warp
+// count of finished rows (release / acquire at block scope); no
+// __syncthreads in the row loop.  A warp waits for its left neighbour only
+// after its own in-warp scan, and for its right neighbour only when it runs
+// kFullRing rows ahead.  What bounds it is the row's dependent chain, as in
+// the banded kernel: all alignments are resident at once.
 
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr float kMatch = 5.0f;
-constexpr float kMismatch = -4.0f;
-constexpr float kGapOpen = 10.0f;
-constexpr float kGapExtend = 0.5f;
-constexpr float kNeg = -1e30f;
 
 // the banded kernel's integer half-units: GAP_EXTEND, GAP_OPEN and
 // GAP_OPEN + GAP_EXTEND, doubled (MATCH 10 and MISMATCH -8 are bytes of the
@@ -324,135 +323,182 @@ sw_banded_kernel(const int* __restrict__ q, const int* __restrict__ s,
   }
 }
 
-constexpr int kMaxFullThreads = 512;
+constexpr int kFullWarpCols = 1024;  // columns a warp's tile holds at most
 constexpr int kMaxFullS = 8192;
+constexpr int kMaxFullWarps = kMaxFullS / kFullWarpCols;
+constexpr int kFullRing = 16;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.shared.b32 %0, [%1];" : "=r"(v) : "r"(smem_addr(p)) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.cta.shared.b32 [%0], %1;" :: "r"(smem_addr(p)), "r"(v) : "memory");
+}
 
 template <int C>
-__global__ void __launch_bounds__(kMaxFullThreads)
+__global__ void __launch_bounds__(kMaxFullWarps * 32)
 sw_full_kernel(const int* __restrict__ q, const int* __restrict__ s, int qlen,
                int slen, int band, float* __restrict__ score,
                int* __restrict__ q_end, int* __restrict__ s_end) {
-  __shared__ float hlast_sh[kMaxFullThreads];
-  __shared__ float warp_run[kMaxFullThreads / 32];
-  __shared__ float best_sh[kMaxFullThreads];
-  __shared__ int row_sh[kMaxFullThreads];
-  __shared__ int col_sh[kMaxFullThreads];
+  // ring[w][i % kFullRing] = (max_{t < tile end}(H[i][t] + t), H[i][tile end - 1])
+  __shared__ int2 ring[kMaxFullWarps][kFullRing];
+  __shared__ int done[kMaxFullWarps];  // rows warp w has published
+  __shared__ int best_sh[kMaxFullWarps][3];
 
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int j0 = t * C;
-  const int half = band / 2;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int j0 = (warp * 32 + lane) * C;      // this lane's first column
+  const int tile_end = (warp + 1) * 32 * C;
   const int* qb = q + (size_t)blockIdx.x * qlen;
   const int* sb = s + (size_t)blockIdx.x * slen;
+  const int half = band >> 1;
 
-  int sc[C];
-  float h[C], f[C], bestv[C];
-  int bestr[C];
+  int h[C], f[C], sc[C], bv[C], br[C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const bool in = j0 + c < slen;
-    sc[c] = in ? sb[j0 + c] : 4;
-    h[c] = in ? 0.0f : kNeg;  // row -1: every subject column starts at 0
-    f[c] = kNeg;
-    bestv[c] = 0.0f;
-    bestr[c] = 0;
+  for (int k = 0; k < C; ++k) {
+    const bool in = j0 + k < slen;
+    sc[k] = code_selector(in ? sb[j0 + k] : 4);
+    h[k] = in ? 0 : kNeg2;  // row -1: every subject column starts at 0
+    f[k] = kNeg2;
+    bv[k] = 0;
+    br[k] = 0;
   }
+  if (lane == 0) done[warp] = 0;
+  __syncthreads();
 
+  // H[i-1][tile start - 1], the diagonal feed of the tile's first column: 0
+  // at row -1 and at column 0
+  int edge = 0;
+  int qc = qlen > 0 ? qb[0] : 4;
   for (int i = 0; i < qlen; ++i) {
-    hlast_sh[t] = h[C - 1];
-    __syncthreads();
-    const float diag0 = t ? hlast_sh[t - 1] : 0.0f;
-    const int qc = qb[i];
-    // descending, so h[c - 1] is still the previous row's
+    const int qn = i + 1 < qlen ? qb[i + 1] : 4;
+    const int lo = band > 0 ? i - half : 0;
+    const int hi = band > 0 ? min(i + half, slen) : slen;
+    const bool mask = lo > warp * 32 * C || min(tile_end, slen) > hi;
+    const int hl = __shfl_up_sync(kFull, h[C - 1], 1);
+    int diag[C], uh[C], uf[C], hn[C], pre[C];
 #pragma unroll
-    for (int c = C - 1; c >= 0; --c) {
-      const int j = j0 + c;
-      const bool valid = j < slen && (band <= 0 || (j >= i - half && j < i + half));
-      const float d = c ? h[c > 0 ? c - 1 : 0] : diag0;
-      const float sub = (qc == sc[c] && qc < 4) ? kMatch : kMismatch;
-      const float fn = fmaxf(f[c] - kGapExtend, (h[c] - kGapOpen) - kGapExtend);
-      const float hn = fmaxf(fmaxf(d + sub, fn), 0.0f);
-      f[c] = fn;
-      h[c] = valid ? hn : kNeg;
+    for (int k = 0; k < C; ++k) {
+      diag[k] = k > 0 ? h[k > 0 ? k - 1 : 0] : (lane ? hl : edge);
+      uh[k] = h[k];
+      uf[k] = f[k];
     }
-    // E[j] = max_{t<j}(H[t] + ext*t) - ext*j - open: block-wide max-scan
-    float run = kNeg;
+    const unsigned off = (unsigned)(j0 - lo);
+    const unsigned width = (unsigned)max(hi - lo, 0);
+    int tot = (mask ? cells_update<C, true>(diag, uh, uf, sc, qc, off, width, f, hn, pre)
+                    : cells_update<C, false>(diag, uh, uf, sc, qc, off, width, f, hn, pre)) + j0;
 #pragma unroll
-    for (int c = 0; c < C; ++c) run = fmaxf(run, h[c] + kGapExtend * (float)(j0 + c));
-    for (int d = 1; d < 32; d <<= 1) {
-      const float o = __shfl_up_sync(0xffffffffu, run, d);
-      if (lane >= d) run = fmaxf(run, o);
-    }
-    float carry = __shfl_up_sync(0xffffffffu, run, 1);
-    if (lane == 0) carry = kNeg;
-    if (lane == 31) warp_run[warp] = run;
-    __syncthreads();
-    for (int w = 0; w < warp; ++w) carry = fmaxf(carry, warp_run[w]);
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int j = j0 + c;
-      const float cf = (float)j;
-      const bool valid = j < slen && (band <= 0 || (j >= i - half && j < i + half));
-      const float e = (carry - kGapExtend * cf) - kGapOpen;
-      carry = fmaxf(carry, h[c] + kGapExtend * cf);
-      const float hn = valid ? fmaxf(fmaxf(h[c], e), 0.0f) : kNeg;
-      h[c] = hn;
-      // strict > keeps the earliest row per column
-      if (hn > bestv[c]) {
-        bestv[c] = hn;
-        bestr[c] = i;
+    for (int d = 1; d < 32; d <<= 1) tot = max(tot, __shfl_up_sync(kFull, tot, d));
+    int carry = __shfl_up_sync(kFull, tot, 1);
+    if (lane == 0) carry = kNeg2;
+    if (warp > 0) {
+      while (ld_acquire(&done[warp - 1]) <= i) {
       }
+      const int2 in = ring[warp - 1][i % kFullRing];
+      carry = max(carry, in.x);
+      tot = max(tot, in.x);
+      edge = in.y;
     }
+    if (mask)
+      cells_finish<C, true>(carry - j0, hn, pre, i, h, bv, br);
+    else
+      cells_finish<C, false>(carry - j0, hn, pre, i, h, bv, br);
+    // every lane's read of ring[warp - 1] happens before lane 31's release
+    // lets the left warp overwrite that slot
+    __syncwarp();
+    if (warp + 1 < nwarps) {
+      // the right neighbour has read the slot this row overwrites
+      while (ld_acquire(&done[warp + 1]) < i + 1 - kFullRing) {
+      }
+      if (lane == 31) {
+        ring[warp][i % kFullRing] = make_int2(tot, h[C - 1]);
+        st_release(&done[warp], i + 1);
+      }
+    } else if (lane == 31) {
+      st_release(&done[warp], i + 1);
+    }
+    qc = qn;
   }
 
   // best value, then earliest row, then lowest column
-  float bv = bestv[0];
-  int br = bestr[0], bc = j0;
+  int bestv = 0, bestr = 0, bestc = 0;
 #pragma unroll
-  for (int c = 1; c < C; ++c) {
-    if (bestv[c] > bv || (bestv[c] == bv && bestr[c] < br)) {
-      bv = bestv[c];
-      br = bestr[c];
-      bc = j0 + c;
+  for (int k = 0; k < C; ++k) {
+    if (j0 + k < slen && better(bv[k], br[k], j0 + k, bestv, bestr, bestc)) {
+      bestv = bv[k];
+      bestr = br[k];
+      bestc = j0 + k;
     }
   }
-  best_sh[t] = bv;
-  row_sh[t] = br;
-  col_sh[t] = bc;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    const int v = __shfl_xor_sync(kFull, bestv, d);
+    const int r = __shfl_xor_sync(kFull, bestr, d);
+    const int c = __shfl_xor_sync(kFull, bestc, d);
+    if (better(v, r, c, bestv, bestr, bestc)) {
+      bestv = v;
+      bestr = r;
+      bestc = c;
+    }
+  }
+  if (lane == 0) {
+    best_sh[warp][0] = bestv;
+    best_sh[warp][1] = bestr;
+    best_sh[warp][2] = bestc;
+  }
   __syncthreads();
-  if (t == 0) {
-    for (int u = 1; u < (int)blockDim.x; ++u) {
-      const float v = best_sh[u];
-      const int r = row_sh[u];
-      if (v > bv || (v == bv && r < br)) {
-        bv = v;
-        br = r;
-        bc = col_sh[u];
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < nwarps; ++w) {
+      if (better(best_sh[w][0], best_sh[w][1], best_sh[w][2], bestv, bestr, bestc)) {
+        bestv = best_sh[w][0];
+        bestr = best_sh[w][1];
+        bestc = best_sh[w][2];
       }
     }
-    const bool found = bv > 0.0f;
-    score[blockIdx.x] = found ? bv : 0.0f;
-    q_end[blockIdx.x] = found ? br + 1 : 0;
-    s_end[blockIdx.x] = found ? bc + 1 : 0;
+    const bool found = bestv > 0;
+    score[blockIdx.x] = found ? (float)bestv * 0.5f : 0.0f;
+    q_end[blockIdx.x] = found ? bestr + 1 : 0;
+    s_end[blockIdx.x] = found ? bestc + 1 : 0;
   }
 }
 
 }  // namespace
 
+// band 0: the full matrix.  cells: columns a lane, warps: warps an alignment
+// (1..8, 32 * warps * cells >= slen; sw_device.sw_full_config picks them).
 extern "C" int ctk_sw_full(const int* q, const int* s, int batch, int qlen,
-                           int slen, int band, float* score, int* q_end,
-                           int* s_end, cudaStream_t stream) {
-  if (batch <= 0 || qlen < 0 || slen < 0 || slen > kMaxFullS)
+                           int slen, int band, int cells, int warps, float* score,
+                           int* q_end, int* s_end, cudaStream_t stream) {
+  if (batch <= 0 || qlen < 0 || qlen > kMaxQ || slen < 0 || slen > kMaxFullS || band < 0 ||
+      warps < 1 || warps > kMaxFullWarps || 32 * warps * cells < slen)
     return (int)cudaErrorInvalidValue;
-  const int c = slen <= 8 * kMaxFullThreads ? 8 : 16;
-  const int threads = max(32, (slen + c * 32 - 1) / (c * 32) * 32);
-  if (c == 8)
-    sw_full_kernel<8><<<batch, threads, 0, stream>>>(q, s, qlen, slen, band,
-                                                      score, q_end, s_end);
-  else
-    sw_full_kernel<16><<<batch, threads, 0, stream>>>(q, s, qlen, slen, band,
-                                                       score, q_end, s_end);
+#define CTK_SW_FULL(C)                                                               \
+  case C:                                                                            \
+    sw_full_kernel<C><<<batch, 32 * warps, 0, stream>>>(q, s, qlen, slen, band, score, \
+                                                         q_end, s_end);              \
+    break;
+  switch (cells) {
+    CTK_SW_FULL(1)
+    CTK_SW_FULL(2)
+    CTK_SW_FULL(4)
+    CTK_SW_FULL(6)
+    CTK_SW_FULL(8)
+    CTK_SW_FULL(12)
+    CTK_SW_FULL(16)
+    CTK_SW_FULL(24)
+    CTK_SW_FULL(32)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef CTK_SW_FULL
   return (int)cudaGetLastError();
 }
 

@@ -44,9 +44,12 @@
 //      next column.
 // The traceback is one byte a cell and column (M: recombination or local
 // M/I/D; I: recombination or local M/I; D: M or D; positions follow from j)
-// plus the column's recombination word `who<<25 | state<<23 | pos`.  After
-// the last column one thread walks the path, decoding each step into the
-// packed word the plain twin reads, and writes (n, max_r, cells[cap, 3]).
+// plus the column's recombination word `who<<25 | state<<23 | pos`, the only
+// place `who` is stored: local moves stay inside one target.  The word is
+// 64 bits, so any number of targets fits (the JAX package's int32 word
+// reaches the sign bit at 64); up to 63 targets its value is the int32 word's.
+// After the last column one thread walks the path, decoding each step into
+// the packed word the plain twin reads, and writes (n, max_r, cells[cap, 3]).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -63,9 +66,9 @@ constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kMaxCluster = 16;
 constexpr int kNumParams = 9 + 25 + 5;
 
-// the packed traceback word of the plain twin, in its int32 arithmetic
-__device__ __forceinline__ int pack(int who, int state, int pos) {
-  return (int)(((unsigned)who << 25) | ((unsigned)state << 23) | (unsigned)pos);
+// the packed traceback word of the plain twin (models/tesserae.py)
+__device__ __forceinline__ long long pack(int who, int state, int pos) {
+  return ((long long)who << 25) | ((long long)state << 23) | (long long)pos;
 }
 
 // better (value, flat index): larger value, then smaller index (first argmax)
@@ -156,7 +159,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
                 const unsigned char* __restrict__ valid,
                 const float* __restrict__ params, int L, int S, int W, int npad,
-                unsigned char* __restrict__ codes, int* __restrict__ rec,
+                unsigned char* __restrict__ codes, long long* __restrict__ rec,
                 int* __restrict__ out, int cap) {
   static_assert(C == 1 || C == 2 || C == 4 || C == 8 || C == 16, "C: 1..16, a power of two");
   __shared__ float prm[kNumParams];
@@ -412,7 +415,7 @@ tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
       int sidx = w_ - 1;
       if (w_ < 1) sidx += S;
       if (sidx < 0) sidx += S;
-      int v;
+      long long v;
       if ((s_ == kM || s_ == kI) && pt < 2) {
         v = 0;
       } else {
@@ -427,7 +430,7 @@ tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
           v = pack(sidx + 1, (code & 16) ? kD : kM, max(p_ - 1, 0));
         }
       }
-      const int wn = v >> 25, sn = (v >> 23) & 3, pn = v & ((1 << 23) - 1);
+      const int wn = (int)(v >> 25), sn = (int)((v >> 23) & 3), pn = (int)(v & ((1 << 23) - 1));
       cells[3 * n] = wn;
       cells[3 * n + 1] = sn;
       cells[3 * n + 2] = pn;
@@ -445,7 +448,7 @@ tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
 template <int C>
 int launch(const int* q, const int* t_codes, const unsigned char* valid,
            const float* params, int L, int S, int W, int npad, int cluster,
-           int threads, unsigned char* codes, int* rec, int* out, int cap,
+           int threads, unsigned char* codes, long long* rec, int* out, int cap,
            cudaStream_t stream) {
   auto kernel = tesserae_kernel<C>;
   if (cluster > 8) {
@@ -475,12 +478,12 @@ int launch(const int* q, const int* t_codes, const unsigned char* valid,
 
 // One section: `cluster` CTAs of `threads` threads, `cells` cells a thread
 // (a power of two up to 16, at most W); codes uint8[L+1, npad] with npad a
-// multiple of 16 and at least S*W; rec int32[L+1]; out int32[2 + 3*cap].
+// multiple of 16 and at least S*W; rec int64[L+1]; out int32[2 + 3*cap].
 extern "C" int ctk_tesserae(const int* q, const int* t_codes,
                             const unsigned char* valid, const float* params,
                             int L, int S, int W, int cells, int cluster,
                             int threads, unsigned char* codes, int npad,
-                            int* rec, int* out, int cap, cudaStream_t stream) {
+                            long long* rec, int* out, int cap, cudaStream_t stream) {
   const long long n = (long long)S * W;
   if (threads <= 0 || threads > kMaxThreads || threads % 32 || cluster < 1 ||
       cluster > kMaxCluster || S < 1 || L < 1 || W < 2 ||

@@ -39,6 +39,17 @@ EMISS_MATCH_NT = np.array([
 
 M, I, D = 1, 2, 3
 
+# The packed traceback word is who << 25 | state << 23 | pos.  The reference
+# keeps it in int32, where `who` has bits 25-30: up to INT32_TARGETS targets.
+# A larger section packs the same word in int64 (the reference's int32 word
+# reaches the sign bit at 64 targets and breaks its traceback).
+INT32_TARGETS = 63
+
+
+def word_dtype(s_count: int):
+    """numpy dtype of a section's packed traceback words."""
+    return np.int32 if s_count <= INT32_TARGETS else np.int64
+
 
 def _seq_codes(s: str) -> np.ndarray:
     return _CONVERT[np.frombuffer(s.encode(), dtype=np.uint8)].astype(np.int32)
@@ -102,16 +113,17 @@ class Tesserae:
         # DP columns [S, maxl+1] (index j = 0..maxl; j=0 is the boundary)
         neg = np.full((s_count, maxl + 1), SMALL)
 
-        # traceback storage: packed int32 (who << 25 | state << 23 | pos),
-        # one per state per cell per column
+        # traceback storage: packed (who << 25 | state << 23 | pos), one per
+        # state per cell per column, in word_dtype(s_count)
         def pack(who, state, pos):
             return (who << 25) | (state << 23) | pos
 
-        tb_m = np.zeros((l1 + 1, s_count, maxl + 1), dtype=np.int32)
-        tb_i = np.zeros((l1 + 1, s_count, maxl + 1), dtype=np.int32)
-        tb_d = np.zeros((l1 + 1, s_count, maxl + 1), dtype=np.int32)
+        word = word_dtype(s_count)
+        tb_m = np.zeros((l1 + 1, s_count, maxl + 1), dtype=word)
+        tb_i = np.zeros((l1 + 1, s_count, maxl + 1), dtype=word)
+        tb_d = np.zeros((l1 + 1, s_count, maxl + 1), dtype=word)
 
-        seq_ids = np.arange(1, s_count + 1, dtype=np.int32)  # reference 'seq' (1-based after query)
+        seq_ids = np.arange(1, s_count + 1, dtype=word)  # reference 'seq' (1-based after query)
 
         # ---- column i = 1 (Tesserae.java:223-259) ----
         vm = neg.copy()

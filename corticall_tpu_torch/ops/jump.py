@@ -408,12 +408,8 @@ def jump_walk(rows: torch.Tensor, start: torch.Tensor, num_steps: int,
     return out.reshape(b, 2 * iters), emitcnt, cycled, touched, endj
 
 
-def walk_jumps(buckets: torch.Tensor, rows: torch.Tensor, seeds: torch.Tensor,
-               k: int, num_steps: int):
-    """Seed lookup + jump walk of walk-oriented seeds (int32 [B, W] bit
-    patterns).  Returns (packed int32 [B, 2T] bit patterns, steps int32[B],
-    cycled, touched, endj bool[B]): the plain twins for CPU tensors, one
-    `ctk_jump_walk` launch for CUDA tensors."""
+def _check_walk(buckets: torch.Tensor, rows: torch.Tensor, seeds: torch.Tensor,
+                k: int, num_steps: int) -> None:
     w = tk.words(k)
     if seeds.dtype != torch.int32 or seeds.dim() != 2 or seeds.shape[1] != w:
         raise ValueError(f"seeds must be int32 [B, {w}] words")
@@ -423,39 +419,66 @@ def walk_jumps(buckets: torch.Tensor, rows: torch.Tensor, seeds: torch.Tensor,
         raise ValueError("buckets must be [NB, 2, W+1]")
     if num_steps < 0 or not seeds.device == rows.device == buckets.device:
         raise ValueError("num_steps must be >= 0 and all tensors on one device")
+    if seeds.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {seeds.device}")
+
+
+def lane_views(lanes: torch.Tensor, b: int):
+    """(steps int32[B], cycled, touched, endj bool[B]): views of the byte
+    buffer `ctk_jump_walk` writes its per-lane results to (int32 steps, then
+    the three flags a byte each), on the card or in a host copy."""
+    flags = lanes[4 * b:].view(3, b).view(torch.bool)
+    return lanes[:4 * b].view(torch.int32), flags[0], flags[1], flags[2]
+
+
+def walk_pitch(num_steps: int) -> int:
+    """Jump slots a lane row of the walk kernel's output holds: the
+    jump_iters(num_steps) of the [B, 2T] contract rounded up to a multiple of
+    4 (32 bytes, one DRAM sector)."""
+    return -(-jump_iters(num_steps) // 4) * 4
+
+
+def walk_jumps(buckets: torch.Tensor, rows: torch.Tensor, seeds: torch.Tensor,
+               k: int, num_steps: int):
+    """Seed lookup + jump walk of walk-oriented seeds (int32 [B, W] bit
+    patterns).  Returns (packed int32 [B, 2T] bit patterns, steps int32[B],
+    cycled, touched, endj bool[B]): the plain twins for CPU tensors; for CUDA
+    tensors one `ctk_jump_walk` launch into fresh buffers, nothing
+    zero-filled (the kernel writes every jump slot and every lane's
+    results), `packed` a strided view of its rows of walk_pitch(num_steps)
+    slots and the rest views of its lane buffer (lane_views)."""
+    _check_walk(buckets, rows, seeds, k, num_steps)
     if seeds.device.type == "cpu":
         start = seed_rows(buckets, tk.from_bits32(seeds), k)
         packed, steps, cycled, touched, endj = jump_walk(rows, start, num_steps)
         return tk.to_bits32(packed), steps.to(torch.int32), cycled, touched, endj
-    if seeds.device.type != "cuda":
-        raise ValueError(f"unsupported device {seeds.device}")
     b = seeds.shape[0]
-    iters = jump_iters(num_steps)
-    dev = seeds.device
     seeds, rows, buckets = seeds.contiguous(), rows.contiguous(), buckets.contiguous()
     if rows.data_ptr() % 16 or buckets.data_ptr() % 16:
         raise ValueError("rows and buckets must be 16-byte aligned")
-    out = torch.zeros((iters, b, 2), dtype=torch.int32, device=dev)
-    steps = torch.zeros(b, dtype=torch.int32, device=dev)
-    flags = torch.zeros((3, b), dtype=torch.bool, device=dev)
+    out = torch.empty((b, 2 * walk_pitch(num_steps)), dtype=torch.int32, device=seeds.device)
+    lanes = torch.empty(7 * b, dtype=torch.uint8, device=seeds.device)
     if b:
-        walk_kernel(buckets, rows, seeds, k, num_steps, out, steps, flags)
-    packed = out.permute(1, 0, 2).reshape(b, 2 * iters)
-    return packed, steps, flags[0], flags[1], flags[2]
+        walk_kernel(buckets, rows, seeds, k, num_steps, out, lanes)
+    return (out[:, :2 * jump_iters(num_steps)], *lane_views(lanes, b))
 
 
 def walk_kernel(buckets: torch.Tensor, rows: torch.Tensor, seeds: torch.Tensor,
-                k: int, num_steps: int, out: torch.Tensor, steps: torch.Tensor,
-                flags: torch.Tensor) -> None:
-    """One `ctk_jump_walk` launch on checked, contiguous card tensors into
-    zero-filled outputs: out int32 [T, B, 2], steps int32 [B], flags bool
-    [3, B] (cycled, touched, endj)."""
+                k: int, num_steps: int, out: torch.Tensor, lanes: torch.Tensor) -> None:
+    """One `ctk_jump_walk` launch on checked, contiguous card tensors.  out
+    int32 [B, 2P] holds P jump slots a lane, a multiple of 4 and at least
+    jump_iters(num_steps); the kernel writes every one (zeros past the
+    contract's).  lanes: uint8 [7B] (see lane_views)."""
     b = seeds.shape[0]
+    if out.dim() != 2 or out.shape[0] != b or out.shape[1] % 8 or not out.is_contiguous() or \
+            out.dtype != torch.int32 or out.shape[1] < 2 * jump_iters(num_steps) or \
+            lanes.shape != (7 * b,) or lanes.dtype != torch.uint8:
+        raise ValueError("out must be contiguous int32 [B, 2P], P a multiple of 4 and at least "
+                         "jump_iters(num_steps), and lanes uint8 [7B]")
     err = _kernels.library().ctk_jump_walk(
         rows.data_ptr(), buckets.data_ptr(), buckets.shape[0], seeds.shape[1], k,
-        seeds.data_ptr(), b, num_steps, out.shape[0], out.data_ptr(),
-        steps.data_ptr(), flags[0].data_ptr(), flags[1].data_ptr(),
-        flags[2].data_ptr(), _kernels.stream(seeds.device))
+        seeds.data_ptr(), b, num_steps, jump_iters(num_steps), out.shape[1] // 2, out.data_ptr(),
+        lanes.data_ptr(), _kernels.stream(seeds.device))
     _kernels.check(err, "jump_walk")
     LAUNCHES["jump_walk"] += 1
 
@@ -467,12 +490,22 @@ def walk_forward_jumps(buckets: torch.Tensor, rows: torch.Tensor,
     (packed uint32 [B, 2T], cycled bool[B], steps int32[B], saturated
     bool[B], touched bool[B], ends_junction bool[B]) as numpy arrays.
     `saturated` marks lanes still walking when `steps` hit the cap: the
-    jump-stride Brent may not have closed their cycle yet."""
-    st = words_tensor(seeds, rows.device)
-    packed, steps, cycled, touched, endj = walk_jumps(buckets, rows, st, k,
-                                                      num_steps)
-    steps = steps.cpu().numpy()
-    cycled = cycled.cpu().numpy()
+    jump-stride Brent may not have closed their cycle yet.  On the card
+    walk_jumps' results are copied into fresh pinned host memory,
+    asynchronously on the current stream (the jump slots by one pitched 2-D
+    copy that drops the rows' padding), with one synchronize; the arrays are
+    views that keep their host tensors alive."""
+    card, *lane = walk_jumps(buckets, rows, words_tensor(seeds, rows.device), k, num_steps)
+    packed = card
+    if card.device.type == "cuda":
+        b, width = card.shape
+        packed = torch.empty((b, width), dtype=torch.int32, pin_memory=True)
+        _kernels.check(_kernels.library().ctk_copy_rows_to_host(
+            packed.data_ptr(), 4 * width, card.data_ptr(), 4 * card.stride(0), 4 * width, b,
+            _kernels.stream(card.device)), "copy_rows_to_host")
+        lane = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x, non_blocking=True)
+                for x in lane]
+        torch.cuda.current_stream(card.device).synchronize()
+    steps, cycled, touched, endj = (x.numpy() for x in lane)
     saturated = (steps >= num_steps) & ~cycled
-    return (packed.cpu().numpy().view(np.uint32), cycled, steps, saturated,
-            touched.cpu().numpy(), endj.cpu().numpy())
+    return (packed.numpy().view(np.uint32), cycled, steps, saturated, touched, endj)

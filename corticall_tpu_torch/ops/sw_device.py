@@ -8,9 +8,11 @@ banded kernel for CUDA tensors (one warp a window, one window a block;
 `sw_kernel_config` picks its cells a lane); `banded_sw_pallas` is the same
 contract under the JAX package's name.  `sw_full_scores` is the twin of the
 JAX package's full-matrix (optionally band-masked) kernel, `sw_full` its
-wrapper.  All return (score f32[B], q_end i32[B], s_end i32[B]), ends
-1-based inclusive, and each kernel equals its twin bit for bit: every value
-is a multiple of 0.5.
+wrapper: a band-masked call whose band the banded kernel takes launches it
+(`sw_full_form`), anything else `ctk_sw_full` (`sw_full_config` picks its
+cells a lane and warps an alignment).  All return (score f32[B], q_end
+i32[B], s_end i32[B]), ends 1-based inclusive, and each kernel equals its
+twin bit for bit: every value is a multiple of 0.5.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from ..models.sw import GAP_EXTEND, GAP_OPEN, MATCH, MISMATCH
 NEG = -1e30
 MAX_BAND = 1024
 MAX_FULL_S = 8192             # longest subject the full-matrix kernel takes
+FULL_WARP_COLS = 1024         # columns one warp of the full-matrix kernel holds
 # the banded kernel's limits (its -inf sentinel leaves int32 beyond them)
 # and the cells a lane it is built for
 MAX_Q = 1 << 20
@@ -32,7 +35,7 @@ MAX_S = 1 << 27
 SW_CELLS = (1, 2, 4, 6, 8, 12, 16, 24, 32)
 
 # kernel launches (plain integers; chip_smoke.py resets and reads them):
-# LAUNCHES counts the banded kernel, FULL_LAUNCHES the full-matrix one
+# LAUNCHES counts sw_banded's launches, FULL_LAUNCHES sw_full's (either form)
 LAUNCHES = 0
 FULL_LAUNCHES = 0
 
@@ -223,20 +226,52 @@ def banded_sw_pallas(q_codes: torch.Tensor, s_codes: torch.Tensor,
     return sw_banded(q_codes, s_codes, band)
 
 
+def sw_full_form(band: int | None):
+    """(entry point, band) that sw_full launches on a card.  With a band b,
+    the masked full matrix scores columns [i - b//2, i + b//2) of row i: the
+    banded twin's cells at band 2 * (b // 2) (held by test_torch_sw's
+    property test), so where ctk_sw_banded takes that band (a multiple of 8
+    in (0, MAX_BAND]) it runs, computing only in-band cells.  Otherwise
+    (no band, or one the banded kernel refuses) the full-matrix kernel runs,
+    masked by `band` (0: no band)."""
+    if band is not None:
+        even = 2 * (band // 2)
+        if even % 8 == 0 and 0 < even <= MAX_BAND:
+            return "ctk_sw_banded", even
+    return "ctk_sw_full", band or 0
+
+
+def sw_full_config(slen: int):
+    """(cells a lane, warps an alignment) of the full-matrix kernel: one warp
+    a FULL_WARP_COLS-column tile, the fewest of SW_CELLS a lane that cover
+    the tile's share of the subject."""
+    if not 0 <= slen <= MAX_FULL_S:
+        raise ValueError(f"subjects longer than {MAX_FULL_S} are not supported")
+    warps = max(1, -(-slen // FULL_WARP_COLS))
+    return next(c for c in SW_CELLS if 32 * warps * c >= slen), warps
+
+
 def sw_full(q_codes: torch.Tensor, s_codes: torch.Tensor,
             band: int | None = None):
     """Full-matrix (band None) or band-masked local SW scores: the plain
-    twin for CPU tensors, csrc/sw_banded.cu's `ctk_sw_full` for CUDA
-    tensors.  Same contract as corticall_tpu/ops/sw_device.py::sw_pallas;
-    subjects longer than MAX_FULL_S are refused."""
+    twin for CPU tensors; for CUDA tensors one launch of the kernel that
+    sw_full_form names.  Same contract as corticall_tpu/ops/sw_device.py::
+    sw_pallas; subjects longer than MAX_FULL_S and queries longer than MAX_Q
+    are refused."""
     global FULL_LAUNCHES
     _check_pair(q_codes, s_codes)
     if band is not None and band <= 0:
         raise ValueError("band must be positive or None")
-    if s_codes.shape[1] > MAX_FULL_S:
-        raise ValueError(f"subjects longer than {MAX_FULL_S} are not supported")
+    cells, warps = sw_full_config(s_codes.shape[1])
+    if q_codes.shape[1] > MAX_Q:
+        raise ValueError(f"the full-matrix kernel takes qlen <= {MAX_Q}")
     if q_codes.device.type == "cpu":
         return sw_full_scores(q_codes, s_codes, band)
-    out, launched = _launch("ctk_sw_full", q_codes, s_codes, band or 0)
+    entry, kernel_band = sw_full_form(band)
+    if entry == "ctk_sw_banded":
+        config = (sw_kernel_config(q_codes.shape[1], s_codes.shape[1], kernel_band),)
+    else:
+        config = (cells, warps)
+    out, launched = _launch(entry, q_codes, s_codes, kernel_band, *config)
     FULL_LAUNCHES += launched
     return out

@@ -11,7 +11,10 @@ one launch on one thread-block cluster — for CUDA tensors.
 The kernel keeps one byte of traceback a cell and column plus one packed
 recombination word a column instead of three packed words a cell;
 `encode_traceback` and `decode_traceback` are the plain versions of that
-encoding and of the kernel's walk over it.
+encoding and of the kernel's walk over it.  The packed word is the JAX
+package's int32 `who << 25 | state << 23 | pos` up to tz.INT32_TARGETS
+targets and the same word in int64 above (models/tesserae.word_dtype); the
+kernel's recombination words are int64 at every size.
 
 Shapes are the section's own: query int32[L], targets int32[S, W-1] with a
 bool validity mask, W = longest target + 1.  The JAX package pads to
@@ -34,8 +37,7 @@ from ..models import tesserae as tz
 
 SMALL = -1e32
 M, I, D = 1, 2, 3
-# the packed traceback word holds `who` in bits 25..30
-MAX_TARGETS = 63
+_WORD_DTYPE = {np.int32: torch.int32, np.int64: torch.int64}
 # the cluster kernel: at most MAX_CLUSTER CTAs of MAX_THREADS threads, each
 # thread holding up to MAX_CELLS_PER_THREAD cells in registers
 MAX_CLUSTER = 16
@@ -76,16 +78,17 @@ def tesserae_scan(q_codes: torch.Tensor, t_codes: torch.Tensor,
     """Plain twin of tesserae_jax._tesserae_scan (unpadded: q_len = L).
 
     q_codes int32[L]; t_codes int32[S, W-1]; valid bool[S, W-1].  Returns
-    (tb int32[3, L+1, S, W] — packed M/I/D traceback words indexed by query
-    column, column 1's M/I rows zero — and the final column's who, state,
-    pos, max_r as 0-dim tensors)."""
+    (tb [3, L+1, S, W] — packed M/I/D traceback words, int32 or int64 by
+    tz.word_dtype(S), indexed by query column, column 1's M/I rows zero —
+    and the final column's who, state, pos, max_r as 0-dim tensors)."""
     scal, lsm, lsi = params
     ldel, leps, lrho, lpiM, lpiI, lmm, lgm, ldm, lsize_l = scal.unbind()
     dev = q_codes.device
     l1 = q_codes.shape[0]
     s_count, w1 = t_codes.shape
     width = w1 + 1
-    seq_ids = torch.arange(1, s_count + 1, dtype=torch.int32, device=dev)[:, None]
+    word = _WORD_DTYPE[tz.word_dtype(s_count)]
+    seq_ids = torch.arange(1, s_count + 1, dtype=word, device=dev)[:, None]
     jj = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
     jf = jj.to(torch.float32)
     jpos = torch.clamp_min(jj - 1, 0)
@@ -114,10 +117,10 @@ def tesserae_scan(q_codes: torch.Tensor, t_codes: torch.Tensor,
         flat = torch.where(inter == best, flat_ids, flat_ids.numel()).min()
         s_idx, rem = flat // (width * 2), flat % (width * 2)
         j, st = rem // 2, rem % 2
-        return ((s_idx + 1).to(torch.int32), torch.where(st == 0, M, I).to(torch.int32),
+        return ((s_idx + 1).to(word), torch.where(st == 0, M, I).to(torch.int32),
                 j.to(torch.int32), best)
 
-    tb = torch.zeros((3, l1 + 1, s_count, width), dtype=torch.int32, device=dev)
+    tb = torch.zeros((3, l1 + 1, s_count, width), dtype=word, device=dev)
 
     # column 1
     qc = q_codes[0].long()
@@ -203,7 +206,7 @@ def tesserae_full(q_codes: torch.Tensor, t_codes: torch.Tensor,
 
 def encode_traceback(tb: torch.Tensor):
     """The kernel's traceback encoding of tesserae_scan's packed words tb
-    int32[3, L+1, S, W]: (codes uint8[L+1, S, W], rec int32[L+1]).  A cell's
+    [3, L+1, S, W]: (codes uint8[L+1, S, W], rec int64[L+1]).  A cell's
     byte holds its M word in bits 0-1 (0: the column's recombination word,
     else the local state, position j-1), its I word in bits 2-3 (0:
     recombination, else the local state, position j) and its D word in bit 4
@@ -212,11 +215,11 @@ def encode_traceback(tb: torch.Tensor):
     walk never reads them."""
     _, l1p1, s_count, width = tb.shape
     dev = tb.device
-    seq = torch.arange(1, s_count + 1, dtype=torch.int32, device=dev)[:, None]
+    seq = torch.arange(1, s_count + 1, dtype=tb.dtype, device=dev)[:, None]
     jj = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
     jpos = torch.clamp_min(jj - 1, 0)
     codes = torch.zeros((l1p1, s_count, width), dtype=torch.uint8, device=dev)
-    rec = torch.zeros(l1p1, dtype=torch.int32, device=dev)
+    rec = torch.zeros(l1p1, dtype=torch.int64, device=dev)
     for col in range(1, l1p1):
         d = tb[2, col]
         if not bool(((d == _pack(seq, D, jpos)) | (d == _pack(seq, M, jpos))).all()):
@@ -240,9 +243,9 @@ def encode_traceback(tb: torch.Tensor):
 
 
 def _word(who: int, state: int, pos: int) -> int:
-    """_pack on Python ints, wrapped to int32 as the tensor version wraps."""
-    v = ((who << 25) | (state << 23) | pos) & 0xFFFFFFFF
-    return v - (1 << 32) if v >= 1 << 31 else v
+    """_pack on Python ints: the int32 word's value up to tz.INT32_TARGETS
+    targets, the int64 word's above."""
+    return (who << 25) | (state << 23) | pos
 
 
 def decode_traceback(codes: torch.Tensor, rec: torch.Tensor, who, state, pos):
@@ -313,8 +316,6 @@ def tesserae_fused(q_codes: torch.Tensor, t_codes: torch.Tensor,
     s_count, w1 = t_codes.shape
     if l1 < 1 or s_count < 1 or w1 < 1:
         raise ValueError("tesserae needs a non-empty query and targets")
-    if s_count > MAX_TARGETS:
-        raise ValueError(f"at most {MAX_TARGETS} targets fit the packed traceback")
     if valid.shape != t_codes.shape:
         raise ValueError("valid must have t_codes' shape")
     if q_codes.dtype != torch.int32 or t_codes.dtype != torch.int32:
@@ -335,7 +336,7 @@ def tesserae_fused(q_codes: torch.Tensor, t_codes: torch.Tensor,
     t = t_codes.to(dev).contiguous()
     vmask = valid.to(device=dev, dtype=torch.uint8).contiguous()
     codes = torch.empty((l1 + 1, npad), dtype=torch.uint8, device=dev)
-    rec = torch.empty(l1 + 1, dtype=torch.int32, device=dev)
+    rec = torch.empty(l1 + 1, dtype=torch.int64, device=dev)
     out = torch.empty(2 + 3 * cap, dtype=torch.int32, device=dev)
     lib = _kernels.library()
     err = lib.ctk_tesserae(q.data_ptr(), t.data_ptr(), vmask.data_ptr(),

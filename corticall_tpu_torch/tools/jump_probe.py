@@ -7,10 +7,17 @@ On bench.py's graph (demo.build_bench_graph(47, 21_000_000), 21,003,902
 records) and on a 2M-record one (demo.build_bench_graph(47, 2_000_000)):
 the mean CUDA-event time of stage 0, of each compose pass (each from the
 previous pass's rows, in the row format the version writes), of a whole
-build (`jump_rows`) and of the walk kernel alone (262,144 seeds, at most
-2,000 steps, as chip_smoke.py's phase 6), each beside its bound
-(chip_smoke.py's rules).  Every kernel's rows are checked against the plain
-build's, so a version that computes something else fails.
+build (`jump_rows`), and of the walk (at most 2,000 steps, as chip_smoke.py's
+phase 6) at 262,144 seeds and at 1,406 (the lanes of chip_smoke.py's phase
+7): the kernel alone, the whole `walk_jumps` call, and on the host clock
+`walk_forward_jumps` (the walks materialized as numpy arrays, after one
+warm-up call), each beside its bound (chip_smoke.py's rules).  Before
+those, on the host clock, the walk_forward_jumps calls that Partition's
+device routes make for the 262,144 seeds (chip_smoke.partition_walks_ms:
+batches of commands/core.CHUNK seeds, forward then reverse), so that a
+version's first turn shows what the first batches pay.  Every kernel's
+rows and walk steps are checked against the plain build's, so a version
+that computes something else fails.
 
 --repo DIR also times the package of another checkout (for example the
 parent commit unpacked with `git archive`), loaded beside this one under
@@ -20,8 +27,11 @@ other.
 --ablate also times this checkout's csrc/jump.cu rebuilt with one lever at a
 time taken out (the second bucket read only on a miss; the vector bucket
 loads; the lookup only for one-successor rows), into the git-ignored
-build/probe/.  The variant without the one-successor rule
-computes other rows (time only).
+build/probe/, and the walk kernel storing each lane's four-jump sector
+straight from its registers as two 16-byte vectors ("unstaged sector
+stores") instead of through the warp's shared-memory staging, or capped
+at 32 registers by 16 blocks a SM ("register cap").  The variant
+without the one-successor rule computes other rows (time only).
 
 JSON lines on stdout, then the card's name and power limit.
 """
@@ -30,10 +40,12 @@ import argparse
 import ctypes
 import importlib
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, HERE)
@@ -41,6 +53,7 @@ sys.modules["jax"] = None
 
 GRAPHS = [(47, 21_000_000), (47, 2_000_000)]      # (k, bases): ~21M and ~2M records
 SEEDS, STEPS = 262_144, 2000
+PHASE7_LANES = 1406                          # the forced Partition routes' widest walk
 REPS = 10
 
 # variant -> [(text of csrc/jump.cu, its replacement)]
@@ -66,8 +79,29 @@ _SCALAR = [("""  if constexpr (kWords % 4 == 0) {
 _ALL_ROWS = [("lookup<W, 2>(buckets, nb_mask, canon, single, pay, present);",
               "const bool every[2] = {true, true};\n"
               "  lookup<W, 2>(buckets, nb_mask, canon, every, pay, present);")]
+_UNSTAGED = [("""    __syncwarp();  // the warp's reads of the previous group are done
+    stage[threadIdx.x][0] = make_uint4(x[0].x, x[0].y, x[1].x, x[1].y);
+    stage[threadIdx.x][1] = make_uint4(x[2].x, x[2].y, x[3].x, x[3].y);
+    __syncwarp();
+#pragma unroll
+    for (int part = 0; part < 2; ++part) {
+      const int src = part * 16 + (wl >> 1);  // the warp lane whose sector this lane halves
+      const int dst = lane - wl + src;
+      if (dst < batch)
+        reinterpret_cast<uint4*>(out + (size_t)dst * pitch + t)[wl & 1] =
+            stage[warp0 + src][wl & 1];
+    }
+""", """    if (lane < batch) {
+      uint4* p = reinterpret_cast<uint4*>(out + (size_t)lane * pitch + t);
+      p[0] = make_uint4(x[0].x, x[0].y, x[1].x, x[1].y);
+      p[1] = make_uint4(x[2].x, x[2].y, x[3].x, x[3].y);
+    }
+""")]
+_REGISTER_CAP = [("__launch_bounds__(128)\njump_walk_kernel",
+                  "__launch_bounds__(128, 16)\njump_walk_kernel")]
 ABLATIONS = {"both buckets always": _BOTH_BUCKETS,
-             "scalar bucket loads": _SCALAR, "lookup every orientation": _ALL_ROWS}
+             "scalar bucket loads": _SCALAR, "lookup every orientation": _ALL_ROWS,
+             "unstaged sector stores": _UNSTAGED, "register cap": _REGISTER_CAP}
 
 
 def load_jump(repo: str):
@@ -93,6 +127,8 @@ class Version:
         self.name, self.tj = name, tj
         self.lib = lib or tj._kernels.library()
         self.narrow = getattr(tj, "NARROW_PASSES", 0)
+        # the parent's walk wrote zero-filled [T, B, 2] jumps and four outputs
+        self.lane_major = "lanes" in inspect.signature(tj.walk_kernel).parameters
 
     def _swap(self):
         # wrappers of this checkout over the ablated library
@@ -113,13 +149,22 @@ class Version:
         p for compose pass p."""
         return 2 if stage <= self.narrow and self.narrow else 4
 
-    def walk(self, buckets, rows, seeds, k, out, steps, flags):
-        err = self.lib.ctk_jump_walk(
-            rows.data_ptr(), buckets.data_ptr(), buckets.shape[0], seeds.shape[1], k,
-            seeds.data_ptr(), seeds.shape[0], STEPS, out.shape[0], out.data_ptr(),
-            steps.data_ptr(), flags[0].data_ptr(), flags[1].data_ptr(), flags[2].data_ptr(),
-            self.tj._kernels.stream(seeds.device))
-        self.tj._kernels.check(err, "jump_walk")
+    def walk_buffers(self, b, dev):
+        """The walk kernel's outputs for b lanes, allocated once (zero-filled,
+        as the parent's kernel needs)."""
+        import torch
+        iters = self.tj.jump_iters(STEPS)
+        if not self.lane_major:
+            return (torch.zeros((iters, b, 2), dtype=torch.int32, device=dev),
+                    torch.zeros(b, dtype=torch.int32, device=dev),
+                    torch.zeros((3, b), dtype=torch.bool, device=dev))
+        return (torch.empty((b, 2 * self.tj.walk_pitch(STEPS)), dtype=torch.int32, device=dev),
+                torch.empty(7 * b, dtype=torch.uint8, device=dev))
+
+    def walk(self, buckets, rows, seeds, k, bufs):
+        """One walk kernel launch; returns the lanes' steps."""
+        self.call(self.tj.walk_kernel, buckets, rows, seeds, k, STEPS, *bufs)
+        return self.tj.lane_views(bufs[1], seeds.shape[0])[0] if self.lane_major else bufs[1]
 
 
 def ablated_versions(tj):
@@ -149,7 +194,8 @@ def ablated_versions(tj):
     versions = []
     for name, path in zip(ABLATIONS, libs):
         lib = ctypes.CDLL(path)
-        for fn_name in ("ctk_jump_stage0", "ctk_jump_compose", "ctk_jump_walk"):
+        for fn_name in ("ctk_jump_stage0", "ctk_jump_compose", "ctk_jump_walk",
+                        "ctk_copy_rows_to_host"):
             fn = getattr(lib, fn_name)
             argtypes = kern._SIGNATURES[fn_name]
             fn.argtypes = list(argtypes)
@@ -190,19 +236,37 @@ def time_version(cs, v, case, turn):
     build_ms = cs.event_ms(lambda: v.call(tj.jump_rows, kd, ed, fd, buckets, k), REPS)
     if check:
         cs.same(v.call(tj.jump_rows, kd, ed, fd, buckets, k), want_rows, f"{v.name}: rows")
-    iters = tj.jump_iters(STEPS)
-    out = torch.zeros((iters, st.shape[0], 2), dtype=torch.int32, device=dev)
-    steps = torch.zeros(st.shape[0], dtype=torch.int32, device=dev)
-    flags = torch.zeros((3, st.shape[0]), dtype=torch.bool, device=dev)
-    walk_ms = cs.event_ms(lambda: v.walk(buckets, want_rows, st, k, out, steps, flags), REPS)
-    cs.same(steps, case["walk_steps"], f"{v.name}: walk steps")
+    from corticall_tpu_torch.commands.core import CHUNK
+    partition_ms = cs.partition_walks_ms(
+        lambda sd: v.call(tj.walk_forward_jumps, buckets, want_rows, sd, k, STEPS),
+        case["seeds_np"], case["rev_np"], CHUNK)
+    walks = []
+    for lanes in (SEEDS, PHASE7_LANES):
+        seeds = st[:lanes]
+        bufs = v.walk_buffers(lanes, dev)
+        walk_ms = cs.event_ms(lambda: v.walk(buckets, want_rows, seeds, k, bufs), REPS)
+        cs.same(v.walk(buckets, want_rows, seeds, k, bufs), case["walk_steps"][:lanes],
+                f"{v.name}: walk steps")
+        del bufs
+        row = {"lanes": lanes, "kernel_ms": round(walk_ms, 5),
+               "bound_ms": case["walk_bound_ms"][lanes]}
+        row["walk_jumps_ms"] = round(cs.event_ms(
+            lambda: v.call(tj.walk_jumps, buckets, want_rows, seeds, k, STEPS), REPS), 5)
+        host = case["seeds_np"][:lanes]
+        v.call(tj.walk_forward_jumps, buckets, want_rows, host, k, STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v.call(tj.walk_forward_jumps, buckets, want_rows, host, k, STEPS)
+        row["materialized_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+        walks.append(row)
     return {"version": v.name, "turn": turn, "records": kd.shape[0],
             "stage0_ms": round(stage0_ms, 5), "stage0_bound_ms": round(stage0_bound[0], 6),
             "compose_passes": passes,
             "compose_ms": round(sum(p["ms"] for p in passes), 5),
             "compose_bound_ms": round(sum(p["bound_ms"] for p in passes), 6),
-            "build_ms": round(build_ms, 5), "walk_ms": round(walk_ms, 5),
-            "walk_bound_ms": case["walk_bound_ms"]}
+            "build_ms": round(build_ms, 5), "walk": walks,
+            "partition_walks_ms": [round(x, 3) for x in partition_ms],
+            "partition_walks_total_ms": round(sum(partition_ms), 3)}
 
 
 def make_case(cs, tj, k, bases, dev):
@@ -220,18 +284,23 @@ def make_case(cs, tj, k, bases, dev):
     rows = tj.jump_rows_plain(kd, ed, fd, buckets, k)
     rng = np.random.default_rng(11)
     starts = rng.integers(0, len(genome) - k, size=SEEDS)
-    seeds = km.pack_codes(km.strings_to_codes([genome[i:i + k] for i in starts]), k)
+    strs = [genome[i:i + k] for i in starts]
+    seeds = km.pack_codes(km.strings_to_codes(strs), k)
+    rev = km.pack_codes(km.strings_to_codes([km.revcomp(s) for s in strs]), k)
     st = tj.words_tensor(seeds, dev)
     got = tj.walk_jumps(buckets, rows, st, k, STEPS)
     cs.check_walk(buckets, rows, st, k, STEPS, got)
     landing = cs.bucket_bytes(buckets, cs.landing_buckets(kd, ed, buckets, k))
-    walk_bound = cs.walk_bound(buckets, rows, st, k, STEPS, got)[0]
+    walk_bound = {lanes: round(cs.walk_bound(buckets, rows, st[:lanes], k, STEPS,
+                                             [x[:lanes] for x in got])[0], 6)
+                  for lanes in (SEEDS, PHASE7_LANES)}
     print(json.dumps({"graph": {"k": k, "bases": bases, "records": n,
                                 "buckets": buckets.shape[0], "landing_bucket_bytes": landing,
                                 "seeds": SEEDS, "walk_steps": int(got[1].sum())}}), flush=True)
     return {"kd": kd, "ed": ed, "fd": fd, "buckets": buckets, "k": k, "rows": rows,
-            "seeds": st, "walk_steps": got[1], "landing_bytes": landing,
-            "walk_bound_ms": round(walk_bound, 6)}
+            "seeds": st, "seeds_np": seeds, "rev_np": rev, "walk_steps": got[1],
+            "landing_bytes": landing,
+            "walk_bound_ms": walk_bound}
 
 
 def main() -> int:

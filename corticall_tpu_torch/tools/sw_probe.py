@@ -3,6 +3,7 @@
 
     python3 corticall_tpu_torch/tools/sw_probe.py [--repo DIR] [--sweep]
     python3 corticall_tpu_torch/tools/sw_probe.py --ablate
+    python3 corticall_tpu_torch/tools/sw_probe.py --full [--repo DIR]
 
 At the smoke shapes (B=256, Q=4096, S=8192, band 512; B=1024, Q=512,
 S=1024, band 64) and the 2 Mbp trio's four pre-score batches (band 512),
@@ -12,6 +13,11 @@ times the package of another checkout (for example the parent commit
 unpacked with `git archive`) on the same inputs, so that two versions can
 be compared in one call, in turns.  --sweep also times the two smallest
 cells a lane that cover each shape (this checkout's kernel only).
+
+--full: sw_full (the full-matrix contract) at FULL_SHAPES instead, in the
+form sw_device.sw_full_form picks, beside the bound on the cells the
+contract scores (chip_smoke.sw_full_bound_fields: every cell, or the
+in-band ones).
 
 --ablate: csrc/sw_banded.cu rebuilt with parts of its row compiled out (the
 outputs are then wrong: time only), in microseconds a query row at three
@@ -51,6 +57,9 @@ _EDGE = [(f"__shfl_{d}_sync(kFull, {x}, 1)", x) for d, x in
 ABLATIONS = {"kernel": [], "no scan": [_SCAN], "no best tracking": [_BEST],
              "no per-row loads": [_LOADS], "no lane-edge shuffles": _EDGE,
              "none of these": [_SCAN, _BEST, _LOADS, *_EDGE]}
+# (B, Q, S, band) of sw_full: chip_smoke.py's phase 8, and subjects of 2-5 tiles
+FULL_SHAPES = [(1024, 512, 1024, None), (1024, 512, 1024, 64), (128, 512, 8192, None),
+               (128, 512, 8192, 63), (256, 512, 2048, None), (256, 512, 4500, None)]
 SHAPES = [(256, 4096, 8192, 512), (1024, 512, 1024, 64),
           (8, 248, 376, 512), (32, 80, 208, 512), (64, 80, 208, 512),
           (8, 336, 464, 512)]
@@ -105,11 +114,33 @@ def ablate(tsw, cs, dev) -> None:
                               "us_a_row": round(ms / qlen * 1e3, 5)}), flush=True)
 
 
+def full(tsw, cs, dev, repo) -> None:
+    """Time sw_full at FULL_SHAPES."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(20261)
+    for batch, qlen, slen, band in FULL_SHAPES:
+        q, s = cs.sw_pairs(rng, batch, qlen, slen, 64)
+        qt, st = torch.from_numpy(q).to(dev), torch.from_numpy(s).to(dev)
+
+        def run():
+            return tsw.sw_full(qt, st, band)
+        cs.sw_diff(run(), tsw.sw_full_scores(qt, st, band), "sw_full")
+        ms = cs.event_ms(run, 5)
+        form = getattr(tsw, "sw_full_form", None)
+        print(json.dumps({"repo": repo, "form": form(band)[0] if form else None,
+                          "batch": batch, "q": qlen, "s": slen, "band": band,
+                          "ms": round(ms, 5), "us_a_row": round(ms / qlen * 1e3, 5),
+                          **cs.sw_full_bound_fields(qt, st, band)}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", default=HERE, help="checkout whose package is timed")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--full", action="store_true")
     args = ap.parse_args()
     repo = os.path.abspath(args.repo)
     sys.modules["jax"] = None
@@ -127,6 +158,10 @@ def main() -> int:
     dev = require_cuda()
     if args.ablate:
         ablate(tsw, cs, dev)
+        print(cs.nvidia_smi(), flush=True)
+        return 0
+    if args.full:
+        full(tsw, cs, dev, os.path.relpath(repo, HERE) if repo != HERE else ".")
         print(cs.nvidia_smi(), flush=True)
         return 0
     rng = np.random.default_rng(20260)

@@ -206,7 +206,7 @@ def ablate_one(index: int) -> None:
         prm = torch.cat([scal, lsm.reshape(-1), lsi]).contiguous()
         vmask = valid.to(torch.uint8).contiguous()
         codes = torch.zeros((l1 + 1, npad), dtype=torch.uint8, device=dev)
-        rec = torch.zeros(l1 + 1, dtype=torch.int32, device=dev)
+        rec = torch.zeros(l1 + 1, dtype=torch.int64, device=dev)
         out = torch.zeros(2 + 3 * cap, dtype=torch.int32, device=dev)
 
         def run():

@@ -362,3 +362,89 @@ def test_walk_kernel_on_cycles_matches_plain_on_card(cuda):
             got = tj.walk_forward_jumps(pt.buckets, pt.rows, seeds, 31, cap)
             _assert_same_walks(got, tj.walk_forward_jumps(cpu.buckets, cpu.rows,
                                                           seeds, 31, cap))
+
+
+def test_lane_views_read_the_kernels_byte_layout():
+    """ctk_jump_walk's per-lane results share one byte buffer: int32 steps
+    [B], then cycled, touched and ends-junction bytes [3][B]."""
+    steps = np.array([0, 7, 2000, 65], np.int32)
+    flags = np.array([[1, 0, 0, 1], [0, 1, 0, 1], [0, 0, 1, 1]], np.uint8)
+    lanes = torch.from_numpy(np.concatenate([steps.view(np.uint8), flags.reshape(-1)]))
+    got = tj.lane_views(lanes, 4)
+    assert got[0].dtype == torch.int32 and np.array_equal(got[0].numpy(), steps)
+    for view, want in zip(got[1:], flags):
+        assert view.dtype == torch.bool and np.array_equal(view.numpy(), want.astype(bool))
+
+
+def test_walk_kernel_checks_its_buffers():
+    """Rows of a multiple of 4 jump slots (32 bytes) and at least
+    jump_iters: the contiguous [B, 2T] rows, a short row, a wrong batch or
+    type and a short lane buffer are refused before any launch."""
+    g, genome, _ = _branchy(31, n=3000)
+    pt = tj.build_jump_table(g.kmers, g.edges[:, 0], 31, device="cpu")
+    seeds = tj.words_tensor(_pack([genome[:31], genome[100:131]], 31), "cpu")
+    t, p = tj.jump_iters(100), tj.walk_pitch(100)
+    assert (t, p) == (6, 8) and tj.walk_pitch(2000) == 68
+    lanes = torch.empty(14, dtype=torch.uint8)
+    for out, ln in ((torch.empty((2, 2 * t), dtype=torch.int32), lanes),
+                    (torch.empty((2, 8), dtype=torch.int32), lanes),
+                    (torch.empty((3, 2 * p), dtype=torch.int32), lanes),
+                    (torch.empty((2, 2 * p), dtype=torch.int64), lanes),
+                    (torch.empty((2, 2 * p), dtype=torch.int32), lanes[:13])):
+        with pytest.raises(ValueError):
+            tj.walk_kernel(pt.buckets, pt.rows, seeds, 31, 100, out, ln)
+    before = dict(tj.LAUNCHES)
+    with pytest.raises(ValueError):
+        tj.walk_forward_jumps(pt.buckets, pt.rows, _pack(["A" * 31], 31), 47, 100)
+    assert tj.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,cap,lanes", [(31, 7, 301), (31, 300, 301), (47, 2000, 301),
+                                         (31, 300, 97), (31, 300, 1)])
+def test_walk_kernel_writes_every_slot_on_card(cuda, k, cap, lanes):
+    """Launched into buffers filled with a poison byte, the kernel's slots,
+    steps and flags equal the twin's: it writes every jump slot (zeros after
+    a lane stops, and in each row's padding) and every lane's results; a
+    batch that ends inside a warp writes nothing past its rows."""
+    g, genome, rng = _branchy(k, seed=k + cap + 7, n=8000)
+    flags = rng.random(g.num_records) < 0.05
+    pt = tj.build_jump_table(g.kmers, g.edges[:, 0], k, flags=flags, device=cuda)
+    starts = rng.integers(0, len(genome) - k, size=lanes - 1)
+    strs = [genome[i:i + k] for i in starts] + ["A" * k]
+    seeds = tj.words_tensor(_pack(strs, k), cuda)
+    b, t, p = seeds.shape[0], tj.jump_iters(cap), tj.walk_pitch(cap)
+    out = torch.full((b + 40, 2 * p), 0x5A5A5A5A, dtype=torch.int32, device=cuda)
+    lanes_buf = torch.full((7 * b,), 0x5A, dtype=torch.uint8, device=cuda)
+    tj.walk_kernel(pt.buckets, pt.rows, seeds, k, cap, out[:b], lanes_buf)
+    torch.cuda.synchronize()
+    start = tj.seed_rows(pt.buckets, tk.from_bits32(seeds), k)
+    packed, steps, cycled, touched, endj = tj.jump_walk(pt.rows, start, cap)
+    assert torch.equal(out[:b, :2 * t], tk.to_bits32(packed))
+    assert not out[:b, 2 * t:].any()
+    assert (out[b:] == 0x5A5A5A5A).all()
+    got = tj.lane_views(lanes_buf, b)
+    assert torch.equal(got[0], steps.to(torch.int32))
+    for a, w in zip(got[1:], (cycled, touched, endj)):
+        assert torch.equal(a, w)
+    view = tj.walk_jumps(pt.buckets, pt.rows, seeds, k, cap)[0]
+    assert view.shape == (b, 2 * t) and torch.equal(view, tk.to_bits32(packed))
+
+
+@pytest.mark.cuda
+def test_walk_forward_jumps_results_outlive_the_next_call(cuda):
+    """Each call copies into its own pinned host buffers: a second call
+    leaves the first call's arrays as they were."""
+    g, genome, rng = _branchy(31, seed=41, n=8000)
+    pt = tj.build_jump_table(g.kmers, g.edges[:, 0], 31, device=cuda)
+    cpu = tj.build_jump_table(g.kmers, g.edges[:, 0], 31, device="cpu")
+    runs = []
+    for seed in (1, 2):
+        starts = np.random.default_rng(seed).integers(0, len(genome) - 31, size=200)
+        seeds = _pack([genome[i:i + 31] for i in starts], 31)
+        want = tj.walk_forward_jumps(cpu.buckets, cpu.rows, seeds, 31, 300)
+        runs.append((tj.walk_forward_jumps(pt.buckets, pt.rows, seeds, 31, 300), want))
+    for got, want in runs:
+        _assert_same_walks(got, want)
+    first = runs[0][0]
+    assert first[0].base is not None and not np.shares_memory(first[0], runs[1][0][0])

@@ -309,3 +309,122 @@ def test_full_kernel_matches_plain_on_card(cuda, batch, qlen, slen, band):
     torch.cuda.synchronize()
     assert tsw.FULL_LAUNCHES == before + 1
     _assert_same(got, tsw.sw_full_scores(qt, st, band))
+
+
+# ---------------------------------------------------------------------------
+# sw_full's two forms: the banded kernel where the twins agree, the
+# full-matrix kernel (masked or not) elsewhere
+# ---------------------------------------------------------------------------
+
+def _property_pairs(seed, batch, qlen, slen, kind, pad):
+    """Inputs of the property test: random codes, query copied from the
+    subject with substitutions, or one tandem repeat cut into both; `pad`
+    rows of all N at the end of the batch."""
+    rng = np.random.default_rng(seed)
+    if kind == "tandem" and qlen and slen:
+        q, s = _tandem_pairs(rng, batch, qlen, slen)
+    else:
+        s = rng.integers(0, 4, (batch, slen)).astype(np.int32)
+        q = rng.integers(0, 4, (batch, qlen)).astype(np.int32)
+        if kind == "copy" and slen:
+            off = rng.integers(0, slen, batch)
+            idx = (off[:, None] + np.arange(qlen)[None, :]) % slen
+            q = np.take_along_axis(s, idx, 1)
+            mut = rng.random(q.shape) < 0.05
+            q[mut] = (q[mut] + 1) % 4
+    q, s = q.copy(), s.copy()
+    if pad:
+        q[-pad:] = 4
+    return torch.from_numpy(q), torch.from_numpy(s)
+
+
+def _full_equals_banded_twin(seed, batch, qlen, slen, band, kind, pad):
+    q, s = _property_pairs(seed, batch, qlen, slen, kind, pad)
+    got = tsw.sw_full_scores(q, s, band)
+    if band // 2 == 0:                      # no column is in the band
+        assert not got[0].any() and not got[1].any() and not got[2].any()
+        return
+    _assert_same(got, tsw.banded_sw_scores(q, s, 2 * (band // 2)))
+
+
+def test_full_band_masked_equals_banded_twin_property():
+    """The band-masked full matrix at band b scores the banded twin's cells
+    at band 2 * (b // 2), on every shape: S < band and S > Q + band, Q > S,
+    all-N rows, odd and non-multiple-of-8 bands.  sw_full_form routes on
+    this (the odd bands' twins differ at band b itself: the banded window is
+    b cells wide, the masked one 2 * (b // 2))."""
+    from hypothesis import example, given, settings, strategies as st
+
+    @settings(max_examples=60, deadline=None, derandomize=True, database=None)
+    @given(seed=st.integers(0, 2 ** 16), batch=st.integers(1, 4),
+           qlen=st.integers(0, 48), slen=st.integers(0, 160),
+           band=st.one_of(st.integers(1, 40), st.sampled_from([64, 65, 127, 128, 200, 512])),
+           kind=st.sampled_from(["random", "copy", "tandem"]), pad=st.integers(0, 1))
+    @example(seed=1, batch=3, qlen=40, slen=20, band=64, kind="copy", pad=0)     # S < band
+    @example(seed=2, batch=3, qlen=20, slen=150, band=16, kind="copy", pad=1)    # S > Q + band
+    @example(seed=3, batch=2, qlen=48, slen=30, band=24, kind="tandem", pad=0)   # Q > S
+    @example(seed=4, batch=2, qlen=30, slen=60, band=12, kind="copy", pad=2)     # all N
+    @example(seed=5, batch=3, qlen=40, slen=90, band=13, kind="tandem", pad=0)   # odd band
+    @example(seed=6, batch=2, qlen=40, slen=90, band=1, kind="copy", pad=0)
+    def prop(seed, batch, qlen, slen, band, kind, pad):
+        _full_equals_banded_twin(seed, batch, qlen, slen, band, kind, pad)
+
+    prop()
+
+
+def test_odd_band_twins_differ_at_the_band_itself():
+    """Why sw_full_form halves an odd band: the banded window of b cells
+    holds one column more than the masked full matrix's."""
+    q, s = _property_pairs(7, 4, 40, 90, "copy", 0)
+    full = tsw.sw_full_scores(q, s, 13)
+    assert not all(torch.equal(a, b) for a, b in zip(full, tsw.banded_sw_scores(q, s, 13)))
+    _assert_same(full, tsw.banded_sw_scores(q, s, 12))
+
+
+def test_sw_full_picks_its_form_and_config():
+    form = tsw.sw_full_form
+    assert form(None) == ("ctk_sw_full", 0)
+    for band, want in ((8, 8), (9, 8), (24, 24), (64, 64), (65, 64), (256, 256),
+                       (1024, 1024), (1025, 1024)):
+        assert form(band) == ("ctk_sw_banded", want)
+    for band in (1, 2, 7, 12, 63, 1026, 1032, 4096):
+        assert form(band) == ("ctk_sw_full", band)
+    cfg = tsw.sw_full_config
+    assert [cfg(s) for s in (0, 30, 1024, 1025, 4500, 8192)] == \
+        [(1, 1), (1, 1), (32, 1), (24, 2), (32, 5), (32, 8)]
+    for slen in range(0, tsw.MAX_FULL_S + 1, 97):
+        cells, warps = cfg(slen)
+        assert 32 * warps * cells >= slen and warps <= tsw.MAX_FULL_S // tsw.FULL_WARP_COLS
+    with pytest.raises(ValueError):
+        cfg(tsw.MAX_FULL_S + 1)
+    q = torch.full((1, tsw.MAX_Q + 1), 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="qlen"):
+        tsw.sw_full(q, torch.full((1, 64), 4, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [None, 24, 64, 256, 12, 63])
+@pytest.mark.parametrize("slen", [30, 1024, 1025, 4500, 8192])
+def test_full_on_tandem_repeats_on_card(cuda, slen, band):
+    """Every form at every tile count, tie-heavy: bands 24, 64, 256 take the
+    banded kernel, None the full-matrix one, 12 and 63 the masked full one;
+    each launch counts in FULL_LAUNCHES only."""
+    q, s = _tandem_pairs(np.random.default_rng(300 + slen), 6, 400, slen)
+    qt, st = torch.from_numpy(q).to(cuda), torch.from_numpy(s).to(cuda)
+    before = tsw.FULL_LAUNCHES, tsw.LAUNCHES
+    got = tsw.sw_full(qt, st, band)
+    torch.cuda.synchronize()
+    assert (tsw.FULL_LAUNCHES, tsw.LAUNCHES) == (before[0] + 1, before[1])
+    _assert_same(got, tsw.sw_full_scores(qt, st, band))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slen,band", [(300, 64), (1500, 256), (8192, 512), (700, 1)])
+def test_full_kernel_masked_matches_plain_on_card(cuda, slen, band):
+    """The full-matrix kernel's band mask, at bands sw_full sends to the
+    banded kernel (launched directly)."""
+    q, s = _mutated_pairs(np.random.default_rng(310 + slen), 5, 350, slen)
+    qt, st = torch.from_numpy(q).to(cuda), torch.from_numpy(s).to(cuda)
+    got, _ = tsw._launch("ctk_sw_full", qt, st, band, *tsw.sw_full_config(slen))
+    torch.cuda.synchronize()
+    _assert_same(got, tsw.sw_full_scores(qt, st, band))

@@ -11,6 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from corticall_tpu.models import tesserae as tz  # noqa: E402
+from corticall_tpu_torch.models import tesserae as ptz  # noqa: E402
 from corticall_tpu_torch.ops import tesserae_torch as tt  # noqa: E402
 
 
@@ -57,6 +58,8 @@ def _case(name):
         rng = np.random.default_rng(int(name[3:]))
         return _genome(rng, 40), {f"t{i}": _genome(rng, 1)
                                   for i in range(int(name[3:]))}
+    if name.startswith("many"):
+        return _many(int(name[4:]))
     n_targets = int(name[len("targets"):])
     rng = np.random.default_rng(n_targets)
     base = _genome(rng, 260)
@@ -65,6 +68,15 @@ def _case(name):
     seqs = list(targets.values())
     query = seqs[3][:90] + seqs[11][90:170] + seqs[7][170:]
     return _mutate(rng, query, 0.01), targets
+
+
+def _many(n_targets):
+    """n short random targets (40-60 bases); the query is 40 bases of target
+    63 (of the last target below 64), then 40 of target 0."""
+    rng = np.random.default_rng(1000 + n_targets)
+    targets = {f"t{i}": _genome(rng, int(rng.integers(40, 61))) for i in range(n_targets)}
+    last = f"t{min(n_targets, 64) - 1}"
+    return targets[last][:40] + targets["t0"][:40], targets
 
 
 CASES = ["small", "recombinant0", "recombinant1", "recombinant2", "indels",
@@ -151,8 +163,71 @@ def test_over_budget_section_takes_host_oracle():
     assert dev.host_sections == 1 and dev.device_sections == 0
 
 
+@pytest.mark.parametrize("n_targets", [1, 8, 63])
+def test_up_to_63_targets_oracle_twin_and_device_match_jax(n_targets):
+    """Up to 63 targets the int32 word is the JAX package's: the port's
+    oracle copy, the plain twin and the device class equal the JAX
+    package's host oracle, _tesserae_full and device class (cells exact;
+    the oracles' llk equal, float32 llk within 1e-6 relative)."""
+    pytest.importorskip("jax")
+    from corticall_tpu.ops import tesserae_jax as tj
+    query, targets = _many(n_targets)
+    prm = PARAMS[1]
+    want = tz.Tesserae(*prm)
+    host = ptz.Tesserae(*prm)
+    assert host.align(query, targets) == want.align(query, targets)
+    assert host.llk == want.llk
+    args = _inputs(query, targets, prm)
+    assert tt.tesserae_scan(*args)[0].dtype == torch.int32
+    q, t_codes, valid = (x.numpy() for x in args[:3])
+    size_l = float(sum(map(len, targets.values())))
+    want_r, want_cells, want_n = tj._tesserae_full(
+        q, t_codes, valid, _jax_params(*prm, size_l), n_targets, t_codes.shape[1] + 1,
+        np.int32(len(q)))
+    max_r, cells, n = tt.tesserae_full(*args)
+    assert n == int(want_n)
+    np.testing.assert_array_equal(cells.numpy()[:n], np.asarray(want_cells)[:n])
+    assert abs(float(max_r) - float(want_r)) <= 1e-6 * abs(float(want_r))
+    dev = tt.TesseraeDevice(*prm, device="cpu")
+    ref = tj.TesseraeDevice(*prm)
+    assert dev.align(query, targets) == ref.align(query, targets)
+    assert abs(dev.llk - ref.llk) <= 1e-6 * abs(ref.llk)
+
+
+@pytest.mark.parametrize("n_targets", [64, 65, 80, 100])
+def test_64_or_more_targets_match_the_widened_oracle(n_targets):
+    """From 64 targets the word is int64 (the JAX package's int32 word
+    breaks there, so it is no reference): the plain twin and the device
+    class give the port's oracle's path, through target 63, and its llk
+    within 1e-4 relative (float32 against float64, the tolerance of
+    tests/test_tesserae_device.py)."""
+    query, targets = _many(n_targets)
+    prm = PARAMS[1]
+    host = ptz.Tesserae(*prm)
+    want = host.align(query, targets)
+    assert [seg[0] for seg in want] == ["query", "t63", "t0"]
+    assert tt.tesserae_scan(*_inputs(query, targets, prm))[0].dtype == torch.int64
+    dev = tt.TesseraeDevice(*prm, device="cpu")
+    assert dev.align(query, targets) == want
+    assert abs(dev.llk - host.llk) <= 1e-4 * abs(host.llk)
+    assert dev.device_sections == 1 and dev.host_sections == 0
+
+
+@pytest.mark.parametrize("who", [1, 63, 64, 100, 4095])
+def test_packed_word_round_trips(who):
+    """who << 25 | state << 23 | pos decodes to its fields at any target
+    count, and is the JAX package's int32 word up to 63 targets."""
+    for state in (tt.M, tt.I, tt.D):
+        for pos in (0, 1, (1 << 23) - 1):
+            v = tt._word(who, state, pos)
+            assert (v >> 25, (v >> 23) & 3, v & ((1 << 23) - 1)) == (who, state, pos)
+            if who <= ptz.INT32_TARGETS:
+                assert int(np.int64(v).astype(np.int32)) == v
+    assert ptz.word_dtype(63) == np.int32 and ptz.word_dtype(64) == np.int64
+
+
 @pytest.mark.parametrize("prm", PARAMS)
-@pytest.mark.parametrize("case", CASES + ["tiny", "w2_63"])
+@pytest.mark.parametrize("case", CASES + ["tiny", "w2_63", "w2_64", "many100"])
 def test_encoded_traceback_decodes_to_same_cells(case, prm):
     """The kernel's one-byte-a-cell traceback (encode_traceback) walked by
     the kernel's decoding (decode_traceback) gives tesserae_traceback's
@@ -190,12 +265,14 @@ def test_wrapper_validates_and_counts_no_cpu_launch():
     with pytest.raises(ValueError):
         tt.tesserae_fused(args[0], args[1], args[2][:, :-1], args[3])
     many = torch.zeros((64, 5), dtype=torch.int32)
-    with pytest.raises(ValueError):
-        tt.tesserae_fused(args[0], many, many.bool(), args[3])
+    assert int(tt.tesserae_fused(args[0], many, many.bool(), args[3])[2]) >= 2
+    big = torch.zeros((64, 2100), dtype=torch.int32)
+    with pytest.raises(ValueError, match=str(tt.MAX_CELLS)):
+        tt.tesserae_fused(args[0], big, big.bool(), args[3])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES + ["tiny"])
+@pytest.mark.parametrize("case", CASES + ["tiny", "many64", "many80", "many100", "w2_100"])
 def test_kernel_matches_plain_on_card(cuda, case):
     args = _inputs(*_case(case), PARAMS[1], cuda)
     before = tt.LAUNCHES

@@ -48,14 +48,28 @@ Phases, one JSON line each (progress goes to stderr):
    S=1024, full and band 64, and at B=128, Q=512, S=8192, full and band 63,
    with the kernel each call took (sw_device.sw_full_form), and
    banded_sw_pallas (the banded kernel under the JAX package's name)
-   against the banded twin.
+   against the banded twin;
+9. walk_table_vs_plain: on phase 6's graph, the walk table of colour 0
+   (phase 6's placement with the edge byte as payload) and a DeviceGraph;
+   find_records of every record and as many mutated k-mers (ctk_ht_lookup)
+   and 262,144 walks of at most 256 steps (bench.py's BENCH_WALKS,
+   BENCH_STEPS) through walk_forward_spec (ctk_spec_walk), launches
+   counted; both kernels against their twins bit for bit, timed beside
+   their bounds, with the walk's steps/s;
+10. build_device: build_graph_from_reads with use_device=True on each trio
+   sample of phase 4 and count_kmers_device on phase 6's 21 Mbp genome,
+   each against the native route (identical graphs and counts), launches
+   counted, with the seconds of each route and the device route's parts
+   (host packing, transfer, windows, compaction, sort, reduce, merge); then
+   ctk_count_windows and ctk_segment_reduce against their twins on the
+   kid's first chunk.
 
 Then one JSON line with each kernel's route, source, launches, error,
-times and bound, the nvidia-smi line, and the result line.  Any failure
-raises: the run exits non-zero and prints no result, as it does without a
-CUDA device or outside the repository.  Neither jax nor the JAX package
-(corticall_tpu) is ever imported.  About 6 minutes on one H100, most of it
-host work (graph simulation and builds, the placement).
+times and bound (ten kernels), the nvidia-smi line, and the result line.
+Any failure raises: the run exits non-zero and prints no result, as it does
+without a CUDA device or outside the repository.  Neither jax nor the JAX
+package (corticall_tpu) is ever imported.  About 5-7 minutes on one H100,
+most of it host work (graph simulation and builds, the placements).
 """
 
 import json
@@ -76,6 +90,9 @@ import torch  # noqa: E402
 from corticall_tpu_torch.device import require_cuda  # noqa: E402
 from corticall_tpu_torch.models import tesserae as tz  # noqa: E402
 from corticall_tpu_torch.ops import _kernels  # noqa: E402
+from corticall_tpu_torch.ops import build_device as bdv  # noqa: E402
+from corticall_tpu_torch.ops import cuckoo as ck  # noqa: E402
+from corticall_tpu_torch.ops import hashtable as ht  # noqa: E402
 from corticall_tpu_torch.ops import jump as tj  # noqa: E402
 from corticall_tpu_torch.ops import kmer as tk  # noqa: E402
 from corticall_tpu_torch.ops import sw_device as tsw  # noqa: E402
@@ -93,6 +110,7 @@ PF_MAX_WALK = 2000
 JUMP_K, JUMP_BASES = 47, 21_000_000          # bench.build_bench_graph's args
 JUMP_SEEDS, JUMP_STEPS = 262_144, 2000       # BENCH_WALKS, BENCH_STEPS_JUMP
 NATIVE_SEEDS = 16_384                        # BENCH_NATIVE_SEEDS
+SPEC_STEPS = 256                             # BENCH_STEPS: the single-step walk's cap
 SWEEP_SEEDS = (1024, 4096, 16384, 65536)
 # (B, Q, S, band): the full matrix and band 64 (the banded kernel) at the
 # earlier smoke shape, the longest subject full and at an odd band (the masked
@@ -307,20 +325,29 @@ def sw_diff(got, want, name="sw_banded") -> float:
 
 
 def same(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
-    """0.0 when two integer tensors are equal; raises otherwise."""
-    if got.shape != want.shape or not torch.equal(got, want):
-        bad = int((got != want).sum()) if got.shape == want.shape else -1
-        raise AssertionError(f"{what} disagrees with its plain twin ({bad} entries)")
-    return 0.0
+    """The largest absolute difference of two integer tensors of one shape;
+    raises unless it is 0."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)}, its plain twin's "
+                             f"{tuple(want.shape)}")
+    diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if err:
+        raise AssertionError(f"{what} disagrees with its plain twin "
+                             f"({int((diff != 0).sum())} entries, max {err})")
+    return err
 
 
-def host_buckets(kmers: np.ndarray, nb: int, entry: np.ndarray) -> torch.Tensor:
+def host_buckets(kmers: np.ndarray, nb: int, entry: np.ndarray,
+                 payload: np.ndarray | None = None) -> torch.Tensor:
     """The bucket array of a placement (entry = 2 * bucket + position a
-    key), scattered on the host."""
+    key), scattered on the host; tags carry `payload` (default: the record
+    ids)."""
     n, w = kmers.shape
     out = np.zeros((nb * 2, w + 1), dtype=np.uint32)
     out[entry, :-1] = kmers
-    out[entry, -1] = np.arange(n, dtype=np.uint32) | np.uint32(1 << 31)
+    pay = np.arange(n, dtype=np.uint32) if payload is None else payload.astype(np.uint32)
+    out[entry, -1] = pay | np.uint32(1 << 31)
     return torch.from_numpy(out.view(np.int32)).view(nb, 2, w + 1)
 
 
@@ -366,26 +393,28 @@ def check_table(kd, ed, fd, buckets, k, rows) -> dict:
     src = torch.empty((n2, 2), dtype=torch.int32, device=rows.device)
     stage0_ms = event_ms(lambda: tj.stage0_kernel(kd, ed, fd, buckets, k, src), 3)
     stage0_plain_ms, state = host_ms(lambda: tj.stage0_plain(kd, ed, fd, buckets, k))
-    same(tj.widen_rows(src, 0), tj.pack_rows(*state), "jump_stage0")
+    stage0_err = same(tj.widen_rows(src, 0), tj.pack_rows(*state), "jump_stage0")
     landing = bucket_bytes(buckets, landing_buckets(kd, ed, buckets, k))
     stage0_bound = bound_ms(nbytes(kd, ed, fd, src) + landing)
-    passes = []
+    passes, compose_err = [], 0.0
     for p in range(tj.COMPOSE_PASSES):
         dst = torch.empty((n2, 2 if p < tj.NARROW_PASSES else 4), dtype=torch.int32,
                           device=rows.device)
         ms = event_ms(lambda: tj.compose_kernel(src, dst, p), 3)
         plain_ms, state = host_ms(lambda: tj.jump_compose(*state))
         got = dst if dst.shape[1] == 4 else tj.widen_rows(dst, p + 1)
-        same(got, tj.pack_rows(*state), f"jump_compose pass {p + 1}")
+        compose_err = max(compose_err, same(got, tj.pack_rows(*state),
+                                            f"jump_compose pass {p + 1}"))
         passes.append({"ms": round(ms, 4), "plain_ms": round(plain_ms, 2),
                        "row_bytes": [src.shape[1] * 4, dst.shape[1] * 4],
                        **bound_fields(bound_ms(nbytes(src, dst)))})
         src = dst
     del state
-    same(src, rows, "jump table rows, the kernels' pass by pass")
+    compose_err = max(compose_err, same(src, rows, "jump table rows, the kernels' pass by pass"))
     rows_plain_ms, plain_rows = host_ms(lambda: tj.jump_rows_plain(kd, ed, fd, buckets, k))
-    same(rows, plain_rows, "jump table rows")
+    compose_err = max(compose_err, same(rows, plain_rows, "jump table rows"))
     return {"stage0_ms": round(stage0_ms, 4), "stage0_plain_ms": round(stage0_plain_ms, 2),
+            "stage0_err": stage0_err, "compose_err": compose_err,
             "stage0_bound": bound_fields(stage0_bound), "landing_bucket_bytes": landing,
             "compose_ms": round(sum(p["ms"] for p in passes), 4),
             "compose_plain_ms": round(sum(p["plain_ms"] for p in passes), 2),
@@ -394,22 +423,22 @@ def check_table(kd, ed, fd, buckets, k, rows) -> dict:
             "compose_passes": passes, "rows_plain_ms": round(rows_plain_ms, 2)}
 
 
-def check_walk(buckets, rows, seeds, k, num_steps, got) -> float:
+def check_walk(buckets, rows, seeds, k, num_steps, got) -> tuple[float, float]:
     """A walk kernel's outputs `got` against the plain seed lookup and walk
     on the same inputs; raises on any difference.  Returns the plain twin's
-    time (ms, after a warm-up)."""
+    time (ms, after a warm-up) and the largest difference."""
     def plain_walk():
         start = tj.seed_rows(buckets, tk.from_bits32(seeds), k)
         return tj.jump_walk(rows, start, num_steps)
     plain_walk()
     plain_ms, want = host_ms(plain_walk)
-    same(got[0], tk.to_bits32(want[0]), "jump_walk packed bases")
-    same(got[1], want[1].to(torch.int32), "jump_walk steps")
+    errs = [same(got[0], tk.to_bits32(want[0]), "jump_walk packed bases"),
+            same(got[1], want[1].to(torch.int32), "jump_walk steps")]
     for name, a, b in zip(("cycled", "touched", "ends_junction"), got[2:], want[2:]):
-        same(a, b, f"jump_walk {name}")
-    same((got[1] >= num_steps) & ~got[2], (want[1] >= num_steps) & ~want[2],
-         "jump_walk saturated")
-    return plain_ms
+        errs.append(same(a, b, f"jump_walk {name}"))
+    errs.append(same((got[1] >= num_steps) & ~got[2], (want[1] >= num_steps) & ~want[2],
+                     "jump_walk saturated"))
+    return plain_ms, max(errs)
 
 
 def walk_bound(buckets, rows, seeds, k, num_steps, got):
@@ -539,7 +568,7 @@ def run_main_path(dev, mbp):
         tt.TesseraeDevice.align = align
     ev = evaluate(out["variants"], res["truth_vcf"], mom, dad, PF_K,
                   recombs=res.get("recombs"))
-    return {"out": out, "res": res, "ev": ev, "launches": launches,
+    return {"out": out, "res": res, "ev": ev, "launches": launches, "reads": reads,
             "sw_sent": sw_sent, "ts_sent": ts_sent, "section_targets": section_targets,
             "simulate_s": simulate_s,
             "pipeline_s": pipeline_s}
@@ -593,9 +622,11 @@ def replay(mp) -> dict:
 
 
 
-def jump_phase(dev) -> dict:
+def jump_phase(dev):
     """Phase 6: the jump table and walk at bench.py's graph, kernels against
-    the plain twins, and the device route against the native walker."""
+    the plain twins, and the device route against the native walker.
+    Returns (the phase's fields, what phases 9 and 10 reuse: the graph, its
+    genome, the placement and the walk seeds)."""
     from corticall_tpu_torch import kmer as km
     from corticall_tpu_torch import native as nat
     from corticall_tpu_torch.commands import core as tcore
@@ -622,7 +653,7 @@ def jump_phase(dev) -> dict:
     torch.cuda.synchronize()
     scatter_s = time.perf_counter() - t0
     same(buckets.cpu(), host_buckets(g.kmers, nb, entry), "jump table buckets")
-    del bucket_of, pos_of, entry
+    del bucket_of, pos_of
     ed = torch.from_numpy(edges).to(dev)
     fd = torch.from_numpy(flags).to(dev)
     rows = tj.jump_rows(kd, ed, fd, buckets, k)
@@ -646,7 +677,7 @@ def jump_phase(dev) -> dict:
     got = tj.walk_jumps(buckets, rows, st, k, JUMP_STEPS)
     walk_ms = event_ms(lambda: tj.walk_jumps(buckets, rows, st, k, JUMP_STEPS), 3)
     walk_alone_ms = walk_kernel_ms(buckets, rows, st, k, JUMP_STEPS)
-    walk_plain_ms = check_walk(buckets, rows, st, k, JUMP_STEPS, got)
+    walk_plain_ms, walk_err = check_walk(buckets, rows, st, k, JUMP_STEPS, got)
     walk_bound_ms = walk_bound(buckets, rows, st, k, JUMP_STEPS, got)
     steps_total = int(got[1].sum())
     # what Partition pays for these seeds: its batches of forward and reverse
@@ -713,7 +744,7 @@ def jump_phase(dev) -> dict:
         "walk_ms": round(walk_ms, 4), "walk_kernel_ms": round(walk_alone_ms, 4),
         "walk_bound": bound_fields(walk_bound_ms),
         "walk_steps_per_s": round(steps_total / walk_ms * 1e3),
-        "walk_plain_ms": round(walk_plain_ms, 2),
+        "walk_plain_ms": round(walk_plain_ms, 2), "walk_err": walk_err,
         "materialized_ms": round(mat_ms, 2), "materialized_first_ms": round(mat_first_ms, 2),
         "materialized_steps_per_s": round(steps_total / mat_ms * 1e3),
         "partition_walks": {"chunk": tcore.CHUNK, "calls": len(part_ms),
@@ -727,9 +758,9 @@ def jump_phase(dev) -> dict:
         "device_decode_s": round(device_decode_s, 3),
         "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
         "walk_peak_memory": peak, "sweep": sweep}
-    del rows, buckets, kd, ed, fd, st, got, g, genome, wt
+    del rows, buckets, kd, ed, fd, st, got, wt
     torch.cuda.empty_cache()
-    return out
+    return out, {"g": g, "genome": genome, "nb": nb, "entry": entry, "seeds": seeds}
 
 
 def partition_phase(dev, out) -> dict:
@@ -799,15 +830,18 @@ def partition_phase(dev, out) -> dict:
     t0 = time.perf_counter()
     nb, bucket_of, pos_of = tj.place(graph.kmers)
     want_buckets = host_buckets(graph.kmers, nb, bucket_of * 2 + pos_of)
-    times = {}
+    times, errs = {}, {"stage0_err": 0.0, "compose_err": 0.0, "walk_err": 0.0}
     for (kd, ed, fd, buckets, k), rows in tables:
         same(buckets.cpu(), want_buckets, "jump table buckets")
         times = check_table(kd, ed, fd, buckets, k, rows)
+        for key in ("stage0_err", "compose_err"):
+            errs[key] = max(errs[key], times[key])
     walk_plain_ms = walk_ms = walk_alone_ms = 0.0
     walk_bound_ms = (0.0, "bytes")
     lanes = 0
     for args, got in walks:
-        plain_ms = check_walk(*args, got)
+        plain_ms, err = check_walk(*args, got)
+        errs["walk_err"] = max(errs["walk_err"], err)
         if args[2].shape[0] >= lanes:
             lanes = args[2].shape[0]
             walk_plain_ms = plain_ms
@@ -818,7 +852,7 @@ def partition_phase(dev, out) -> dict:
               "walk_lanes": lanes, "walk_ms": round(walk_ms, 4),
               "walk_kernel_ms": round(walk_alone_ms, 4),
               "walk_plain_ms": round(walk_plain_ms, 2),
-              "walk_bound": bound_fields(walk_bound_ms), **times,
+              "walk_bound": bound_fields(walk_bound_ms), **times, **errs,
               "seconds": round(time.perf_counter() - t0, 2)}
     log(f"partition replay: {replay}")
     return {"seeds": rois.num_records, "records": graph.num_records,
@@ -865,6 +899,311 @@ def sw_full_phase(dev, rng) -> dict:
                          tsw.banded_sw_scores(qt, st, 64), "banded_sw_pallas")
     return {"launches": launches, "err": err, "shapes": shapes,
             "banded_sw_pallas_err": banded_err}
+
+
+def probed_slots(slots, queries, found, max_probe: int) -> torch.Tensor:
+    """bool [M]: the slots that linear-probe lookups of `queries` (int32
+    [B, W]) read, given their answers `found` (record index or -1): a
+    query probes from its hash to the slot holding its record or the first
+    empty slot, at most max_probe slots."""
+    m = slots.shape[0]
+    h = tk.hash_words(tk.from_bits32(queries)) & (m - 1)
+    read = torch.zeros(m, dtype=torch.bool, device=slots.device)
+    live = torch.arange(h.shape[0], device=slots.device)
+    for p in range(max_probe):
+        if not live.numel():
+            break
+        slot = (h[live] + p) & (m - 1)
+        read[slot] = True
+        held = slots[slot]
+        live = live[(held >= 0) & (held != found[live])]
+    return read
+
+
+def spec_reads(buckets, seeds, k: int, bases) -> tuple[torch.Tensor, int]:
+    """(bool [NB]: the bucket rows walk_forward_spec's active lanes read,
+    and the count of active lane iterations), replayed from the bases the
+    walk emitted: a lane reads its k-mer's h1 bucket, or h2 on the
+    iteration after a miss there; each emitted base moves it on, and a -1
+    that is not such a miss ends it."""
+    nb, _, e = buckets.shape
+    w = e - 1
+    table = tk.from_bits32(buckets)
+    cur = tk.from_bits32(seeds).clone()
+    probe = torch.zeros(cur.shape[0], dtype=torch.bool, device=cur.device)
+    active = torch.ones_like(probe)
+    read = torch.zeros(nb, dtype=torch.bool, device=cur.device)
+    iterations = 0
+    for row in bases:
+        lanes = active.nonzero().squeeze(1)
+        if not lanes.numel():
+            break
+        canon, _ = tk.canonicalize_words(cur[lanes], k)
+        h = tk.hash_words(canon)
+        lane_probe = probe[lanes]
+        idx = torch.where(lane_probe, tk.mix32(h ^ tj.GOLDEN), h) & (nb - 1)
+        read[idx] = True
+        iterations += lanes.numel()
+        ent = table[idx]
+        held = ((ent[..., w] >= 1 << 31) & (ent[..., :w] == canon[:, None, :]).all(-1)).any(-1)
+        base = row[lanes].to(torch.int64)
+        moved = base >= 0
+        cur[lanes[moved]] = tk.shift_append(cur[lanes[moved]], base[moved], k)
+        stall = ~held & ~lane_probe
+        probe[lanes] = stall
+        active[lanes] = moved | stall
+    return read, iterations
+
+
+def walk_table_phase(dev, ctx) -> dict:
+    """Phase 9: DeviceGraph and the walk table on phase 6's graph.  The walk
+    table of colour 0 is phase 6's placement with the edge byte as payload;
+    the path (launches counted) looks up every record and as many mutated
+    k-mers through find_records and walks bench.py's 262,144 seeds through
+    walk_forward_spec; then both kernels against their plain twins, timed
+    beside their bounds."""
+    from corticall_tpu_torch.device import DeviceGraph
+
+    g, k, nb, entry = ctx["g"], JUMP_K, ctx["nb"], ctx["entry"]
+    n = g.num_records
+    edges = np.ascontiguousarray(g.edges[:, 0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buckets, _ = tj.scatter_buckets(g.kmers, nb, entry, dev, payload=edges)
+    torch.cuda.synchronize()
+    scatter_s = time.perf_counter() - t0
+    same(buckets.cpu(), host_buckets(g.kmers, nb, entry, edges), "walk table buckets")
+    t0 = time.perf_counter()
+    dg = DeviceGraph.from_arrays(k, g.kmers, g.coverages, g.edges, device=dev)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    miss = g.kmers.copy()
+    miss[:, -1] ^= np.uint32(1)
+    queries = tk.words_tensor(np.concatenate([g.kmers, miss]), dev)
+    seeds = tk.words_tensor(ctx["seeds"], dev)
+    del miss
+
+    # the path: the table's lookups and the walks, launches counted
+    ht.LAUNCHES["ht_lookup"] = ck.LAUNCHES["spec_walk"] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = dg.find_records(queries)
+    walked = ck.walk_forward_spec(buckets, seeds, k, SPEC_STEPS)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = {"ht_lookup": ht.LAUNCHES["ht_lookup"], "spec_walk": ck.LAUNCHES["spec_walk"]}
+    if not all(launches.values()):
+        raise AssertionError(f"a walk-table kernel never launched: {launches}")
+    if not torch.equal(rec[:n], torch.arange(n, dtype=torch.int32, device=dev)):
+        raise AssertionError("find_records missed a record of the graph")
+
+    # ht_lookup against its twin; its bound: the queries and results, the
+    # distinct slots the probes read and the distinct key rows they compared
+    out = torch.empty_like(rec)
+    lookup_ms = event_ms(lambda: ht.lookup_kernel(dg.slots, dg.kmers, queries, dg.max_probe,
+                                                  out), 3)
+    lookup_err = same(out, rec, "ht_lookup, launched twice")
+    lookup_plain_ms, want = host_ms(lambda: ht.lookup_plain(dg.slots, dg.kmers, queries,
+                                                            dg.max_probe))
+    lookup_err = max(lookup_err, same(rec, want, "ht_lookup"))
+    del want
+    slots_read = probed_slots(dg.slots, queries, rec, dg.max_probe)
+    rows_read = int((slots_read & (dg.slots >= 0)).sum())
+    slots_read = int(slots_read.sum())
+    lookup_bound = bound_ms(nbytes(queries, rec) + slots_read * 4
+                            + rows_read * dg.kmers.shape[1] * 4)
+
+    # ctk_spec_walk against its twin; its bound: seeds and outputs and the
+    # distinct bucket rows the active lanes read
+    bufs = tuple(torch.empty_like(x) for x in walked)
+    spec_ms = event_ms(lambda: ck.spec_walk_kernel(buckets, seeds, k, SPEC_STEPS, *bufs), 3)
+    spec_plain_ms, want = host_ms(lambda: ck.spec_walk_plain(buckets, seeds, k, SPEC_STEPS))
+    spec_err = 0.0
+    for name, a, b, c in zip(("bases", "cycled", "steps"), walked, bufs, want):
+        spec_err = max(spec_err, same(a, c, f"spec_walk {name}"),
+                       same(b, c, f"spec_walk {name}, launched again"))
+    del want
+    rows_visited, active_iterations = spec_reads(buckets, seeds, k, walked[0])
+    rows_visited = int(rows_visited.sum())
+    row_bytes = buckets.shape[1] * buckets.shape[2] * 4
+    spec_bound = bound_ms(nbytes(seeds, *walked) + rows_visited * row_bytes)
+    steps_total = int(walked[2].sum())
+    log(f"walk table: lookup {lookup_ms:.3f} ms, spec walk {spec_ms:.3f} ms")
+    result = {
+        "records": n, "queries": queries.shape[0], "found": int((rec >= 0).sum()),
+        "max_probe": dg.max_probe, "slots": dg.slots.numel(),
+        "walk_table_scatter_s": round(scatter_s, 4), "device_graph_s": round(graph_s, 2),
+        "path_s": round(path_s, 4), "launches": launches,
+        "lookup_ms": round(lookup_ms, 4), "lookup_plain_ms": round(lookup_plain_ms, 2),
+        "lookup_bound": bound_fields(lookup_bound), "lookup_slots_read": slots_read,
+        "lookup_key_rows_read": rows_read, "lookup_err": lookup_err,
+        "lookups_per_s": round(queries.shape[0] / lookup_ms * 1e3),
+        "seeds": seeds.shape[0], "max_steps": SPEC_STEPS, "iterations": ck.spec_iters(SPEC_STEPS),
+        "steps": steps_total, "active_iterations": active_iterations,
+        "cycled": int(walked[1].sum()), "bucket_rows_read": rows_visited,
+        "spec_ms": round(spec_ms, 4), "spec_plain_ms": round(spec_plain_ms, 2),
+        "spec_bound": bound_fields(spec_bound), "spec_err": spec_err,
+        "spec_steps_per_s": round(steps_total / spec_ms * 1e3)}
+    del dg, buckets, queries, seeds, rec, walked, bufs, out
+    torch.cuda.empty_cache()
+    return result
+
+
+# the device count's parts, timed by wrapping the module functions it calls
+COUNT_PARTS = {"pack_piece": "pack", "words_tensor": "transfer", "extract_windows": "windows",
+               "live_windows": "compact", "sort_order": "sort", "segment_reduce": "reduce"}
+
+
+def timed_parts(fn):
+    """fn() with the device count's parts (host packing, the transfer, the
+    windows, their compaction, the sorts and the reductions of the chunks,
+    and the accumulator merges: concatenation, sort and reduction) timed on
+    the host clock, each ended by a synchronize.  Returns (fn's result,
+    {part: seconds}); raises if a part never ran, as when DeviceCounter no
+    longer calls a wrapped name."""
+    parts = {name: 0.0 for name in (*COUNT_PARTS.values(), "merge")}
+    calls = dict.fromkeys(parts, 0)
+    originals = {name: getattr(bdv, name) for name in COUNT_PARTS}
+    merge = bdv.DeviceCounter._merge
+    depth = [0]
+
+    def clocked(part, f, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = f(*a)
+        torch.cuda.synchronize()
+        parts[part] += time.perf_counter() - t0
+        calls[part] += 1
+        return out
+
+    def wrap(name):
+        def run(*a):
+            f = originals[name]
+            return f(*a) if depth[0] else clocked(COUNT_PARTS[name], f, *a)
+        return run
+
+    def merge_timed(self, *a):
+        depth[0] += 1
+        try:
+            return clocked("merge", merge, self, *a)
+        finally:
+            depth[0] -= 1
+
+    for name in COUNT_PARTS:
+        setattr(bdv, name, wrap(name))
+    bdv.DeviceCounter._merge = merge_timed
+    try:
+        out = fn()
+    finally:
+        for name, f in originals.items():
+            setattr(bdv, name, f)
+        bdv.DeviceCounter._merge = merge
+    idle = [part for part, c in calls.items() if not c]
+    if idle:
+        raise AssertionError(f"timed_parts: the device count never ran {idle}")
+    return out, {key: round(v, 4) for key, v in parts.items()}
+
+
+def first_chunk(reads, k: int) -> str:
+    """The first chunk DeviceCounter joins from a read set."""
+    out, pending = [], 0
+    for r in reads:
+        if len(r) < k:
+            continue
+        if pending + len(r) + k > bdv.CHUNK_BASES:
+            break
+        out.append(r)
+        pending += len(r) + k
+    return ("N" * k).join(out)
+
+
+def same_graph(got, want, what: str) -> None:
+    for name in ("kmers", "coverages", "edges"):
+        if not np.array_equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"{what}: the device build's {name} differ from the native build's")
+
+
+def build_phase(dev, reads, genome) -> dict:
+    """Phase 10: the device graph build.  The path (launches counted):
+    build_graph_from_reads with use_device=True for each trio sample of
+    phase 4, and count_kmers_device on phase 6's genome, each against the
+    native route; then ctk_count_windows and ctk_segment_reduce against
+    their twins on the kid's first chunk."""
+    from corticall_tpu_torch import build as tbd
+    from corticall_tpu_torch import native as nat
+
+    k = PF_K
+    bdv.count_kmers_device([genome[:5000]], k, device=dev)     # first use of torch.sort
+    for key in bdv.LAUNCHES:
+        bdv.LAUNCHES[key] = 0
+    samples = {}
+    for s, rs in reads.items():
+        t0 = time.perf_counter()
+        native = tbd.build_graph_from_reads(rs, k, s, use_device=False)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, parts = timed_parts(lambda: tbd.build_graph_from_reads(rs, k, s, use_device=True,
+                                                                    device=dev))
+        device_s = time.perf_counter() - t0
+        same_graph(got, native, f"sample {s}")
+        samples[s] = {"reads": len(rs), "bases": sum(map(len, rs)), "records": got.num_records,
+                      "native_s": round(native_s, 3), "device_s": round(device_s, 3),
+                      "device_parts_s": parts}
+        log(f"build {s}: native {native_s:.2f} s, device {device_s:.2f} s {parts}")
+    t0 = time.perf_counter()
+    want = nat.count_kmers_native([genome], k)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, parts = timed_parts(lambda: bdv.count_kmers_device([genome], k, device=dev))
+    device_s = time.perf_counter() - t0
+    for name, a, b in zip(("kmers", "coverage", "in", "out"), got, want):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"the genome's device count: {name} differ from the native count")
+    launches = dict(bdv.LAUNCHES)
+    if not all(launches.values()):
+        raise AssertionError(f"a count kernel never launched: {launches}")
+    genome_row = {"bases": len(genome), "records": len(got[0]), "native_s": round(native_s, 3),
+                  "device_s": round(device_s, 3), "device_parts_s": parts}
+    log(f"count of the genome: native {native_s:.2f} s, device {device_s:.2f} s {parts}")
+    del got, want
+
+    # the kernels against their twins on the kid's first chunk
+    stream, valid, own, n = bdv.pack_piece(first_chunk(reads["kid"], k), None, bdv.CHUNK_BASES)
+    st, vt, ot = (tk.words_tensor(a, dev) for a in (stream, valid, own))
+    keys = torch.empty((n, tk.words(k)), dtype=torch.int32, device=dev)
+    masks = torch.empty(n, dtype=torch.uint8, device=dev)
+    windows_ms = event_ms(lambda: bdv.windows_kernel(st, vt, ot, k, n, keys, masks), 3)
+    windows_plain_ms, want = host_ms(lambda: bdv.windows_plain(st, vt, ot, k, n))
+    windows_err = max(same(keys, want[0], "count_windows keys"),
+                      same(masks, want[1], "count_windows masks"))
+    del want
+    windows_bound = bound_ms(nbytes(st, vt, ot, keys, masks))
+    lk, lm = bdv.live_windows(keys, masks)
+    del keys, masks
+    sort_ms = event_ms(lambda: bdv.sort_order(lk), 3)
+    order = bdv.sort_order(lk)
+    sk, sm = lk[order], lm[order]
+    cov = torch.ones(sk.shape[0], dtype=torch.int32, device=dev)
+    del lk, lm, order
+    out = (torch.empty_like(sk), torch.empty_like(cov), torch.empty_like(sm))
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    reduce_ms = event_ms(lambda: bdv.reduce_kernel(sk, cov, sm, *out, count), 3)
+    reduce_plain_ms, want = host_ms(lambda: bdv.reduce_plain(sk, cov, sm))
+    nu = int(count.item())
+    reduce_err = max(same(a[:nu], b, f"segment_reduce {name}")
+                     for name, a, b in zip(("keys", "coverage", "masks"), out, want))
+    reduce_bound = bound_ms(nbytes(sk, cov, sm, count) + sum(nbytes(x[:nu]) for x in out))
+    chunk = {"bases": n, "windows": int(sk.shape[0]), "unique": nu,
+             "windows_ms": round(windows_ms, 4), "windows_plain_ms": round(windows_plain_ms, 2),
+             "windows_bound": bound_fields(windows_bound), "windows_err": windows_err,
+             "sort_ms": round(sort_ms, 4), "reduce_err": reduce_err,
+             "reduce_ms": round(reduce_ms, 4), "reduce_plain_ms": round(reduce_plain_ms, 2),
+             "reduce_bound": bound_fields(reduce_bound)}
+    log(f"count kernels on a chunk: {chunk}")
+    del st, vt, ot, sk, sm, cov, out, want
+    torch.cuda.empty_cache()
+    return {"k": k, "samples": samples, "genome": genome_row, "launches": launches,
+            "identical": True, "chunk": chunk}
 
 
 def main() -> int:
@@ -970,7 +1309,7 @@ def main() -> int:
                    for key, v in rp["tesserae"].items()})
 
     # ---- 6. the jump table and walk at bench.py's graph -------------------
-    jp = jump_phase(dev)
+    jp, bench = jump_phase(dev)
     emit("jump_vs_plain", identical=True, **jp)
 
     # ---- 7. Partition's device routes on the main path's inputs -----------
@@ -983,11 +1322,21 @@ def main() -> int:
          launches=sp["launches"], shapes=sp["shapes"],
          banded_sw_pallas_identical=True)
 
+    # ---- 9. DeviceGraph and the walk table at bench.py's graph ------------
+    wp = walk_table_phase(dev, bench)
+    emit("walk_table_vs_plain", identical=True, **wp)
+
+    # ---- 10. the device graph build on the trio's reads and the genome ----
+    bp = build_phase(dev, mp["reads"], bench["genome"])
+    emit("build_device", **bp)
+    del bench
+
     prod, full, rp_sw, rp_ts = sw_times[0], sp["shapes"][0], rp["sw"], rp["tesserae"]
-    replayed = pp["replay"]
+    replayed, chunk = pp["replay"], bp["chunk"]
     # no single PyTorch call computes any of these functions (banded or
-    # full Smith-Waterman, the Tesserae HMM, a cuckoo jump table): library_ms
-    # is null for each
+    # full Smith-Waterman, the Tesserae HMM, a cuckoo jump table, a
+    # linear-probe lookup, the speculative cuckoo walk, the window
+    # extraction, a keyed sum-and-OR reduction): library_ms is null for each
     print(json.dumps({"kernels": [
         {"name": "sw_banded", "route": "cuda",
          "source": "corticall_tpu_torch/csrc/sw_banded.cu",
@@ -1010,19 +1359,19 @@ def main() -> int:
         {"name": "jump_walk", "route": "cuda",
          "source": "corticall_tpu_torch/csrc/jump.cu",
          "replaces": "corticall_tpu/ops/cuckoo.py:1096",
-         "launches": pp["launches"]["jump_walk"], "max_abs_err": 0.0,
+         "launches": pp["launches"]["jump_walk"], "max_abs_err": replayed["walk_err"],
          "ms": replayed["walk_kernel_ms"], "plain_ms": replayed["walk_plain_ms"],
          **replayed["walk_bound"], "library_ms": None},
         {"name": "jump_stage0", "route": "cuda",
          "source": "corticall_tpu_torch/csrc/jump.cu",
          "replaces": "corticall_tpu/ops/cuckoo.py:757",
-         "launches": pp["launches"]["jump_stage0"], "max_abs_err": 0.0,
+         "launches": pp["launches"]["jump_stage0"], "max_abs_err": replayed["stage0_err"],
          "ms": replayed["stage0_ms"], "plain_ms": replayed["stage0_plain_ms"],
          **replayed["stage0_bound"], "library_ms": None},
         {"name": "jump_compose", "route": "cuda",
          "source": "corticall_tpu_torch/csrc/jump.cu",
          "replaces": "corticall_tpu/ops/cuckoo.py:805",
-         "launches": pp["launches"]["jump_compose"], "max_abs_err": 0.0,
+         "launches": pp["launches"]["jump_compose"], "max_abs_err": replayed["compose_err"],
          "ms": replayed["compose_ms"], "plain_ms": replayed["compose_plain_ms"],
          **replayed["compose_bound"], "library_ms": None,
          "pass_ms": [p["ms"] for p in replayed["compose_passes"]]},
@@ -1032,6 +1381,30 @@ def main() -> int:
          "launches": sp["launches"], "max_abs_err": sp["err"],
          "ms": full["kernel_ms"], "plain_ms": full["plain_ms"],
          "bound_ms": full["bound_ms"], "bound_by": full["bound_by"], "library_ms": None},
+        {"name": "ht_lookup", "route": "cuda",
+         "source": "corticall_tpu_torch/csrc/walk_table.cu",
+         "replaces": "corticall_tpu/ops/hashtable.py:131",
+         "launches": wp["launches"]["ht_lookup"], "max_abs_err": wp["lookup_err"],
+         "ms": wp["lookup_ms"], "plain_ms": wp["lookup_plain_ms"], **wp["lookup_bound"],
+         "library_ms": None},
+        {"name": "spec_walk", "route": "cuda",
+         "source": "corticall_tpu_torch/csrc/walk_table.cu",
+         "replaces": "corticall_tpu/ops/cuckoo.py:306",
+         "launches": wp["launches"]["spec_walk"], "max_abs_err": wp["spec_err"],
+         "ms": wp["spec_ms"], "plain_ms": wp["spec_plain_ms"], **wp["spec_bound"],
+         "library_ms": None},
+        {"name": "count_windows", "route": "cuda",
+         "source": "corticall_tpu_torch/csrc/count.cu",
+         "replaces": "corticall_tpu/ops/build_device.py:73",
+         "launches": bp["launches"]["count_windows"], "max_abs_err": chunk["windows_err"],
+         "ms": chunk["windows_ms"], "plain_ms": chunk["windows_plain_ms"],
+         **chunk["windows_bound"], "library_ms": None},
+        {"name": "segment_reduce", "route": "cuda",
+         "source": "corticall_tpu_torch/csrc/count.cu",
+         "replaces": "corticall_tpu/ops/build_device.py:139",
+         "launches": bp["launches"]["segment_reduce"], "max_abs_err": chunk["reduce_err"],
+         "ms": chunk["reduce_ms"], "plain_ms": chunk["reduce_plain_ms"],
+         **chunk["reduce_bound"], "library_ms": None},
     ]}), flush=True)
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(nvidia_smi(), flush=True)

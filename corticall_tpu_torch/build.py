@@ -166,15 +166,17 @@ def _verify_count_invariants(kmers: np.ndarray, cov: np.ndarray,
 def build_graph_from_reads(sequences, k: int, sample_name: str,
                            use_native: bool = True,
                            verify: bool = True,
-                           use_device: bool | None = None) -> gr.CortexGraph:
+                           use_device: bool | None = None,
+                           device=None) -> gr.CortexGraph:
     """`mccortex build -k <k> -S` equivalent: reads -> sorted 1-color graph.
 
-    use_device selects the device counting path, which the port does not
-    have yet (ROADMAP §1 item 8, the device graph build): it raises
-    NotImplementedError; None reads the CORTICALL_DEVICE_BUILD env var ("1"
-    to enable).  Otherwise the C++
-    native counting core (native.py) when available, falling back to the
-    vectorized numpy path (loudly — never silently).  `verify` keeps the
+    use_device selects the device counting path (ops/build_device.py: the
+    count kernels, torch.sort and a segment reduction, bit-identical output)
+    on `device` (default: the CUDA card, and RuntimeError without one; "cpu"
+    runs the plain twins); None reads the CORTICALL_DEVICE_BUILD env var
+    ("1" to enable).  Otherwise the C++ native counting core (native.py)
+    when available, falling back to the vectorized numpy path (loudly —
+    never silently); neither reads `device`.  `verify` keeps the
     conservation + monotonicity fence on (see _verify_count_invariants).
     """
     import os
@@ -186,8 +188,9 @@ def build_graph_from_reads(sequences, k: int, sample_name: str,
     if use_device is None:
         use_device = os.environ.get("CORTICALL_DEVICE_BUILD", "") == "1"
     if use_device:
-        raise NotImplementedError(
-            "the device graph build is not ported yet (ROADMAP §1 item 8)")
+        from .ops import build_device as bdv
+        result = bdv.count_kmers_device(sequences, k, device=device)
+        source = "device"
     if result is None and use_native and k <= 64:
         result = native.count_kmers_native(sequences, k)
         if result is None:

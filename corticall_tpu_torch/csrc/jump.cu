@@ -58,91 +58,12 @@
 //   Every jump slot is written, lane-major, a DRAM sector at a time (see
 //   jump_walk_kernel).  Its seed lookup is stage 0's.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "kmer.cuh"
 
 namespace {
 
 constexpr uint32_t kEnd = 0xFFFFFFFFu;
-constexpr uint32_t kTag = 0x80000000u;
-constexpr uint32_t kGolden = 0x9E3779B9u;
 constexpr uint32_t kEnded = 0x7FFFFF80u;  // a narrow row's link: the run ended
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-template <int W>
-__device__ __forceinline__ uint32_t hash_words(const uint32_t (&v)[W]) {
-  uint32_t h = 0x811C9DC5u;
-#pragma unroll
-  for (int i = 0; i < W; ++i) h = mix32(h ^ v[i]) * 0x01000193u;
-  return mix32(h);
-}
-
-__device__ __forceinline__ uint32_t reverse_pairs(uint32_t x) {
-  x = ((x & 0x33333333u) << 2) | ((x >> 2) & 0x33333333u);
-  x = ((x & 0x0F0F0F0Fu) << 4) | ((x >> 4) & 0x0F0F0F0Fu);
-  x = ((x & 0x00FF00FFu) << 8) | ((x >> 8) & 0x00FF00FFu);
-  return (x << 16) | (x >> 16);
-}
-
-template <int W>
-__device__ __forceinline__ uint32_t top_mask(int k) {
-  const int used = 2 * k - 32 * (W - 1);
-  return used >= 32 ? 0xFFFFFFFFu : ((1u << used) - 1u);
-}
-
-template <int W>
-__device__ __forceinline__ void revcomp(const uint32_t (&in)[W],
-                                        uint32_t (&out)[W], int k) {
-  uint32_t rev[W];
-#pragma unroll
-  for (int j = 0; j < W; ++j) rev[j] = reverse_pairs(~in[W - 1 - j]);
-  const int s = 32 * W - 2 * k;  // right realignment, in [0, 32)
-#pragma unroll
-  for (int j = 0; j < W; ++j) {
-    uint32_t v = rev[j];
-    if (s) v = (v >> s) | (j > 0 ? rev[j > 0 ? j - 1 : 0] << (32 - s) : 0u);
-    out[j] = v;
-  }
-  out[0] &= top_mask<W>(k);
-}
-
-// canonical orientation of v; returns true when it is the reverse complement
-template <int W>
-__device__ __forceinline__ bool canonicalize(const uint32_t (&v)[W],
-                                             uint32_t (&canon)[W], int k) {
-  uint32_t rc[W];
-  revcomp<W>(v, rc, k);
-  bool less = false, decided = false;
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    if (!decided && rc[i] != v[i]) {
-      less = rc[i] < v[i];
-      decided = true;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < W; ++i) canon[i] = less ? rc[i] : v[i];
-  return less;
-}
-
-template <int W>
-__device__ __forceinline__ void shift_append(const uint32_t (&in)[W],
-                                             uint32_t base, int k,
-                                             uint32_t (&out)[W]) {
-#pragma unroll
-  for (int j = 0; j < W; ++j)
-    out[j] = (in[j] << 2) | (j + 1 < W ? in[j + 1 < W ? j + 1 : j] >> 30 : 0u);
-  out[W - 1] |= base;
-  out[0] &= top_mask<W>(k);
-}
 
 // one bucket's 2 * (W + 1) words with the widest aligned vector loads: a
 // bucket is 8 (W + 1) bytes, so 16-byte loads at W = 1, 3 and 8-byte loads at
@@ -278,8 +199,7 @@ jump_stage0_kernel(const uint32_t* __restrict__ kmers,
     const int nm = __popc(mask);
     single[d] = nm == 1;
     junction[d] = nm >= 2;
-    // lowest set base; 3 for an empty mask, as kmer_jax.lowest_set_base
-    base[d] = (mask & 1u) ? 0u : (mask & 2u) ? 1u : (mask & 4u) ? 2u : 3u;
+    base[d] = lowest_set_base(mask);
     uint32_t nxt[W];
     shift_append<W>(cur[d], base[d], k, nxt);
     flip[d] = canonicalize<W>(nxt, canon[d], k);
@@ -453,8 +373,6 @@ jump_walk_kernel(const uint4* __restrict__ rows,
     lanes[6 * (size_t)batch + lane] = s.endj;
   }
 }
-
-bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
 
 }  // namespace
 

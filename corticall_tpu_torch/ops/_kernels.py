@@ -1,4 +1,5 @@
-"""Build and bind the port's CUDA kernels (`corticall_tpu_torch/csrc/*.cu`).
+"""Build and bind the port's CUDA kernels (`corticall_tpu_torch/csrc/*.cu`,
+which share the k-mer primitives of `csrc/kmer.cuh`).
 
 At first use nvcc compiles every source to an object, one nvcc process a
 source, all started together, and links the objects into one shared library
@@ -32,7 +33,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # entry point -> argtypes (every pointer and the stream are c_void_p)
 _SIGNATURES = {
     "ctk_sw_banded": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
@@ -42,6 +43,10 @@ _SIGNATURES = {
     "ctk_jump_compose": (_P, _P, _I, _I, _I, _P),
     "ctk_jump_walk": (_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P),
     "ctk_copy_rows_to_host": (_P, _I, _P, _I, _I, _I, _P),
+    "ctk_count_windows": (_P, _L, _P, _P, _L, _I, _I, _P, _P, _P),
+    "ctk_segment_reduce": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P),
+    "ctk_ht_lookup": (_P, _I, _P, _I, _P, _I, _I, _P, _P),
+    "ctk_spec_walk": (_P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P),
 }
 
 _lib = None
@@ -64,7 +69,7 @@ def sources() -> list:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libcorticall_kernels_{h.hexdigest()[:16]}.so")

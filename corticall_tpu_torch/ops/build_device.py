@@ -1,0 +1,345 @@
+"""The device graph build: packed read streams -> the sorted unique canonical
+k-mer table with coverage and edge masks.
+
+Counterpart of corticall_tpu/ops/build_device.py, the device route of
+`build.build_graph_from_reads` (use_device=True, or CORTICALL_DEVICE_BUILD=1).
+The host joins reads with k-long 'N' separators into chunks of at most
+`chunk_bases` bases (a sequence longer than a chunk is cut into overlapping
+pieces with an explicit window-ownership bitmap, so each window is counted by
+exactly one piece and edge masks see the true neighbours through the overlap)
+and packs each at 2 bits a base plus two bitmaps (base valid, window owned).
+On the device:
+
+- `extract_windows`: every window of the stream as its canonical k-mer and
+  its in/out edge masks (`ctk_count_windows` on the card, `windows_plain` on
+  the CPU), invalid windows as the all-ones key;
+- the invalid windows are dropped (`masked_select`-style indexing), the rows
+  sorted by `torch.sort` in the unsigned order of their words (`sort_order`,
+  the order of the host's `words_to_bytes_be` keys);
+- `segment_reduce`: each run of equal keys becomes one row, coverage summed
+  as uint32 (wrapping, as XLA's segment_sum does) and masks ORed
+  (`ctk_segment_reduce` on the card, `reduce_plain` on the CPU);
+- chunks merge into an on-device accumulator by concatenate, sort, reduce.
+
+Only the final table crosses back to the host; it equals build.count_kmers
+and the native core's bit for bit.  Words are uint32 bit patterns in int32
+tensors; masks a byte a row, in << 4 | out.  Not carried over from the JAX
+package: padding a chunk's stream to `chunk_bases` and the accumulator to a
+power of two (shapes fixed for its compiler); a chunk processes exactly its
+bases and a merge exactly its rows.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kmer as km
+from ..device import resolve
+from . import _kernels
+from . import kmer as tk
+from .kmer import words_tensor
+
+SENT = -1                    # an invalid window's key words (all ones as int32)
+CHUNK_BASES = 1 << 25        # stream bases a chunk holds, separators included
+
+# kernel launches (plain integers; chip_smoke.py resets and reads them)
+LAUNCHES = {"count_windows": 0, "segment_reduce": 0}
+
+
+def pack_stream(codes: np.ndarray) -> np.ndarray:
+    """uint8 base codes (values 0..3) -> uint32 words, base p at bits
+    (30 - 2*(p % 16)) of word p//16."""
+    n = len(codes)
+    npad = -(-n // 16) * 16
+    c = np.zeros(npad, dtype=np.uint32)
+    c[:n] = codes
+    c = c.reshape(-1, 16)
+    shifts = (30 - 2 * np.arange(16, dtype=np.uint32)).astype(np.uint32)
+    return (c << shifts[None, :]).astype(np.uint32).sum(axis=1, dtype=np.uint32)
+
+
+def pack_bits(bits: np.ndarray) -> np.ndarray:
+    """bool[n] -> uint32 words, bit i at bit (i % 32) of word i//32."""
+    b = np.packbits(bits, bitorder="little")
+    pad = -(-len(bits) // 32) * 4
+    return np.pad(b, (0, pad - len(b))).view(np.uint32)
+
+
+def pack_piece(seq: str, own: np.ndarray | None, chunk_bases: int):
+    """A piece's (stream, base-valid bitmap, ownership bitmap) uint32 words
+    and its length in bases; `own` None means every window."""
+    codes = km.string_to_codes_permissive(seq)
+    n = len(codes)
+    if n > chunk_bases:
+        raise ValueError("piece exceeds chunk_bases")
+    own = np.ones(n, dtype=bool) if own is None else own
+    return (pack_stream(np.minimum(codes, 3).astype(np.uint8)), pack_bits(codes <= 3),
+            pack_bits(own), n)
+
+
+# ---------------------------------------------------------------------------
+# windows
+# ---------------------------------------------------------------------------
+
+def _bit(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return ((words[idx >> 5] >> (idx & 31)) & 1) != 0
+
+
+def windows_plain(stream, valid, own, k: int, n: int):
+    """Plain twin of `_extract_windows` (corticall_tpu/ops/build_device.py:73)
+    on the first n stream bases: (keys int32 [n, W], masks uint8 [n]).
+    Validity by a cumsum of the invalid bases, as there."""
+    w = tk.words(k)
+    dev = stream.device
+    s, vw, ow = (tk.from_bits32(x) for x in (stream, valid, own))
+    i = torch.arange(n, dtype=torch.int64, device=dev)
+    bad = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                     torch.cumsum((~_bit(vw, i)).to(torch.int64), 0)])
+    ik = torch.clamp(i + k, max=n)
+    ok = ((bad[ik] - bad[i]) == 0) & (i + k <= n) & _bit(ow, i)
+
+    r = (2 * i) & 31
+    last = s.shape[0] - 1
+    regs = []
+    for j in range(w):
+        q = (2 * i + 32 * j) >> 5
+        hi, lo = s[q.clamp(max=last)], s[(q + 1).clamp(max=last)]
+        regs.append(torch.where(r > 0, ((hi << r) & tk.M32) | (lo >> ((32 - r) & 31)), hi))
+    sh = 32 * w - 2 * k
+    if sh:
+        regs = [(regs[j] >> sh) | (((regs[j - 1] << (32 - sh)) & tk.M32) if j else 0)
+                for j in range(w)]
+    regs[0] = regs[0] & tk.top_word_mask(k)
+    canon, flipped = tk.canonicalize_words(torch.stack(regs, dim=1), k)
+
+    prev_i, next_i = (i - 1).clamp(min=0), (i + k).clamp(max=max(n - 1, 0))
+    has_prev = ok & _bit(vw, prev_i) & (i > 0)
+    has_next = ok & _bit(vw, next_i) & (i + k < n)
+    prev_b = (s[prev_i >> 4] >> (30 - 2 * (prev_i & 15))) & 3
+    next_b = (s[next_i >> 4] >> (30 - 2 * (next_i & 15))) & 3
+    fwd = ~flipped
+    one = torch.ones_like(prev_b)
+    in_m = (torch.where(fwd & has_prev, one << prev_b, 0)
+            | torch.where(flipped & has_next, one << (3 - next_b), 0))
+    out_m = (torch.where(fwd & has_next, one << next_b, 0)
+             | torch.where(flipped & has_prev, one << (3 - prev_b), 0))
+    keys = torch.where(ok[:, None], tk.to_bits32(canon), SENT)
+    return keys, torch.where(ok, (in_m << 4) | out_m, 0).to(torch.uint8)
+
+
+def extract_windows(stream: torch.Tensor, valid: torch.Tensor, own: torch.Tensor,
+                    k: int, n: int):
+    """(keys int32 [n, W], masks uint8 [n]) of the first n windows of a
+    packed stream (int32 words) with its base-valid and ownership bitmaps:
+    the plain twin for CPU tensors, one `ctk_count_windows` launch for CUDA
+    tensors."""
+    if {stream.dtype, valid.dtype, own.dtype} != {torch.int32}:
+        raise TypeError("the stream and bitmaps must be int32 words")
+    if stream.numel() * 16 < n or valid.numel() * 32 < n or own.numel() * 32 < n or n < 0:
+        raise ValueError(f"the stream or a bitmap is shorter than {n} bases")
+    if not 1 <= k <= 63:
+        raise ValueError(f"k={k} outside 1..63")
+    if not stream.device == valid.device == own.device:
+        raise ValueError("the stream and bitmaps must be on one device")
+    if stream.device.type == "cpu":
+        return windows_plain(stream, valid, own, k, n)
+    if stream.device.type != "cuda":
+        raise ValueError(f"unsupported device {stream.device}")
+    keys = torch.empty((n, tk.words(k)), dtype=torch.int32, device=stream.device)
+    masks = torch.empty(n, dtype=torch.uint8, device=stream.device)
+    if n:
+        windows_kernel(stream.contiguous(), valid.contiguous(), own.contiguous(), k, n,
+                       keys, masks)
+    return keys, masks
+
+
+def windows_kernel(stream, valid, own, k: int, n: int, keys, masks) -> None:
+    """One `ctk_count_windows` launch on checked, contiguous card tensors
+    into keys int32 [n, W] and masks uint8 [n]."""
+    err = _kernels.library().ctk_count_windows(
+        stream.data_ptr(), stream.numel(), valid.data_ptr(), own.data_ptr(), n,
+        keys.shape[1], k, keys.data_ptr(), masks.data_ptr(), _kernels.stream(stream.device))
+    _kernels.check(err, "count_windows")
+    LAUNCHES["count_windows"] += 1
+
+
+def live_windows(keys: torch.Tensor, masks: torch.Tensor):
+    """The valid windows' (keys, masks): rows that are not all ones."""
+    live = (keys != SENT).any(dim=1)
+    return keys[live], masks[live]
+
+
+# ---------------------------------------------------------------------------
+# sort + segment reduction
+# ---------------------------------------------------------------------------
+
+def sort_order(keys: torch.Tensor) -> torch.Tensor:
+    """The permutation that sorts int32 [m, W] rows in the unsigned order of
+    their words: stable torch.sort passes over int64 keys of two words each,
+    least significant first; (a, b) -> (a - 2^31) * 2^32 + b keeps the
+    unsigned order of a and b in signed int64."""
+    u = tk.from_bits32(keys)
+    w = u.shape[1]
+    parts = [(u[:, j] - (1 << 31)) * (1 << 32) + u[:, j + 1] if j + 1 < w else u[:, j]
+             for j in range(0, w, 2)]
+    order = None
+    for part in reversed(parts):
+        idx = torch.sort(part if order is None else part[order], stable=True).indices
+        order = idx if order is None else order[idx]
+    if order is None:
+        order = torch.arange(keys.shape[0], device=keys.device)
+    return order
+
+
+def reduce_plain(keys: torch.Tensor, cov: torch.Tensor, masks: torch.Tensor):
+    """Plain twin of `_sort_reduce`'s segment sums and per-bit maxima
+    (corticall_tpu/ops/build_device.py:149-163) over sorted rows: (unique
+    keys int32 [n, W], coverage int32 [n] as uint32 sums, masks uint8 [n])."""
+    m = keys.shape[0]
+    if m == 0:
+        return keys, cov, masks
+    u = tk.from_bits32(keys)
+    head = torch.ones(m, dtype=torch.bool, device=keys.device)
+    head[1:] = (u[1:] != u[:-1]).any(dim=1)
+    seg = torch.cumsum(head.to(torch.int64), 0) - 1
+    n = int(seg[-1]) + 1
+    ucov = torch.zeros(n, dtype=torch.int64, device=keys.device)
+    ucov.index_add_(0, seg, tk.from_bits32(cov))
+    mk = masks.to(torch.int64)
+    umask = torch.zeros(n, dtype=torch.int64, device=keys.device)
+    for b in range(8):
+        bit = torch.zeros(n, dtype=torch.int64, device=keys.device)
+        umask |= bit.scatter_reduce_(0, seg, (mk >> b) & 1, "amax") << b
+    return keys[head], tk.to_bits32(ucov & tk.M32), umask.to(torch.uint8)
+
+
+def segment_reduce(keys: torch.Tensor, cov: torch.Tensor, masks: torch.Tensor):
+    """Runs of equal rows of sorted keys (int32 [m, W]) -> (unique keys,
+    coverage sums int32 (uint32 bits), ORed masks uint8): the plain twin for
+    CPU tensors, one `ctk_segment_reduce` launch for CUDA tensors (whose
+    unique-row count is read back to size the result)."""
+    m = keys.shape[0]
+    if keys.dim() != 2 or keys.dtype != torch.int32 or not 1 <= keys.shape[1] <= 4:
+        raise ValueError("keys must be int32 [m, W], 1 <= W <= 4")
+    if cov.shape != (m,) or cov.dtype != torch.int32 or masks.shape != (m,) or \
+            masks.dtype != torch.uint8:
+        raise ValueError("cov must be int32 [m] and masks uint8 [m]")
+    if not keys.device == cov.device == masks.device:
+        raise ValueError("keys, cov and masks must be on one device")
+    if keys.device.type == "cpu":
+        return reduce_plain(keys, cov, masks)
+    if keys.device.type != "cuda":
+        raise ValueError(f"unsupported device {keys.device}")
+    if m == 0:
+        return keys, cov, masks
+    out = (torch.empty_like(keys), torch.empty_like(cov), torch.empty_like(masks))
+    count = torch.empty(1, dtype=torch.int32, device=keys.device)
+    reduce_kernel(keys.contiguous(), cov.contiguous(), masks.contiguous(), *out, count)
+    n = int(count.item())
+    return tuple(x[:n] for x in out)
+
+
+def reduce_kernel(keys, cov, masks, out_keys, out_cov, out_masks, count) -> None:
+    """One `ctk_segment_reduce` launch (three kernels on the stream) on
+    checked, contiguous card tensors: the unique rows into the first `count`
+    rows of the outputs (room for m rows each)."""
+    m = keys.shape[0]
+    scratch = torch.empty(-(-m // 256), dtype=torch.int32, device=keys.device)
+    err = _kernels.library().ctk_segment_reduce(
+        keys.data_ptr(), cov.data_ptr(), masks.data_ptr(), m, keys.shape[1],
+        out_keys.data_ptr(), out_cov.data_ptr(), out_masks.data_ptr(), count.data_ptr(),
+        scratch.data_ptr(), _kernels.stream(keys.device))
+    _kernels.check(err, "segment_reduce")
+    LAUNCHES["segment_reduce"] += 1
+
+
+def sort_reduce(keys: torch.Tensor, cov: torch.Tensor, masks: torch.Tensor):
+    """Sort rows by key, then reduce the runs of equal keys."""
+    order = sort_order(keys)
+    return segment_reduce(keys[order], cov[order], masks[order])
+
+
+# ---------------------------------------------------------------------------
+# the counter
+# ---------------------------------------------------------------------------
+
+class DeviceCounter:
+    """Streaming k-mer counter with an accumulator on `device` (default: the
+    CUDA card, and RuntimeError without one; "cpu" runs the plain twins)."""
+
+    def __init__(self, k: int, chunk_bases: int = CHUNK_BASES, device=None):
+        self.k = k
+        self.w = tk.words(k)
+        self.chunk_bases = chunk_bases
+        self.device = resolve(device)
+        self.acc = None
+        self._reads: list = []
+        self._pending = 0
+
+    def add(self, seq: str) -> None:
+        k, c = self.k, self.chunk_bases
+        if len(seq) < k:
+            return
+        if len(seq) + k >= c:
+            self._flush_reads()
+            # long sequence: overlapping pieces, explicit window ownership
+            stride = c - 2 * k
+            for a in range(0, len(seq), stride):
+                lo = max(0, a - 1)
+                piece = seq[lo:a + c - k]
+                own = np.zeros(len(piece), dtype=bool)
+                o0 = a - lo
+                o1 = min(a + stride, len(seq) - k + 1) - lo
+                own[o0:max(o0, o1)] = True
+                if own.any():
+                    self._count_piece(piece, own)
+                if a + stride >= len(seq) - k + 1:
+                    break
+            return
+        if self._pending + len(seq) + k > c:
+            self._flush_reads()
+        self._reads.append(seq)
+        self._pending += len(seq) + k
+
+    def _flush_reads(self) -> None:
+        if not self._reads:
+            return
+        joined = ("N" * self.k).join(self._reads)
+        self._reads, self._pending = [], 0
+        self._count_piece(joined, None)
+
+    def _count_piece(self, seq: str, own: np.ndarray | None) -> None:
+        stream, valid, own_w, n = pack_piece(seq, own, self.chunk_bases)
+        keys, masks = live_windows(*extract_windows(
+            words_tensor(stream, self.device), words_tensor(valid, self.device),
+            words_tensor(own_w, self.device), self.k, n))
+        cov = torch.ones(keys.shape[0], dtype=torch.int32, device=self.device)
+        self._merge(*sort_reduce(keys, cov, masks))
+
+    def _merge(self, keys, cov, masks) -> None:
+        if self.acc is None:
+            self.acc = (keys, cov, masks)
+            return
+        self.acc = sort_reduce(*(torch.cat([a, b]) for a, b in zip(self.acc, (keys, cov, masks))))
+
+    def finish(self):
+        """-> (kmers uint32[N, W], cov uint32[N], in uint8[N], out uint8[N])
+        as numpy arrays, sorted unique canonical; rows whose coverage wrapped
+        to 0 dropped, as the JAX package's finish does."""
+        self._flush_reads()
+        if self.acc is None:
+            return (np.zeros((0, self.w), np.uint32), np.zeros(0, np.uint32),
+                    np.zeros(0, np.uint8), np.zeros(0, np.uint8))
+        keys, cov, masks = (x.cpu().numpy() for x in self.acc)
+        keys, cov = keys.view(np.uint32), cov.view(np.uint32)
+        real = cov > 0
+        return keys[real], cov[real], masks[real] >> 4, masks[real] & 15
+
+
+def count_kmers_device(sequences, k: int, chunk_bases: int = CHUNK_BASES, device=None):
+    """Device twin of build.count_kmers: the same outputs, bit for bit."""
+    c = DeviceCounter(k, chunk_bases, device)
+    for seq in sequences:
+        c.add(seq)
+    return c.finish()

@@ -36,6 +36,7 @@ import torch
 from . import _kernels
 from ..device import resolve
 from . import kmer as tk
+from .kmer import words_tensor
 from .placement import GOLDEN, place
 
 JUMP_MAX = 32                 # bases a row: a power of two, 64 bits of (hi, lo)
@@ -65,12 +66,6 @@ def jump_iters(num_steps: int) -> int:
     return -(-num_steps // JUMP_MAX) + 2
 
 
-def words_tensor(words: np.ndarray, device) -> torch.Tensor:
-    """uint32 [..., W] numpy words -> int32 tensor of the same bits."""
-    arr = np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
-    return torch.from_numpy(arr).to(device)
-
-
 # ---------------------------------------------------------------------------
 # cuckoo buckets (host placement, one scatter on the device)
 # ---------------------------------------------------------------------------
@@ -82,16 +77,21 @@ def build_buckets(kmers: np.ndarray, device):
     return scatter_buckets(kmers, nb, bucket_of * 2 + pos_of, device)
 
 
-def scatter_buckets(kmers: np.ndarray, nb: int, entry: np.ndarray, device):
-    """The bucket array from a placement (entry = 2 * bucket + position a
-    key): one index_put_ of the (key words..., tag) entries on `device`."""
+def scatter_buckets(kmers: np.ndarray, nb: int, entry: np.ndarray, device,
+                    payload: np.ndarray | None = None, bucket_size: int = 2):
+    """The bucket array int32 [NB, bucket_size, W+1] from a placement (entry
+    = bucket_size * bucket + position a key): one index_put_ of the (key
+    words..., tag) entries on `device`, tag = 0x80000000 | payload (< 2^31;
+    default: the record ids, the jump table's)."""
     n, w = kmers.shape
     kd = words_tensor(kmers, device)
-    tag = tk.to_bits32(torch.arange(n, dtype=torch.int64, device=kd.device) | _TAG)
+    pay = (torch.arange(n, dtype=torch.int64) if payload is None
+           else torch.from_numpy(np.asarray(payload, dtype=np.int64))).to(kd.device)
+    tag = tk.to_bits32(pay | _TAG)
     idx = torch.from_numpy(np.asarray(entry, dtype=np.int64)).to(kd.device)
-    buckets = torch.zeros((nb * 2, w + 1), dtype=torch.int32, device=kd.device)
+    buckets = torch.zeros((nb * bucket_size, w + 1), dtype=torch.int32, device=kd.device)
     buckets.index_put_((idx,), torch.cat([kd, tag[:, None]], dim=1))
-    return buckets.view(nb, 2, w + 1), kd
+    return buckets.view(nb, bucket_size, w + 1), kd
 
 
 def lookup_payload_tag(buckets: torch.Tensor, canon: torch.Tensor):

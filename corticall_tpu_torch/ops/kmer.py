@@ -11,6 +11,7 @@ to 32 bits, so they equal kmer_jax's bit for bit.  The CUDA kernels
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -146,3 +147,10 @@ def to_bits32(x: torch.Tensor) -> torch.Tensor:
 def from_bits32(x: torch.Tensor) -> torch.Tensor:
     """int32 bit patterns -> int64 holding the uint32 values."""
     return x.to(torch.int64) & M32
+
+
+def words_tensor(words: np.ndarray, device) -> torch.Tensor:
+    """uint32 numpy array (k-mer words, coverages) -> int32 tensor of the
+    same bits on `device`: the kernels' view."""
+    arr = np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
+    return torch.from_numpy(arr).to(device)

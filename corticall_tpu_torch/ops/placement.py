@@ -1,7 +1,9 @@
 """Host hashing and two-choice cuckoo placement (numpy).
 
 Copies of corticall_tpu/ops/hashtable.py::_np_mix32 / np_hash_words and
-corticall_tpu/ops/cuckoo.py::_np_h2 / _place.  Those modules import jax at
+corticall_tpu/ops/cuckoo.py::_np_h2 / _place: `place` is the jump and walk
+tables' placement (load 0.5, 2-entry buckets, primary bucket first),
+`place_cuckoo` all of _place's paths.  Those modules import jax at
 module level and the port never imports jax, so it carries these copies; the
 CPU tests hold them bit for bit against the originals.  The device lookups
 (ops/kmer.hash_words, csrc/jump.cu) hash with the same bits, so a key is
@@ -43,14 +45,27 @@ BUCKET_SIZE = 2              # entries a bucket
 
 
 def place(kmers: np.ndarray):
-    """The jump table's cuckoo placement, as cuckoo._place(kmers, 0.5, None,
-    2, True): -> (nb, bucket_of int64[N], pos_of int32[N]).  Batched greedy
-    rounds that try the primary bucket first, then a serial eviction walk
-    (default_rng(0)) for the keys both of whose buckets are full."""
+    """The jump and walk tables' cuckoo placement, place_cuckoo(kmers, 0.5,
+    None, 2, True): -> (nb, bucket_of int64[N], pos_of int32[N])."""
+    return place_cuckoo(kmers, LOAD_FACTOR, None, BUCKET_SIZE, True)[:3]
+
+
+def place_cuckoo(kmers: np.ndarray, load_factor: float, num_buckets: int | None,
+                 bucket_size: int, primary_bias: bool):
+    """cuckoo._place with all of its paths: -> (nb, bucket_of int64[N],
+    pos_of int32[N], h1 int64[N]).  Batched greedy rounds, then a serial
+    eviction walk (default_rng(0)) for the keys both of whose buckets are
+    full.  num_buckets (a power of two) fixes the table size, as shard tables
+    need; primary_bias tries a key's h1 bucket first, else a key goes to the
+    emptier of its two buckets."""
     n, _ = kmers.shape
-    nb = 4
-    while nb * BUCKET_SIZE * LOAD_FACTOR < max(n, 1):
-        nb *= 2
+    if num_buckets is not None:
+        nb = num_buckets
+        assert nb & (nb - 1) == 0 and nb * bucket_size >= n
+    else:
+        nb = 4
+        while nb * bucket_size * load_factor < max(n, 1):
+            nb *= 2
     mask = np.uint32(nb - 1)
 
     h = np_hash_words(kmers)
@@ -64,8 +79,11 @@ def place(kmers: np.ndarray):
     pending = np.arange(n, dtype=np.int64)
     while pending.size:
         c1 = counts[h1[pending]]
-        t = np.where(c1 < BUCKET_SIZE, h1[pending], h2[pending])
-        cap = BUCKET_SIZE - counts[t]
+        if primary_bias:
+            t = np.where(c1 < bucket_size, h1[pending], h2[pending])
+        else:
+            t = np.where(counts[h2[pending]] < c1, h2[pending], h1[pending])
+        cap = bucket_size - counts[t]
         # rank pending keys within each proposed bucket; the first `cap` win
         order = np.argsort(t, kind="stable")
         ts = t[order]
@@ -89,7 +107,7 @@ def place(kmers: np.ndarray):
     # serial eviction walk for the stragglers, over a (bucket, pos) -> key
     # occupancy array so that this phase costs O(stragglers)
     if pending.size:
-        occ = np.full((nb, BUCKET_SIZE), -1, dtype=np.int64)
+        occ = np.full((nb, bucket_size), -1, dtype=np.int64)
         placed = np.nonzero(bucket_of >= 0)[0]
         occ[bucket_of[placed], pos_of[placed]] = placed
         rng = np.random.default_rng(0)
@@ -98,13 +116,13 @@ def place(kmers: np.ndarray):
             b = int(h1[key])
             for _ in range(10000):
                 c = int(counts[b])
-                if c < BUCKET_SIZE:
+                if c < bucket_size:
                     occ[b, c] = key
                     bucket_of[key] = b
                     pos_of[key] = c
                     counts[b] += 1
                     break
-                vp = int(rng.integers(0, BUCKET_SIZE))
+                vp = int(rng.integers(0, bucket_size))
                 victim = int(occ[b, vp])
                 occ[b, vp] = key
                 bucket_of[key] = b
@@ -112,6 +130,6 @@ def place(kmers: np.ndarray):
                 key = victim
                 b = int(h2[key]) if int(h1[key]) == b else int(h1[key])
             else:
-                raise RuntimeError("cuckoo placement failed")
+                raise RuntimeError("cuckoo build failed; lower load_factor")
 
-    return nb, bucket_of, pos_of
+    return nb, bucket_of, pos_of, h1

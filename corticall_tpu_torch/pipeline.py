@@ -111,8 +111,9 @@ def run_pipeline(workdir: str, reads_by_sample: dict, child: str,
                  shared_graphs: dict | None = None, device=None) -> dict:
     """Execute the production pipeline from reads to VCF; arguments and
     result keys as corticall_tpu.pipeline.run_pipeline, plus `device` for
-    the Partition and Call stages' kernels (default: the CUDA card, and
-    RuntimeError without one; "cpu" runs the plain twins)."""
+    the kernels of the Partition and Call stages and of the device graph
+    build, which CORTICALL_DEVICE_BUILD=1 selects (default: the CUDA card,
+    and RuntimeError without one; "cpu" runs the plain twins)."""
     device = resolve(device)
     pl = Pipeline(workdir, resume=resume, log=log)
     samples = [child] + list(parents)
@@ -127,8 +128,7 @@ def run_pipeline(workdir: str, reads_by_sample: dict, child: str,
             cleaned[s] = shared_graphs[s]
             continue
         def compute(path, s=s):
-            g = bd.build_graph_from_reads(reads_by_sample[s], k, s,
-                                          use_device=False)
+            g = bd.build_graph_from_reads(reads_by_sample[s], k, s, device=device)
             raw_records = g.num_records
             if clean:
                 g = bd.clean_graph(g, min_coverage=min_coverage,

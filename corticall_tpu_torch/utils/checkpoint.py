@@ -77,9 +77,12 @@ def clear_chunk_state(path) -> None:
 
 
 def resume_walks(dg, colors, state: dict, num_steps: int):
-    """Continue interrupted walks from a saved frontier.  Returns (bases
-    [T, B] continuing the saved stream, cycled, steps).  Needs the device
-    graph's walk table, which the port does not have yet."""
-    raise NotImplementedError(
-        "resume_walks needs DeviceGraph and walk_forward_spec "
-        "(ROADMAP §1 item 5, not ported yet)")
+    """Continue interrupted walks from a saved frontier: the saved cursor
+    k-mers walked by ops/cuckoo.walk_forward_spec over the DeviceGraph's walk
+    table, on its device.  Returns (bases int8 [T, B] continuing the saved
+    stream, cycled bool [B], steps int32 [B])."""
+    from ..ops import cuckoo as ck
+    from ..ops.kmer import words_tensor
+
+    seeds = words_tensor(state["cur"], dg.device)
+    return ck.walk_forward_spec(dg.walk_buckets(colors), seeds, dg.kmer_size, num_steps)

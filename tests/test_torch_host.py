@@ -283,8 +283,20 @@ def test_build_graph_from_reads(use_native):
     assert got_c.record_strings() == want_c.record_strings()
 
 
-def test_device_branches_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 8"):
+def test_device_branches_name_their_roadmap_item(monkeypatch):
+    """The device branches of ROADMAP §1 items 2-3 are ported: the device
+    graph build and resume_walks ask for a card when given no device and
+    run the plain twins on the CPU, where they used to raise
+    NotImplementedError."""
+    import torch
+    from corticall_tpu_torch.device import DeviceGraph
+    from corticall_tpu_torch.ops import cuckoo as tck
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tbuild.build_graph_from_reads(["ACGTACGTAC"], 5, "s", use_device=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tckpt.resume_walks(None, [0], {}, 10)
+    g = tbuild.build_graph_from_reads(["ACGTACGTAC"], 5, "s", use_device=True, device="cpu")
+    assert g.record_strings() == tbuild.build_graph_from_reads(["ACGTACGTAC"], 5,
+                                                               "s").record_strings()
+    bases, cycled, steps = tckpt.resume_walks(DeviceGraph.from_graph(g, device="cpu"), [0],
+                                              {"cur": g.kmers[:1]}, 10)
+    assert bases.shape == (tck.spec_iters(10), 1) and cycled.shape == steps.shape == (1,)

@@ -1,0 +1,198 @@
+"""A tiny CPU rehearsal of chip_smoke.py's phases 9 (walk_table_vs_plain)
+and 10 (build_device): a 20 kbp bench graph, 300 walks of 64 steps, three
+small read sets and chunks of 2^14 bases, with the four kernel launches
+replaced by fakes that write their plain twins' results and count a launch,
+and host timers for the CUDA events.  It runs in a fresh process, since
+chip_smoke.py makes jax and corticall_tpu unimportable in the process that
+imports it.  The phases' own checks (twins against the outputs, launch
+counts, identical graphs and counts) must pass, and the slots, key rows
+and bucket rows that phase 9 counts for its bounds must equal a count made
+one query and one lane at a time."""
+
+import json
+import os
+import subprocess
+import sys
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+
+
+def scalar_reads(g, bench, seed_strs) -> dict:
+    """The slots, key rows and bucket rows that phase 9's lookups and walks
+    read, counted one query and one lane at a time on strings and numpy
+    words, for the phase's vectorised counts to be held against."""
+    import numpy as np
+    import torch
+
+    from corticall_tpu_torch import kmer as km
+    from corticall_tpu_torch.device import DeviceGraph
+    from corticall_tpu_torch.ops import cuckoo as ck, jump as tj
+    from corticall_tpu_torch.ops.placement import np_h2, np_hash_words
+
+    k = 47
+    dg = DeviceGraph.from_arrays(k, g.kmers, g.coverages, g.edges, device="cpu")
+    slots, m = dg.slots.numpy(), dg.slots.shape[0]
+    miss = g.kmers.copy()
+    miss[:, -1] ^= np.uint32(1)
+    queries = np.concatenate([g.kmers, miss])
+    slots_read = set()
+    for q, h in zip(queries, np_hash_words(queries)):
+        for p in range(dg.max_probe):
+            slot = (int(h) + p) & (m - 1)
+            slots_read.add(slot)
+            r = slots[slot]
+            if r < 0 or (g.kmers[r] == q).all():
+                break
+    key_rows = sum(1 for slot in slots_read if slots[slot] >= 0)
+
+    edges = np.ascontiguousarray(g.edges[:, 0])
+    buckets, _ = tj.scatter_buckets(g.kmers, bench["nb"], bench["entry"], "cpu", payload=edges)
+    bases = ck.spec_walk_plain(buckets, torch.from_numpy(bench["seeds"].view(np.int32)), k,
+                               64)[0].numpy()
+    table = buckets.numpy().view(np.uint32)
+    mask = np.uint32(table.shape[0] - 1)
+    rows_read, iterations = set(), 0
+    for lane, s in enumerate(seed_strs):
+        probe = False
+        for t in range(bases.shape[0]):
+            canon = min(s, km.revcomp(s))
+            words = km.pack_codes(km.strings_to_codes([canon]), k)
+            h = np_hash_words(words)
+            idx = int((np_h2(h) if probe else h)[0] & mask)
+            rows_read.add(idx)
+            iterations += 1
+            held = any(e[-1] >> 31 and (e[:-1] == words[0]).all() for e in table[idx])
+            b = int(bases[t, lane])
+            if b >= 0:
+                s, probe = s[1:] + "ACGT"[b], False
+            elif not held and not probe:
+                probe = True
+            else:
+                break
+    return {"slots": len(slots_read), "key_rows": key_rows, "bucket_rows": len(rows_read),
+            "iterations": iterations}
+
+
+def rehearse() -> dict:
+    """Phases 9 and 10 at a tiny size on the CPU; returns their fields."""
+    import time
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(TESTS))
+    import chip_smoke as cs
+    from corticall_tpu_torch import kmer as km, simulate as sim
+    from corticall_tpu_torch.demo import build_bench_graph
+    from corticall_tpu_torch.ops import build_device as bdv, cuckoo as ck, hashtable as ht
+    from corticall_tpu_torch.ops import jump as tj, kmer as tk
+
+    def event_ms(fn, reps):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    def lookup_kernel(slots, keys, queries, max_probe, out):
+        out.copy_(ht.lookup_plain(slots, keys, queries, max_probe))
+        ht.LAUNCHES["ht_lookup"] += 1
+
+    def spec_walk_kernel(buckets, seeds, k, num_steps, *out):
+        for o, w in zip(out, ck.spec_walk_plain(buckets, seeds, k, num_steps)):
+            o.copy_(w)
+        ck.LAUNCHES["spec_walk"] += 1
+
+    def windows_kernel(stream, valid, own, k, n, keys, masks):
+        want = bdv.windows_plain(stream, valid, own, k, n)
+        keys.copy_(want[0])
+        masks.copy_(want[1])
+        bdv.LAUNCHES["count_windows"] += 1
+
+    def reduce_kernel(keys, cov, masks, *out_count):
+        *out, count = out_count
+        want = bdv.reduce_plain(keys, cov, masks)
+        n = want[0].shape[0]
+        for o, w in zip(out, want):
+            o[:n] = w
+        count.fill_(n)
+        bdv.LAUNCHES["segment_reduce"] += 1
+
+    def lookup(slots, keys, queries, max_probe):
+        out = torch.empty(queries.shape[0], dtype=torch.int32)
+        ht.lookup_kernel(slots, keys, queries, max_probe, out)
+        return out
+
+    def walk_forward_spec(buckets, seeds, k, num_steps):
+        b = seeds.shape[0]
+        out = (torch.empty((ck.spec_iters(num_steps), b), dtype=torch.int8),
+               torch.empty(b, dtype=torch.bool), torch.empty(b, dtype=torch.int32))
+        ck.spec_walk_kernel(buckets, seeds, k, num_steps, *out)
+        return out
+
+    def extract_windows(stream, valid, own, k, n):
+        keys = torch.empty((n, tk.words(k)), dtype=torch.int32)
+        masks = torch.empty(n, dtype=torch.uint8)
+        bdv.windows_kernel(stream, valid, own, k, n, keys, masks)
+        return keys, masks
+
+    def segment_reduce(keys, cov, masks):
+        out = (torch.empty_like(keys), torch.empty_like(cov), torch.empty_like(masks))
+        count = torch.empty(1, dtype=torch.int32)
+        bdv.reduce_kernel(keys, cov, masks, *out, count)
+        return tuple(x[:int(count)] for x in out)
+
+    torch.cuda.synchronize = torch.cuda.empty_cache = lambda *a: None
+    cs.event_ms, cs.SPEC_STEPS = event_ms, 64
+    ht.lookup_kernel, ht.lookup = lookup_kernel, lookup
+    ck.spec_walk_kernel, ck.walk_forward_spec = spec_walk_kernel, walk_forward_spec
+    bdv.windows_kernel, bdv.extract_windows = windows_kernel, extract_windows
+    bdv.reduce_kernel, bdv.segment_reduce = reduce_kernel, segment_reduce
+    small = 1 << 14                             # chunks small enough to merge
+    bdv.CHUNK_BASES = small
+    bdv.DeviceCounter.__init__.__defaults__ = (small, None)
+    bdv.count_kmers_device.__defaults__ = (small, None)
+
+    cpu = torch.device("cpu")
+    g, genome = build_bench_graph(47, 20000)
+    nb, bucket_of, pos_of = tj.place(g.kmers)
+    rng = np.random.default_rng(11)
+    starts = rng.integers(0, len(genome) - 47, 300)
+    seed_strs = [genome[i:i + 47] for i in starts]
+    bench = {"g": g, "genome": genome, "nb": nb, "entry": bucket_of * 2 + pos_of,
+             "seeds": km.pack_codes(km.strings_to_codes(seed_strs), 47)}
+    walk = cs.walk_table_phase(cpu, bench)
+    walk["scalar_reads"] = scalar_reads(g, bench, seed_strs)
+    reads = {s: sim.simulate_reads([genome[:8000]], 5, 150, 0.002, seed=i)
+             for i, s in enumerate(("kid", "mom", "dad"))}
+    build = cs.build_phase(cpu, reads, genome)
+    return {"walk": walk, "build": build}
+
+
+def test_walk_table_and_build_phases_rehearse_on_cpu(tmp_path):
+    code = (f"import json, sys; sys.path.insert(0, {TESTS!r}); "
+            "import test_torch_smoke_phases as t; print(json.dumps(t.rehearse()))")
+    env = {**os.environ, "CORTICALL_TPU_TESTS_ON_TPU": "1"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600, env=env, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    walk, build = out["walk"], out["build"]
+    assert walk["launches"] == {"ht_lookup": 1, "spec_walk": 1}
+    assert walk["queries"] == 2 * walk["records"] and walk["found"] >= walk["records"]
+    assert walk["steps"] > 0 and walk["iterations"] == 64 + 16 + 32
+    assert walk["scalar_reads"] == {
+        "slots": walk["lookup_slots_read"], "key_rows": walk["lookup_key_rows_read"],
+        "bucket_rows": walk["bucket_rows_read"], "iterations": walk["active_iterations"]}
+    assert walk["lookup_err"] == walk["spec_err"] == 0.0
+    assert build["chunk"]["windows_err"] == build["chunk"]["reduce_err"] == 0.0
+    for key in ("lookup_bound", "spec_bound"):
+        assert walk[key]["bound_by"] == "bytes" and walk[key]["bound_ms"] > 0
+    assert build["identical"] and set(build["samples"]) == {"kid", "mom", "dad"}
+    # every trio sample spans two chunks: windows and reductions of each
+    # chunk, and the merges
+    assert build["launches"]["count_windows"] >= 7
+    assert build["launches"]["segment_reduce"] > build["launches"]["count_windows"]
+    parts = build["samples"]["kid"]["device_parts_s"]
+    assert set(parts) == {"pack", "transfer", "windows", "compact", "sort", "reduce", "merge"}
+    assert build["chunk"]["unique"] <= build["chunk"]["windows"] <= build["chunk"]["bases"]

@@ -62,14 +62,22 @@ Phases, one JSON line each (progress goes to stderr):
    counted, with the seconds of each route and the device route's parts
    (host packing, transfer, windows, compaction, sort, reduce, merge); then
    ctk_count_windows and ctk_segment_reduce against their twins on the
-   kid's first chunk.
+   kid's first chunk;
+11. link_walk_vs_plain: LinkedWalker (the linked device walker) on phase
+   4's graph, ROIs and threaded links: the sorted ROI k-mers walked both
+   ways at Partition's 2,000-step cap against the native linked walker
+   walked as Partition walks it (no contig of a walk without overflow may
+   differ, once decoded by the host's seen rule), then 262,144 record
+   k-mers x 2,000 steps through ctk_link_walk against its plain twin, on
+   every lane within the twin's 60 s budget, timed beside the bound.
 
 Then one JSON line with each kernel's route, source, launches, error,
-times and bound (ten kernels), the nvidia-smi line, and the result line.
+times and bound (eleven kernels), the nvidia-smi line, and the result line.
 Any failure raises: the run exits non-zero and prints no result, as it does
 without a CUDA device or outside the repository.  Neither jax nor the JAX
-package (corticall_tpu) is ever imported.  About 5-7 minutes on one H100,
-most of it host work (graph simulation and builds, the placements).
+package (corticall_tpu) is ever imported.  About 8-9 minutes on one H100,
+most of it host work (graph simulation and builds, the placements, the
+plain twins).
 """
 
 import json
@@ -1206,6 +1214,274 @@ def build_phase(dev, reads, genome) -> dict:
             "identical": True, "chunk": chunk}
 
 
+LINK_SEEDS = 262_144                         # BENCH_WALKS
+LINK_DECODE_SEEDS = 16_384                   # ROI seeds decoded in Python, at most
+LINK_TWIN_BUDGET_S = 60.0                    # the twin's lanes: every one, within this
+LINK_TWIN_CHUNK = 131_072                    # lanes a twin call (its steps are launch-bound)
+LINK_POOL_ROW_BYTES = 13                     # choices 8, length 4, orientation 1
+# 32-bit integer operations of linked walk steps, counted from the functions
+# the walk computes (ops/kmer.py, ops/cuckoo.py, ops/walk_links.py), one an
+# elementwise operation on a 32-bit value; link_step_ops charges each part
+# only at the steps whose data need it
+LINK_RECORD_OPS = 5          # a record of the k-mer's first MAX_ADD: index, j < cnt,
+                             # orientation, 2 ANDs
+LINK_FREE_OPS = 2            # a store slot at a step that adds records: free, its rank
+LINK_GATED_OPS = 3           # a gated record: its rank, the overflow test and OR
+LINK_FILL_OPS = 7            # an element filled: 2 choice words, length, position, age,
+                             # sequence, valid
+LINK_AGE_OPS = 5             # a valid element after a step past the seed: new_paths (2), the age's
+                             # add and select, store_active (the seed step: store_active only)
+LINK_JUNCTION_OPS = 10       # a junction past the seed: rep_char, rep_words, choice, have_choice,
+                             # choice_ok (3), take_choice, bump, the junction count
+LINK_JUNCTION_ELEMENT_OPS = 32   # a valid element there: exhausted, live, the masked age and max,
+                                 # is_oldest (2), _char_at (6), first_oldest (2), agree (3),
+                                 # same_list (4), the masked sequence and max (2), latest (2),
+                                 # keep (5), position and valid (2)
+
+
+def link_kmer_ops(w: int, bs: int) -> int:
+    """A walk step's k-mer work at W words and bucket size BS: the canonical
+    form (revcomp_words 22 a word: complement, reverse_pairs32's 18, the
+    realignment's 3; the top word's mask; lex_less 5 a word; the select a
+    word), hash_words (10 a word, the final mix32's 8) and the second bucket
+    (mix32 of h ^ GOLDEN, both masks: 11), lookup_payload (each slot of both
+    buckets: W key compares, W - 1 ANDs, the tag, the AND, the max), the
+    record, its edge byte, successors, CSR count and counters (30), and
+    shift_append with the emission (4 a word, 9)."""
+    return (28 * w + 1) + (10 * w + 19) + 2 * bs * (2 * w + 2) + 30 + (4 * w + 9)
+
+
+def link_step_ops(kmer_ops: int, first, cnt, gated, before, after, succ):
+    """Operations of walk steps, one entry a step (int64 tensors; `first` a
+    bool one): the k-mer's work, its `cnt` records (at most MAX_ADD) gated,
+    store_add where `gated` of them face the walk's way, the junction choice
+    at a step past the seed whose k-mer has `succ` > 1 successors, over the
+    valid elements after the add, and the ageing over those after the step.
+    `before` / `after` are the store's valid elements before and after the
+    step; -1 (not known) charges no element work."""
+    from corticall_tpu_torch.ops import walk_links as wl
+
+    known = after >= 0
+    before = before.clamp(min=0)
+    filled = torch.where(known, torch.minimum(gated, wl.CAP - before), 0)
+    held = torch.where(known, before + filled, 0)
+    add = torch.where(gated > 0, LINK_FREE_OPS * wl.CAP + LINK_GATED_OPS * gated
+                      + LINK_FILL_OPS * filled, 0)
+    choose = torch.where(~first & (succ > 1), LINK_JUNCTION_OPS
+                         + LINK_JUNCTION_ELEMENT_OPS * held, 0)
+    age = torch.where(first, 1, LINK_AGE_OPS) * after.clamp(min=0)
+    return kmer_ops + LINK_RECORD_OPS * cnt + add + choose + age
+
+
+def link_walk_reads(tables, seeds, k: int, emitted, sizes=None) -> dict:
+    """What ctk_link_walk read, replayed from the bases it emitted (int8
+    [T, B]): a walk looks up its k-mer each step until the step that does
+    not advance (both candidate buckets of the cuckoo table), and of a
+    record it finds, the edge byte, the two CSR offsets and up to MAX_ADD
+    rows of the link pool.  Returns the distinct bucket rows, records,
+    offsets and pool rows, the walk steps (lookups), and int8 [T, B]
+    successor counts of the k-mer each step left (0 where none was looked
+    up).  Given `sizes`, the twin's store sizes (int8 [T, B], -1 where not
+    known), it also counts the steps' operations (link_step_ops)."""
+    from corticall_tpu_torch.ops import walk_links as wl
+
+    buckets, edges, link_off = tables[:3]
+    nb = buckets.shape[0]
+    n = edges.shape[0]
+    dev = seeds.device
+    cur = tk.from_bits32(seeds).clone()
+    off = link_off.to(torch.int64)
+    fw = torch.zeros(tables[5].shape[0] + 1, dtype=torch.int64, device=dev)
+    fw[1:] = tables[5].to(torch.int64).cumsum(0)
+    kmer_ops = link_kmer_ops(cur.shape[1], buckets.shape[1])
+    lanes = torch.arange(cur.shape[0], device=dev)
+    rows = torch.zeros(nb, dtype=torch.bool, device=dev)
+    recs = torch.zeros(n, dtype=torch.bool, device=dev)
+    succ = torch.zeros(emitted.shape, dtype=torch.int8, device=dev)
+    walk_steps = ops = 0
+    for t in range(emitted.shape[0]):
+        if not lanes.numel():
+            break
+        canon, flipped = tk.canonicalize_words(cur[lanes], k)
+        h = tk.hash_words(canon)
+        rows[h & (nb - 1)] = True
+        rows[tk.mix32(h ^ tj.GOLDEN) & (nb - 1)] = True
+        rec = tk.from_bits32(ck.lookup_payload(buckets, tk.to_bits32(canon))) - 1
+        found = rec >= 0
+        recs[rec[found]] = True
+        r = rec.clamp(min=0)
+        e = edges[r].to(torch.int64)
+        mask = torch.where(flipped, e >> 4, e & 0xF)
+        nsucc = torch.where(found, tk.popcount4(mask), 0)
+        succ[t, lanes] = nsucc.to(torch.int8)
+        walk_steps += lanes.numel()
+        if sizes is not None:
+            o = torch.where(found, off[r], 0)
+            cnt = torch.where(found, off[r + 1] - o, 0).clamp(max=wl.MAX_ADD)
+            nfw = fw[o + cnt] - fw[o]
+            after = sizes[t, lanes].to(torch.int64)
+            before = sizes[t - 1, lanes].to(torch.int64) if t else torch.zeros_like(after)
+            ops += int(link_step_ops(kmer_ops, torch.full_like(found, t == 0), cnt,
+                                     torch.where(flipped, cnt - nfw, nfw), before, after,
+                                     nsucc).sum())
+        v = emitted[t, lanes].to(torch.int64)
+        moved = v >= 0
+        cur[lanes[moved]] = tk.shift_append(cur[lanes[moved]], v[moved] & 3, k)
+        lanes = lanes[moved]
+    pool_rows = int((off[1:] - off[:-1]).clamp(max=wl.MAX_ADD)[recs].sum())
+    offsets = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    offsets[:-1] |= recs
+    offsets[1:] |= recs
+    out = {"bucket_rows": int(rows.sum()), "records": int(recs.sum()),
+           "offsets": int(offsets.sum()), "pool_rows": pool_rows, "walk_steps": walk_steps,
+           "successors": succ}
+    if sizes is not None:
+        out["ops"] = ops
+    return out
+
+
+def link_walk_bound(tables, seeds, outputs, reads):
+    """The walk's bound: seeds in, the [B, T] stream and the per-walk outputs
+    out, and the distinct bucket rows, edge bytes, offsets and pool rows
+    read; its operations as link_walk_reads counted them."""
+    buckets = tables[0]
+    row_bytes = buckets.shape[1] * buckets.shape[2] * 4
+    moved = (nbytes(seeds, *outputs) + reads["bucket_rows"] * row_bytes + reads["records"]
+             + reads["offsets"] * 4 + reads["pool_rows"] * LINK_POOL_ROW_BYTES)
+    return bound_ms(moved, reads["ops"])
+
+
+def link_walk_phase(dev, out) -> dict:
+    """Phase 11: the linked device walker on phase 4's graph, ROIs and links
+    (the trio's threaded links).  The path (launches counted): LinkedWalker
+    over the sorted ROI k-mers, both directions, then walk_links_forward from
+    LINK_SEEDS record k-mers (record i * 17 % N), raw outputs.  The ROI
+    walks against their plain twin bit for bit, and their contigs against
+    the native walker walked as Partition walks it; the bulk walks' kernel
+    against its plain twin bit for bit, on every lane when the twin
+    fits LINK_TWIN_BUDGET_S, else on a stated prefix (the lanes are
+    independent: the twin runs LINK_TWIN_CHUNK lanes a call, and a call
+    starts only when the last one's time still fits the budget); kernel and
+    twin timed beside the bound, whose operations are counted with the
+    twin's store sizes (link_walk_reads)."""
+    from corticall_tpu_torch import kmer as km, native as nat
+    from corticall_tpu_torch.ops import walk_links as wl
+
+    t_phase = time.perf_counter()
+    graph, rois, links = out["graph"], out["rois"], out["links"]
+    k, n = graph.kmer_size, graph.num_records
+    child = graph.color_for_sample(rois.sample_name(0))
+    cks = sorted(rois.kmer_string(i) for i in range(rois.num_records))
+    decoded = cks[:LINK_DECODE_SEEDS]
+    t0 = time.perf_counter()
+    walker = wl.LinkedWalker(graph, [child], links, device=dev)
+    torch.cuda.synchronize()
+    walker_s = time.perf_counter() - t0
+    bulk = tk.words_tensor(graph.kmers[np.arange(LINK_SEEDS, dtype=np.int64) * 17 % n], dev)
+
+    # the path: the walker's contigs and the bulk walks, launches counted
+    wl.LAUNCHES["link_walk"] = 0
+    assemble_ms, (contigs, overflow, junctions) = host_ms(
+        lambda: walker.assemble(decoded, PF_MAX_WALK))
+    bulk_ms, got = host_ms(lambda: wl.walk_links_forward(*walker.args, bulk, k, JUMP_STEPS))
+    launches = wl.LAUNCHES["link_walk"]
+    if not launches:
+        raise AssertionError("ctk_link_walk never launched")
+
+    # the ROI walks against their twin, and against the native walker as
+    # Partition walks them
+    walk_ms, (rows, roi_ov, steps, roi_jn, rc) = host_ms(
+        lambda: walker.walk(decoded, PF_MAX_WALK))
+    words = km.pack_codes(km.strings_to_codes(decoded + rc, k), k)
+    roi_words = tk.words_tensor(words, dev)
+    emitted = torch.from_numpy(rows.T.copy()).to(dev)
+    roi_plain_ms, want = host_ms(lambda: wl.walk_links_forward_plain(
+        *walker.args, roi_words, k, PF_MAX_WALK))
+    roi_err = max(same(a.to(dev), w, f"link_walk ROI {name}") for name, a, w in zip(
+        ("emitted", "overflow", "steps", "junctions"),
+        (emitted, *(torch.from_numpy(x) for x in (roi_ov, steps, roi_jn))), want))
+    del want
+    t0 = time.perf_counter()
+    native = nat.LinksWalkerNative(graph, [child], links)
+    fwd, _ = native.walk(decoded, PF_MAX_WALK)
+    back, _ = native.walk(rc, PF_MAX_WALK)
+    native_s = time.perf_counter() - t0
+    want = [(km.revcomp(b) if b else "") + s + f for s, f, b in zip(decoded, fwd, back)]
+    roi_reads = link_walk_reads(walker.args, roi_words, k, emitted)
+    succ = roi_reads.pop("successors").T.cpu().numpy()
+    b = len(decoded)
+    mismatches = seen_rule = 0
+    for i, seed in enumerate(decoded):
+        if overflow[i]:
+            continue
+        f = wl.decode_host_walk(seed, rows[i].tolist(), succ[i], PF_MAX_WALK)
+        bk = wl.decode_host_walk(rc[i], rows[b + i].tolist(), succ[b + i], PF_MAX_WALK)
+        if (km.revcomp(bk) if bk else "") + seed + f != want[i]:
+            mismatches += 1
+        elif contigs[i] != want[i]:
+            seen_rule += 1
+    if mismatches:
+        raise AssertionError(f"{mismatches} linked walks without overflow differ from the "
+                             "native walker's")
+    roi_kernel_ms = event_ms(lambda: wl.walk_links_forward(*walker.args, roi_words, k,
+                                                           PF_MAX_WALK), 3)
+
+    # the bulk walks: the kernel alone, then the twin on every lane or a prefix
+    out_bufs = (torch.empty((LINK_SEEDS, wl.emit_pitch(JUMP_STEPS)), dtype=torch.int8,
+                            device=dev),
+                torch.empty(LINK_SEEDS, dtype=torch.uint8, device=dev),
+                torch.empty(LINK_SEEDS, dtype=torch.int32, device=dev),
+                torch.empty(LINK_SEEDS, dtype=torch.int32, device=dev))
+    kernel_ms = event_ms(lambda: wl.link_walk_kernel(*walker.args, bulk, k, JUMP_STEPS,
+                                                     *out_bufs), 3)
+    err = same(out_bufs[0][:, :JUMP_STEPS].t(), got[0], "link_walk, launched again")
+    sizes = torch.full((JUMP_STEPS, LINK_SEEDS), -1, dtype=torch.int8, device=dev)
+    twin_lanes, plain_ms, chunk_ms = 0, 0.0, 0.0
+    while twin_lanes < LINK_SEEDS and plain_ms + chunk_ms <= LINK_TWIN_BUDGET_S * 1e3:
+        lo, hi = twin_lanes, min(twin_lanes + LINK_TWIN_CHUNK, LINK_SEEDS)
+        chunk_ms, want = host_ms(lambda: wl.walk_links_forward_plain(
+            *walker.args, bulk[lo:hi], k, JUMP_STEPS, store_sizes=sizes[:, lo:hi]))
+        for name, a, w in zip(("emitted", "overflow", "steps", "junctions"), got, want):
+            lanes = a[:, lo:hi] if name == "emitted" else a[lo:hi]
+            err = max(err, same(lanes, w, f"link_walk {name}"))
+        del want
+        twin_lanes, plain_ms = hi, plain_ms + chunk_ms
+    reads = link_walk_reads(walker.args, bulk, k, got[0], sizes)
+    del reads["successors"], sizes
+    bound = link_walk_bound(walker.args, bulk, got, reads)
+    total_steps = int(got[2].sum())
+    log(f"link walk: kernel {kernel_ms:.3f} ms, twin {plain_ms:.0f} ms on {twin_lanes} lanes")
+    result = {
+        "records": n, "roi_seeds": len(cks), "decoded_seeds": b,
+        "decode_note": (f"the first {b} of {len(cks)} ROI seeds decoded" if len(cks) > b
+                        else "every ROI seed decoded"),
+        "walker_build_s": round(walker_s, 3), "truncated_links": walker.truncated,
+        "link_pool_rows": int(walker.args[4].shape[0]), "launches": launches,
+        "overflows": int(overflow.sum()), "junctions_resolved": int(junctions.sum()),
+        "roi_steps": int(steps.sum()), "mismatches": mismatches,
+        "decode_seen_rule_contigs": seen_rule,
+        "assemble_s": round(assemble_ms / 1e3, 4), "walk_s": round(walk_ms / 1e3, 4),
+        "decode_s": round((assemble_ms - walk_ms) / 1e3, 4),
+        "roi_kernel_ms": round(roi_kernel_ms, 4), "roi_plain_ms": round(roi_plain_ms, 1),
+        "roi_err": roi_err, "native_s": round(native_s, 4),
+        "roi_reads": roi_reads,
+        "lanes": LINK_SEEDS, "max_steps": JUMP_STEPS, "bulk_call_ms": round(bulk_ms, 3),
+        "steps": total_steps, "bulk_overflows": int(got[1].sum()),
+        "bulk_junctions": int(got[3].sum()), "kernel_ms": round(kernel_ms, 4),
+        "steps_per_s": round(total_steps / kernel_ms * 1e3), "twin_lanes": twin_lanes,
+        "twin_note": ("every lane" if twin_lanes == LINK_SEEDS
+                      else f"the first {twin_lanes} lanes (the twin's budget)"),
+        "plain_ms": round(plain_ms, 1),
+        "ops_per_step": round(reads["ops"] / reads["walk_steps"], 2),
+        "ops_note": ("store sizes from the twin on every lane" if twin_lanes == LINK_SEEDS
+                     else f"no store work charged past lane {twin_lanes}"),
+        "max_abs_err": max(err, roi_err), "bound": bound_fields(bound), "reads": reads,
+        "seconds": round(time.perf_counter() - t_phase, 2)}
+    del walker, bulk, got, out_bufs, emitted, roi_words
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     dev = require_cuda()
     t_all = time.perf_counter()
@@ -1331,12 +1607,17 @@ def main() -> int:
     emit("build_device", **bp)
     del bench
 
+    # ---- 11. the linked device walker on the trio's graph and links ------
+    lp = link_walk_phase(dev, out)
+    emit("link_walk_vs_plain", identical=True, **lp)
+
     prod, full, rp_sw, rp_ts = sw_times[0], sp["shapes"][0], rp["sw"], rp["tesserae"]
     replayed, chunk = pp["replay"], bp["chunk"]
     # no single PyTorch call computes any of these functions (banded or
     # full Smith-Waterman, the Tesserae HMM, a cuckoo jump table, a
     # linear-probe lookup, the speculative cuckoo walk, the window
-    # extraction, a keyed sum-and-OR reduction): library_ms is null for each
+    # extraction, a keyed sum-and-OR reduction, a LinkStore walk):
+    # library_ms is null for each
     print(json.dumps({"kernels": [
         {"name": "sw_banded", "route": "cuda",
          "source": "corticall_tpu_torch/csrc/sw_banded.cu",
@@ -1405,6 +1686,12 @@ def main() -> int:
          "launches": bp["launches"]["segment_reduce"], "max_abs_err": chunk["reduce_err"],
          "ms": chunk["reduce_ms"], "plain_ms": chunk["reduce_plain_ms"],
          **chunk["reduce_bound"], "library_ms": None},
+        {"name": "link_walk", "route": "cuda",
+         "source": "corticall_tpu_torch/csrc/walk_links.cu",
+         "replaces": "corticall_tpu/ops/walk_links.py:199",
+         "launches": lp["launches"], "max_abs_err": lp["max_abs_err"],
+         "ms": lp["kernel_ms"], "plain_ms": lp["plain_ms"], **lp["bound"],
+         "library_ms": None, "plain_lanes": lp["twin_lanes"]},
     ]}), flush=True)
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(nvidia_smi(), flush=True)

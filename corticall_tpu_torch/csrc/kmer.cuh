@@ -11,6 +11,7 @@ namespace {
 
 constexpr uint32_t kTag = 0x80000000u;     // a bucket entry's tag: occupied
 constexpr uint32_t kGolden = 0x9E3779B9u;  // the second bucket's hash salt
+constexpr unsigned kFullMask = 0xFFFFFFFFu;  // every lane of a warp
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
@@ -91,6 +92,32 @@ __device__ __forceinline__ void shift_append(const uint32_t (&in)[W],
 // lowest set base of a 4-bit mask; 3 for an empty mask, as kmer_jax gives
 __device__ __forceinline__ uint32_t lowest_set_base(uint32_t mask) {
   return (mask & 1u) ? 0u : (mask & 2u) ? 1u : (mask & 4u) ? 2u : 3u;
+}
+
+// The one-gather cuckoo lookup (corticall_tpu/ops/cuckoo.py::lookup_payload,
+// line 190) by a whole warp: buckets [NB][bs][W+1] words, an entry (key
+// words..., tag), tag = 0x80000000 | payload.  Lane e reads entry e of the
+// pair (primary bucket h, then second bucket mix32(h ^ kGolden)), both
+// buckets always, as the gather does; the payload is the maximum over the
+// entries holding the key (0: a miss), the same in every lane.  Every lane of
+// the warp must call it.
+template <int W>
+__device__ __forceinline__ uint32_t warp_lookup_payload(const uint32_t* __restrict__ buckets,
+                                                        uint32_t nb_mask, int bs,
+                                                        const uint32_t (&canon)[W], int lane) {
+  const uint32_t h = hash_words<W>(canon);
+  const uint32_t b1 = h & nb_mask, b2 = mix32(h ^ kGolden) & nb_mask;
+  uint32_t best = 0u;
+  for (int e = lane; e < 2 * bs; e += 32) {
+    const uint32_t* ent =
+        buckets + ((size_t)(e < bs ? b1 : b2) * bs + (e < bs ? e : e - bs)) * (W + 1);
+    const uint32_t tag = __ldg(ent + W);
+    bool match = tag >= kTag;
+#pragma unroll
+    for (int j = 0; j < W; ++j) match = match && __ldg(ent + j) == canon[j];
+    if (match) best = max(best, tag & 0x7FFFFFFFu);
+  }
+  return __reduce_max_sync(kFullMask, best);
 }
 
 bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }

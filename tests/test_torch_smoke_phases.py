@@ -1,13 +1,15 @@
-"""A tiny CPU rehearsal of chip_smoke.py's phases 9 (walk_table_vs_plain)
-and 10 (build_device): a 20 kbp bench graph, 300 walks of 64 steps, three
-small read sets and chunks of 2^14 bases, with the four kernel launches
-replaced by fakes that write their plain twins' results and count a launch,
-and host timers for the CUDA events.  It runs in a fresh process, since
-chip_smoke.py makes jax and corticall_tpu unimportable in the process that
-imports it.  The phases' own checks (twins against the outputs, launch
-counts, identical graphs and counts) must pass, and the slots, key rows
-and bucket rows that phase 9 counts for its bounds must equal a count made
-one query and one lane at a time."""
+"""A tiny CPU rehearsal of chip_smoke.py's phases 9 (walk_table_vs_plain),
+10 (build_device) and 11 (link_walk_vs_plain): a 20 kbp bench graph, 300
+walks of 64 steps, three small read sets and chunks of 2^14 bases; a small
+trio with threaded links, its ROI-like seeds and 400 linked walks of 256
+steps.  The kernel launches are replaced by fakes that write their plain
+twins' results and count a launch, and the CUDA events by host timers.  It
+runs in fresh processes, since chip_smoke.py makes jax and corticall_tpu
+unimportable in the process that imports it.  The phases' own checks (twins
+against the outputs, launch counts, identical graphs and counts, linked
+contigs against the native walker) must pass, and what phases 9 and 11 count
+for their bounds must equal a count made one query and one lane at a
+time."""
 
 import json
 import os
@@ -75,8 +77,6 @@ def scalar_reads(g, bench, seed_strs) -> dict:
 
 def rehearse() -> dict:
     """Phases 9 and 10 at a tiny size on the CPU; returns their fields."""
-    import time
-
     import numpy as np
     import torch
 
@@ -86,13 +86,6 @@ def rehearse() -> dict:
     from corticall_tpu_torch.demo import build_bench_graph
     from corticall_tpu_torch.ops import build_device as bdv, cuckoo as ck, hashtable as ht
     from corticall_tpu_torch.ops import jump as tj, kmer as tk
-
-    def event_ms(fn, reps):
-        fn()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - t0) * 1e3 / reps
 
     def lookup_kernel(slots, keys, queries, max_probe, out):
         out.copy_(ht.lookup_plain(slots, keys, queries, max_probe))
@@ -142,8 +135,8 @@ def rehearse() -> dict:
         bdv.reduce_kernel(keys, cov, masks, *out, count)
         return tuple(x[:int(count)] for x in out)
 
-    torch.cuda.synchronize = torch.cuda.empty_cache = lambda *a: None
-    cs.event_ms, cs.SPEC_STEPS = event_ms, 64
+    fake_timers(cs, torch)
+    cs.SPEC_STEPS = 64
     ht.lookup_kernel, ht.lookup = lookup_kernel, lookup
     ck.spec_walk_kernel, ck.walk_forward_spec = spec_walk_kernel, walk_forward_spec
     bdv.windows_kernel, bdv.extract_windows = windows_kernel, extract_windows
@@ -167,6 +160,156 @@ def rehearse() -> dict:
              for i, s in enumerate(("kid", "mom", "dad"))}
     build = cs.build_phase(cpu, reads, genome)
     return {"walk": walk, "build": build}
+
+
+def fake_timers(cs, torch):
+    import time
+
+    def event_ms(fn, reps):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    torch.cuda.synchronize = torch.cuda.empty_cache = lambda *a: None
+    cs.event_ms = event_ms
+
+
+def link_trio(k=31):
+    """The port's graph of a small trio whose child has a hub sequence every
+    150 bases, the child's links threaded from 300 bp reads, and ROI-like
+    seeds (a graph of child k-mers, sample "kid")."""
+    import numpy as np
+
+    from corticall_tpu_torch import fixtures
+    from corticall_tpu_torch.io import links as tlinks
+
+    rng = np.random.default_rng(5)
+    mom = "".join(rng.choice(list("ACGT"), 3000))
+    dad = mom[:1500] + "".join(rng.choice(list("ACGT"), 1500))
+    hub = "".join(rng.choice(list("ACGT"), k + 12))
+    kid = hub.join((mom[:1600] + dad[1600:])[i:i + 150] for i in range(0, 3000, 150))
+    g = fixtures.build_graph({"mom": [mom], "dad": [dad], "kid": [kid]}, k)
+    links = tlinks.build_links(g, {"kid": [kid[i:i + 300] for i in range(0, len(kid) - 300, 60)]},
+                               "kid")
+    rois = fixtures.build_graph({"kid": [kid[i:i + k] for i in range(0, len(kid) - k, 53)]}, k)
+    return {"graph": g, "rois": rois, "links": [links]}
+
+
+def scalar_link_reads(out, seeds, num_steps) -> dict:
+    """The bucket rows, records, CSR offsets and pool rows the bulk linked
+    walks read, their walk steps, and the steps' operations (by
+    chip_smoke.link_step_ops, with the twin's store sizes), counted one lane
+    at a time on strings from the twin's output."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from corticall_tpu_torch import kmer as km
+    from corticall_tpu_torch.ops import walk_links as wl
+    from corticall_tpu_torch.ops.placement import np_h2, np_hash_words
+
+    g, links = out["graph"], out["links"]
+    k = g.kmer_size
+    walker = wl.LinkedWalker(g, [g.color_for_sample("kid")], links, device="cpu")
+    sizes = torch.full((num_steps, seeds.shape[0]), -1, dtype=torch.int8)
+    emitted = wl.walk_links_forward_plain(*walker.args, seeds, k, num_steps,
+                                          store_sizes=sizes)[0].numpy()
+    sizes = sizes.numpy()
+    mask = np.uint32(walker.args[0].shape[0] - 1)
+    edges, offsets, fw = (walker.args[i].numpy() for i in (1, 2, 5))
+    rows, recs, steps, per_step = set(), set(), 0, []
+    for lane, words in enumerate(seeds):
+        cur = km.codes_to_string(km.unpack_words(words[None], k)[0])
+        for t in range(num_steps):
+            canon = min(cur, km.revcomp(cur))
+            h = np_hash_words(km.pack_codes(km.strings_to_codes([canon]), k))
+            rows.update((int(h[0] & mask), int(np_h2(h)[0] & mask)))
+            rec = g.find_record(cur)
+            cnt = gated = succ = 0
+            if rec >= 0:
+                recs.add(rec)
+                flipped = canon != cur
+                cnt = min(int(offsets[rec + 1] - offsets[rec]), wl.MAX_ADD)
+                gated = sum(bool(fw[offsets[rec] + j]) != flipped for j in range(cnt))
+                succ = bin(int(edges[rec]) >> 4 if flipped else int(edges[rec]) & 0xF).count("1")
+            per_step.append((t == 0, cnt, gated, sizes[t - 1, lane] if t else 0,
+                             sizes[t, lane], succ))
+            steps += 1
+            v = int(emitted[t, lane])
+            if v < 0:
+                break
+            cur = cur[1:] + "ACGT"[v & 3]
+    pool = sum(min(int(offsets[r + 1] - offsets[r]), wl.MAX_ADD) for r in recs)
+    first, *counts = (torch.tensor(np.asarray(c, dtype=np.int64)) for c in zip(*per_step))
+    ops = cs.link_step_ops(cs.link_kmer_ops(seeds.shape[1], walker.args[0].shape[1]),
+                           first.bool(), *counts)
+    return {"bucket_rows": len(rows), "records": len(recs),
+            "offsets": len(recs | {r + 1 for r in recs}), "pool_rows": pool,
+            "walk_steps": steps, "ops": int(ops.sum())}
+
+
+def rehearse_links() -> dict:
+    """Phase 11 at a tiny size on the CPU; returns its fields and the
+    scalar count of the bulk walks' reads."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(TESTS))
+    import chip_smoke as cs
+    from corticall_tpu_torch.ops import walk_links as wl
+
+    def link_walk_kernel(*args):
+        *tables, seeds, k, num_steps, stream, overflow, steps, junctions = args
+        want = wl.walk_links_forward_plain(*tables, seeds, k, num_steps)
+        stream.fill_(-1)
+        stream[:, :num_steps] = want[0].t()
+        for o, w in zip((overflow, steps, junctions), want[1:]):
+            o.copy_(w)
+        wl.LAUNCHES["link_walk"] += 1
+
+    def walk_links_forward(*args, device=None):
+        *arrays, k, num_steps = args
+        dev = wl._device(arrays, device)
+        tables = wl.link_tables(*arrays[:6], k, dev)
+        seeds = wl._tensor(arrays[6], dev)
+        b = seeds.shape[0]
+        bufs = (torch.empty((b, wl.emit_pitch(num_steps)), dtype=torch.int8),
+                torch.empty(b, dtype=torch.uint8), torch.empty(b, dtype=torch.int32),
+                torch.empty(b, dtype=torch.int32))
+        wl.link_walk_kernel(*tables, seeds, k, num_steps, *bufs)
+        return bufs[0][:, :num_steps].t(), bufs[1].view(torch.bool), bufs[2], bufs[3]
+
+    torch.set_num_threads(1)        # many tiny ops: threads only contend with other workers
+    fake_timers(cs, torch)
+    real = wl.link_walk_kernel, wl.walk_links_forward
+    wl.link_walk_kernel, wl.walk_links_forward = link_walk_kernel, walk_links_forward
+    cs.LINK_SEEDS, cs.JUMP_STEPS, cs.PF_MAX_WALK, cs.LINK_TWIN_CHUNK = 400, 256, 512, 160
+    out = link_trio()
+    phase = cs.link_walk_phase(torch.device("cpu"), out)
+    n = out["graph"].num_records
+    seeds = out["graph"].kmers[np.arange(cs.LINK_SEEDS) * 17 % n].view(np.int32)
+    wl.link_walk_kernel, wl.walk_links_forward = real
+    phase["scalar_reads"] = scalar_link_reads(out, torch.from_numpy(seeds), cs.JUMP_STEPS)
+    return phase
+
+
+def test_link_walk_phase_rehearses_on_cpu(tmp_path):
+    code = (f"import json, sys; sys.path.insert(0, {TESTS!r}); "
+            "import test_torch_smoke_phases as t; print(json.dumps(t.rehearse_links()))")
+    env = {**os.environ, "CORTICALL_TPU_TESTS_ON_TPU": "1"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600, env=env, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["launches"] == 2
+    assert out["mismatches"] == 0 and out["max_abs_err"] == 0.0
+    assert out["twin_lanes"] == out["lanes"] == 400 and out["twin_note"] == "every lane"
+    assert out["junctions_resolved"] > 0 and out["bulk_junctions"] > 0
+    assert out["decoded_seeds"] == out["roi_seeds"] and out["roi_steps"] > 0
+    assert out["scalar_reads"] == out["reads"]
+    assert out["bound"]["bound_ms"] > 0 and out["truncated_links"] == 0
 
 
 def test_walk_table_and_build_phases_rehearse_on_cpu(tmp_path):

@@ -69,13 +69,27 @@ Phases, one JSON line each (progress goes to stderr):
    walked as Partition walks it (no contig of a walk without overflow may
    differ, once decoded by the host's seen rule), then 262,144 record
    k-mers x 2,000 steps through ctk_link_walk against its plain twin, on
-   every lane within the twin's 60 s budget, timed beside the bound.
+   every lane within the twin's 60 s budget, timed beside the bound;
+12. mesh_vs_plain: the hash-sharded graph (corticall_tpu_torch.parallel
+   .mesh) on four shards, all on the card: on phase 6's graph, the sharded
+   walk of phase 9's 262,144 seeds x 256 steps (the exchange's bytes and ms
+   a step) and one sharded step of 262,144 queries all owned by shard 3; on
+   phase 4's trio, the sharded linked walks of the sorted ROI k-mers at
+   2,000 steps; then the walks again with every kernel call held against
+   its plain twin (the linked walks' calls of their first 128 steps and of
+   every 16th after), the walk against the single-device walk of phase 9
+   (every lane's stream, and the first 16,384 decoded by replay_walk on
+   both sides), the skewed step against the host's, the linked walks'
+   streams against LinkedWalker's, sharded FindROIs against FindROIs,
+   and sharded_call on two Callers against phase 4's calls.vcf, byte for
+   byte; ctk_route, ctk_shard_answer, ctk_shard_walk_step and ctk_link_step
+   timed at a call of those runs beside their bounds.
 
 Then one JSON line with each kernel's route, source, launches, error,
-times and bound (eleven kernels), the nvidia-smi line, and the result line.
+times and bound (fifteen kernels), the nvidia-smi line, and the result line.
 Any failure raises: the run exits non-zero and prints no result, as it does
 without a CUDA device or outside the repository.  Neither jax nor the JAX
-package (corticall_tpu) is ever imported.  About 8-9 minutes on one H100,
+package (corticall_tpu) is ever imported.  About 12-13 minutes on one H100,
 most of it host work (graph simulation and builds, the placements, the
 plain twins).
 """
@@ -103,6 +117,7 @@ from corticall_tpu_torch.ops import cuckoo as ck  # noqa: E402
 from corticall_tpu_torch.ops import hashtable as ht  # noqa: E402
 from corticall_tpu_torch.ops import jump as tj  # noqa: E402
 from corticall_tpu_torch.ops import kmer as tk  # noqa: E402
+from corticall_tpu_torch.ops import sharding as sh  # noqa: E402
 from corticall_tpu_torch.ops import sw_device as tsw  # noqa: E402
 from corticall_tpu_torch.ops import tesserae_torch as tt  # noqa: E402
 
@@ -570,6 +585,8 @@ def run_main_path(dev, mbp):
                                log=lambda *a: log(" ".join(map(str, a))))
             torch.cuda.synchronize()
             pipeline_s = time.perf_counter() - t0
+            with open(os.path.join(wd, "calls.vcf"), "rb") as f:
+                calls_vcf = f.read()
         launches = {"sw_banded": tsw.LAUNCHES, "tesserae": tt.LAUNCHES}
     finally:
         tsw.sw_banded, tt.tesserae_fused = sw_kernel, ts_kernel
@@ -578,7 +595,7 @@ def run_main_path(dev, mbp):
                   recombs=res.get("recombs"))
     return {"out": out, "res": res, "ev": ev, "launches": launches, "reads": reads,
             "sw_sent": sw_sent, "ts_sent": ts_sent, "section_targets": section_targets,
-            "simulate_s": simulate_s,
+            "simulate_s": simulate_s, "refs": refs, "calls_vcf": calls_vcf,
             "pipeline_s": pipeline_s}
 
 
@@ -768,7 +785,8 @@ def jump_phase(dev):
         "walk_peak_memory": peak, "sweep": sweep}
     del rows, buckets, kd, ed, fd, st, got, wt
     torch.cuda.empty_cache()
-    return out, {"g": g, "genome": genome, "nb": nb, "entry": entry, "seeds": seeds}
+    return out, {"g": g, "genome": genome, "nb": nb, "entry": entry, "seeds": seeds,
+                 "seed_strs": seed_strs}
 
 
 def partition_phase(dev, out) -> dict:
@@ -1482,6 +1500,508 @@ def link_walk_phase(dev, out) -> dict:
     return result
 
 
+# ---- phase 12: the hash-sharded graph on a mesh of shards on the card -------
+
+MESH_SHARDS = 4                               # shards of the sharded graph, all on the card
+MESH_CALL_SHARDS = 2                          # sharded_call's Callers, both on the card
+MESH_SKEW_SHARD = 3                           # test_mesh.py:136's owner of every skewed query
+MESH_REPLAY_SEEDS = 16_384                    # walks decoded by replay_walk on both sides
+# the linked walks' calls held against their twins: every call of the first
+# MESH_LINK_CHECK_STEPS steps, then every MESH_LINK_CHECK_EVERY-th step (a
+# twin's step costs ~3 ms a shard, launch-bound, so every call of the 2,000
+# steps took 90 s on an H100)
+MESH_LINK_CHECK_STEPS, MESH_LINK_CHECK_EVERY = 128, 16
+QUEUE_SPIN_CYCLES = 2_000_000                 # ~1 ms of spinning ahead of a timed launch
+# 32-bit integer operations a query or walk, counted from the functions the
+# kernels compute (ops/kmer.py, ops/sharding.py), as link_kmer_ops counts
+# them: the canonical form 28 a word + 1; the routing hash (hash_words 10 a
+# word + 8, the salt, mix32 8, the modulo) 10 a word + 18; the owner count
+# and the slot 6; the answer's hash and second bucket 10 a word + 19, each
+# entry of both buckets 2 a word + 2, the edge byte 2 a colour, a link row
+# 4; the walk step's successor, shift_append, cycle test, Brent state and
+# emission 8 a word + 25.
+ROUTE_OPS = (38, 25)                          # (a word, a query)
+ANSWER_OPS = (10, 19)
+WALK_STEP_OPS = (8, 25)
+
+
+# each sharding wrapper's plain twin, by the wrapper's name
+MESH_TWINS = {"route": sh.route_plain, "shard_answer": sh.shard_answer_plain,
+              "shard_walk_step": sh.shard_walk_step_plain, "link_step": sh.link_step_plain}
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device time of fn()'s launches, each run queued behind a spin
+    so that the host's launch overhead falls outside the events."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(stop)
+    return total / reps
+
+
+def mesh_clone(x, stream: bool = True):
+    """A copy of a sharding wrapper's argument: tensors, routes and walk
+    states (`stream=False`: a state's stream left unwritten, for a twin
+    that writes one row of it)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, sh.Route):
+        return sh.Route(*(t.clone() for t in x))
+    if isinstance(x, (sh.WalkState, sh.LinkState)):
+        return type(x)(**{f: (v.clone() if stream or f != "stream" else torch.empty_like(v))
+                          for f, v in vars(x).items()})
+    return x
+
+
+def checked(fn, keep=lambda name, args: False, compare=lambda name, i: True):
+    """fn() with each of the four sharding wrappers replaced by one that
+    launches its kernel (the wrapper as it was) and, on the kernel's i-th
+    call where `compare(name, i)`, runs its plain twin on a copy of the
+    same inputs, raising on any difference: a route in its queries' order
+    (route_by_query, whatever order the atomic cursor gave), answers as they
+    are, a step's every state field and its stream row.  Returns (fn's
+    result, the largest difference and the calls compared of each kernel,
+    and a copy of the inputs of the first call of each that `keep(name,
+    args)` accepts)."""
+    real = {name: getattr(sh, name) for name in MESH_TWINS}
+    errs, calls, kept = dict.fromkeys(real, 0.0), dict.fromkeys(real, 0), {}
+    seen = dict.fromkeys(real, 0)
+
+    def wrap(name):
+        def run(*args):
+            if name not in kept and keep(name, args):
+                kept[name] = tuple(mesh_clone(a) for a in args)
+            seen[name] += 1
+            if not compare(name, seen[name] - 1):
+                return real[name](*args)
+            before = tuple(mesh_clone(a, stream=False) for a in args)
+            got = real[name](*args)
+            want = MESH_TWINS[name](*before)
+            if name == "route":
+                err = max(same(a, b, f"route {what}") for what, a, b in zip(
+                    ("words", "owner", "flipped", "counts"), sh.route_by_query(got),
+                    sh.route_by_query(want)))
+            elif name == "shard_answer":
+                err = same(got, want, "shard_answer")
+            else:
+                step = args[4]
+                err = max(same(getattr(args[0], f)[step] if f == "stream" else getattr(args[0], f),
+                               getattr(before[0], f)[step] if f == "stream"
+                               else getattr(before[0], f), f"{name} {f}")
+                          for f in vars(args[0]))
+            errs[name] = max(errs[name], err)
+            calls[name] += 1
+            return got
+        return run
+
+    for name in real:
+        setattr(sh, name, wrap(name))
+    try:
+        out = fn()
+    finally:
+        for name, f in real.items():
+            setattr(sh, name, f)
+    return out, errs, calls, kept
+
+
+def exchange_timed(fn):
+    """fn() with the sharded graph's exchange (mesh.dispatch and
+    mesh.combine: the copies between shards, the host's read of the
+    counts) timed on the host clock, each call ended by a synchronize.
+    Returns (fn's result, {"calls", "bytes", "seconds"})."""
+    from corticall_tpu_torch.parallel import mesh as pm
+
+    stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
+    dispatch, combine = pm.dispatch, pm.combine
+
+    def clocked(f, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = f(*a)
+        torch.cuda.synchronize()
+        stats["seconds"] += time.perf_counter() - t0
+        return out
+
+    def dispatch_timed(mesh, routes):
+        recv, counts = clocked(dispatch, mesh, routes)
+        stats["calls"] += 1
+        stats["bytes"] += nbytes(*recv)
+        return recv, counts
+
+    def combine_timed(mesh, answers, counts):
+        back = clocked(combine, mesh, answers, counts)
+        stats["bytes"] += nbytes(*back)
+        return back
+
+    pm.dispatch, pm.combine = dispatch_timed, combine_timed
+    try:
+        out = fn()
+    finally:
+        pm.dispatch, pm.combine = dispatch, combine
+    return out, stats
+
+
+def route_bound(cur, active, k: int, n: int, route):
+    """ctk_route's bound, as (bytes, operations): the queries (and their active flags) in; the
+    routed queries' words, each query's slot, owner and flag, and the
+    counts out; ROUTE_OPS a query."""
+    w, routed = cur.shape[1], int(route.counts.sum())
+    moved = (nbytes(cur, route.slot, route.owner, route.flipped, route.counts)
+             + (0 if active is None else nbytes(active)) + routed * w * 4)
+    return moved, cur.shape[0] * (ROUTE_OPS[0] * w + ROUTE_OPS[1])
+
+
+def answer_bound(recv, buckets, edges, colors, links, ans):
+    """ctk_shard_answer's bound, as (bytes, operations): the queries in, the answers out, the
+    distinct buckets their lookups read (both candidates), the colours'
+    edge bytes of the distinct records found, and with the link CSR their
+    offsets and pool rows (at most MAX_ADD a record); ANSWER_OPS a query,
+    the entries' compares, the colours' ORs and the rows' copies."""
+    (r, w), (nb, bs, _) = recv.shape, buckets.shape
+    h = tk.hash_words(tk.from_bits32(recv))
+    ids = torch.cat([h & (nb - 1), tk.mix32(h ^ tj.GOLDEN) & (nb - 1)])
+    rec = ans[:, sh.ANS_REC].to(torch.int64)
+    hit = torch.unique(rec[rec >= 0])
+    moved = nbytes(recv, ans) + bucket_bytes(buckets, ids) + hit.numel() * len(colors)
+    ops = r * (ANSWER_OPS[0] * w + ANSWER_OPS[1] + 2 * bs * (2 * w + 2) + 2 * len(colors))
+    if links is not None:
+        off = links[0].to(torch.int64)
+        rows = int((off[hit + 1] - off[hit]).clamp(max=sh.MAX_ADD).sum())
+        moved += hit.numel() * 8 + rows * LINK_POOL_ROW_BYTES
+        ops += r * 4 * sh.MAX_ADD
+    return moved, ops
+
+
+def changed_bytes(before, after) -> int:
+    """The bytes of `after` whose elements differ from `before`'s: what a
+    step that updates a tensor in place must write."""
+    return int((before != after).sum()) * after.element_size()
+
+
+def walk_step_bound(before, after, route, back, cycle_check: bool = True):
+    """ctk_shard_walk_step's bound, as (bytes, operations), from the state
+    before and after the step: every walk's active flag in; each live
+    walk's words, route flag and slot, answer row and (with the cycle test)
+    saved words, power and lam in; each advancing walk's steps in; every
+    state element the step changed out (cur, steps and lam where a walk
+    advances, saved and power where it teleports, cycled where a cycle is
+    found, active where a walk stops), and the stream row out;
+    WALK_STEP_OPS a live walk."""
+    live = int(before.active.to(torch.bool).sum())
+    advanced = int((after.steps != before.steps).sum())
+    b, w = before.cur.shape
+    walk_in = w * 4 + 1 + 4 + back.shape[1] * 4 + ((w + 2) * 4 if cycle_check else 0)
+    moved = (nbytes(before.active) + live * walk_in + advanced * 4 + b
+             + sum(changed_bytes(getattr(before, f), getattr(after, f))
+                   for f in ("cur", "active", "saved", "power", "lam", "cycled", "steps")))
+    return moved, live * (WALK_STEP_OPS[0] * w + WALK_STEP_OPS[1])
+
+
+def link_step_bound(before, after, route, back, step: int):
+    """ctk_link_step's bound, as (bytes, operations), from the state before
+    and after the step: every walk's active flag and slot in; each routed
+    walk's record count in (an inactive one only takes its overflow); each
+    live walk's words, route flag, edge byte, its first min(count, MAX_ADD)
+    link rows, its store's valid flags and the other fields of its valid
+    elements in, and its junction count where it takes a choice; every
+    element of the state and stores that the step changed out, and the
+    stream row out.  The live walks' operations by link_step_ops (the shift
+    and emission for the k-mer's work: the lookup is the answer's), with
+    each walk's records, gated records, store sizes before and after and
+    successors read from these inputs and outputs."""
+    live = before.active.to(torch.bool)
+    routed = route.slot >= 0
+    b, w = before.cur.shape
+    count = back[route.slot[routed].to(torch.int64), sh.ANS_CNT].to(torch.int64)
+    got = back[route.slot[live].to(torch.int64)].to(torch.int64)
+    cnt = got[:, sh.ANS_CNT].clamp(max=sh.MAX_ADD)
+    valid = before.store[live][:, 6] != 0
+    junction_bytes = changed_bytes(before.junctions, after.junctions)
+    moved = (nbytes(before.active, route.slot) + count.numel() * 4
+             + int(live.sum()) * (w * 4 + 1 + 4 + sh.CAP * 4)
+             + int(cnt.sum()) * (sh.JW + 2) * 4
+             + int(valid.sum()) * (sh.STORE_FIELDS - 1) * 4 + junction_bytes + b
+             + sum(changed_bytes(getattr(before, f), getattr(after, f))
+                   for f in ("cur", "active", "overflow", "junctions", "store")))
+    flipped = route.flipped[live].to(torch.bool)
+    take = torch.arange(sh.MAX_ADD, device=got.device)[None, :] < cnt[:, None]
+    gated = (take & ((got[:, sh.ANS_FW:sh.LINK_ANSWER] != 0) == ~flipped[:, None])).sum(1)
+    edge = got[:, sh.ANS_EDGE]
+    succ = tk.popcount4(torch.where(flipped, edge >> 4, edge & 0xF))
+    sizes = [s.store[live][:, 6].to(torch.int64).sum(1) for s in (before, after)]
+    ops = link_step_ops(4 * w + 9, torch.full_like(cnt, step == 0, dtype=torch.bool), cnt,
+                        gated, *sizes, succ)
+    return moved, int(ops.sum())
+
+
+def mesh_kernel_rows(kept, errs) -> dict:
+    """Each kernel at the inputs `checked` kept: its time (queued_ms, on
+    fresh copies), its twin's (host clock), its bound and, for ctk_route,
+    the library's packing (a stable argsort of the owners and a bincount)."""
+    rows = {}
+    for name, args in kept.items():
+        copies = iter([tuple(mesh_clone(a) for a in args) for _ in range(4)])
+        ms = queued_ms(lambda: getattr(sh, name)(*next(copies)), 3)
+        fresh = tuple(mesh_clone(a) for a in args)
+        plain_ms, out = host_ms(lambda: MESH_TWINS[name](*fresh))
+        library = None
+        if name == "route":
+            bound = route_bound(*args, out)
+            owner = out.owner.to(torch.int64)
+            library = queued_ms(lambda: (torch.argsort(owner, stable=True),
+                                         torch.bincount(owner, minlength=args[3])), 3)
+            shape = {"queries": int(args[0].shape[0]), "shards": args[3]}
+        elif name == "shard_answer":
+            bound = answer_bound(*args, out)
+            shape = {"queries": int(args[0].shape[0]), "answer_words": int(out.shape[1])}
+        elif name == "shard_walk_step":
+            bound = walk_step_bound(args[0], fresh[0], *args[1:3], *args[5:])
+            shape = {"walks": int(args[0].cur.shape[0]), "step": args[4]}
+        else:
+            bound = link_step_bound(args[0], fresh[0], *args[1:3], args[4])
+            shape = {"walks": int(args[0].cur.shape[0]), "step": args[4]}
+        rows[name] = {"ms": round(ms, 5), "plain_ms": round(plain_ms, 3),
+                      **bound_fields(bound_ms(*bound)), "bytes": bound[0], "ops": bound[1],
+                      "library_ms": None if library is None else round(library, 5),
+                      "max_abs_err": errs[name], **shape}
+    return rows
+
+
+def compact_stream(bases: torch.Tensor, num_steps: int) -> torch.Tensor:
+    """A walk_forward_spec stream (int8 [T, B], -1 at a stall and after the
+    walk's end) as the sharded walk writes it: each lane's bases in order,
+    then -1, in [num_steps, B]."""
+    valid = bases >= 0
+    row = valid.to(torch.int64).cumsum(0) - 1
+    col = torch.arange(bases.shape[1], device=bases.device).expand_as(bases)
+    out = torch.full((num_steps, bases.shape[1]), -1, dtype=torch.int8, device=bases.device)
+    out[row[valid], col[valid]] = bases[valid]
+    return out
+
+
+def plain_step(g, queries: np.ndarray, colors, k: int):
+    """make_sharded_walk_step's oracle on the host (test_mesh.py:136's):
+    every query's record by the graph's own search, the combined edge byte,
+    and the single-successor advance; (cur uint32 [B, W], advanced bool
+    [B])."""
+    words = torch.from_numpy(queries.astype(np.int64))
+    canon, flipped = tk.canonicalize_words(words, k)
+    rec = torch.from_numpy(g.find_records(canon.numpy().astype(np.uint32)))
+    found = rec >= 0
+    edge = torch.from_numpy(np.bitwise_or.reduce(g.edges[:, list(colors)], axis=1).astype(np.int64))
+    e = torch.where(found, edge[rec.clamp(min=0)], 0)
+    next_mask = torch.where(flipped, e >> 4, e & 0xF)
+    advance = (tk.popcount4(next_mask) == 1) & found
+    nxt = tk.shift_append(words, tk.lowest_set_base(next_mask), k)
+    return (torch.where(advance[:, None], nxt, words).numpy().astype(np.uint32),
+            advance.numpy())
+
+
+def mesh_phase(dev, out, bench, mp) -> dict:
+    """Phase 12: the hash-sharded graph (parallel/mesh.py) on MESH_SHARDS
+    shards, all on the card.  The path (launches counted): on phase 6's
+    graph, make_sharded_walk_run over phase 6's seeds x SPEC_STEPS (phase
+    9's walks) and one make_sharded_walk_step of skewed queries (every one
+    owned by MESH_SKEW_SHARD); on phase 4's trio, sharded_assemble_links
+    over the sorted ROI k-mers at Partition's max_walk.  Then: the walk run
+    again with its exchange timed (exchange_timed), equal to the path's;
+    once more with every kernel call held against its twin on the same inputs
+    (`checked`), equal to the path's, and against the single-device walk
+    (walk_forward_spec on phase 9's walk table): every lane's stream with
+    the stalls taken out, and MESH_REPLAY_SEEDS lanes decoded by
+    replay_walk on both sides; the skewed step against the host's step and
+    checked; the linked walks both ways again, checked on the calls of
+    their first MESH_LINK_CHECK_STEPS steps and every
+    MESH_LINK_CHECK_EVERY-th after, their streams equal to LinkedWalker's,
+    their contigs, overflow and junctions equal to LinkedWalker.assemble's;
+    sharded FindROIs against the host's FindROIs; and sharded_call on
+    MESH_CALL_SHARDS Callers, whose VCF must be phase 4's calls.vcf byte for
+    byte.  Each kernel is timed at a call of the checked runs."""
+    from corticall_tpu_torch import kmer as km
+    from corticall_tpu_torch.caller.call import Caller
+    from corticall_tpu_torch.commands import core as tcore
+    from corticall_tpu_torch.ops import walk_links as wl
+    from corticall_tpu_torch.ops import walk_np as wnp
+    from corticall_tpu_torch.parallel import mesh as pm
+
+    t_phase = time.perf_counter()
+    g, k = bench["g"], JUMP_K
+    mesh = pm.ShardMesh([dev] * MESH_SHARDS)
+    t0 = time.perf_counter()
+    sg = pm.ShardedGraph.from_graph(g, mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"sharded graph: {MESH_SHARDS} shards of {sg.counts.tolist()} records in {build_s:.1f} s")
+    seeds, ones = bench["seeds"], np.ones(len(bench["seeds"]), dtype=bool)
+    skew = sg.records[MESH_SKEW_SHARD][:len(seeds) // MESH_SHARDS]
+    skewed = np.tile(g.kmers[skew], (MESH_SHARDS, 1))
+    graph, rois, links = out["graph"], out["rois"], out["links"]
+    child = graph.color_for_sample(rois.sample_name(0))
+    parents = [graph.color_for_sample(p) for p in ("mom", "dad")]
+    t0 = time.perf_counter()
+    sgt = pm.ShardedGraph.from_graph(graph, mesh)
+    slt = pm.ShardedLinks.from_graph(graph, links, sgt)
+    torch.cuda.synchronize()
+    trio_build_s = time.perf_counter() - t0
+    cks = sorted(rois.kmer_string(i) for i in range(rois.num_records))
+    walk = pm.make_sharded_walk_run(mesh, sg, [0], k, SPEC_STEPS)
+    step = pm.make_sharded_walk_step(mesh, sg, [0], k)
+    walk(seeds[:MESH_SHARDS], ones[:MESH_SHARDS])              # first use
+
+    # the path, launches counted
+    for key in sh.LAUNCHES:
+        sh.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    walked = walk(seeds, ones)
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    walk_launches = dict(sh.LAUNCHES)
+    cur, advanced, live = step(skewed, np.ones(len(skewed), dtype=bool))
+    t0 = time.perf_counter()
+    contigs, overflow, junctions = pm.sharded_assemble_links(mesh, sgt, slt, [child], cks,
+                                                            PF_MAX_WALK)
+    torch.cuda.synchronize()
+    links_s = time.perf_counter() - t0
+    launches = dict(sh.LAUNCHES)
+    if not all(launches.values()):
+        raise AssertionError(f"a sharding kernel never launched: {launches}")
+
+    # the exchange alone: the walk again, each dispatch and combine between
+    # synchronizes (so walk_s above has none of them)
+    rerun, exchange = exchange_timed(lambda: walk(seeds, ones))
+    for name, a, b in zip(("bases", "cycled", "steps"), rerun, walked):
+        same(a, b, f"the sharded walk's {name}, run with its exchange timed")
+    del rerun
+
+    # the walk run: every kernel call against its twin; then the single-device
+    # walk: every lane's stream (its stalls taken out), cycle flag and steps,
+    # and the first MESH_REPLAY_SEEDS lanes' extensions through replay_walk
+    t0 = time.perf_counter()
+    again, errs, calls, kept = checked(lambda: walk(seeds, ones),
+                                       lambda name, args: name != "link_step")
+    checked_s = time.perf_counter() - t0
+    for name, a, b in zip(("bases", "cycled", "steps"), again, walked):
+        same(a, b, f"the sharded walk's {name}, run again")
+    edges = np.ascontiguousarray(g.edges[:, 0])
+    table, _ = tj.scatter_buckets(g.kmers, bench["nb"], bench["entry"], dev, payload=edges)
+    spec = ck.walk_forward_spec(table, tk.words_tensor(seeds, dev), k, SPEC_STEPS)
+    del table
+    for name, a, b in zip(("bases", "cycled", "steps"), walked,
+                          (compact_stream(spec[0], SPEC_STEPS), *spec[1:])):
+        same(a, b, f"the sharded walk's {name} against the single-device walk's")
+    t0 = time.perf_counter()
+    strs, r = bench["seed_strs"][:MESH_REPLAY_SEEDS], MESH_REPLAY_SEEDS
+    got_ext = wnp.batch_replay_exts(strs, walked[0][:, :r].t().cpu().numpy(),
+                                    walked[1][:r].cpu().numpy(), SPEC_STEPS)
+    want_ext = wnp.batch_replay_exts(strs, spec[0][:, :r].t().cpu().numpy(),
+                                     spec[1][:r].cpu().numpy(), SPEC_STEPS)
+    replay_s = time.perf_counter() - t0
+    if got_ext != want_ext:
+        bad = sum(a != b for a, b in zip(got_ext, want_ext))
+        raise AssertionError(f"{bad} sharded walks differ from the single-device walk")
+    steps_total = int(walked[2].sum())
+    del spec, got_ext, want_ext
+
+    # the skewed step against the host's
+    want_cur, want_adv = plain_step(g, skewed, [0], k)
+    if not (np.array_equal(cur.cpu().numpy().view(np.uint32), want_cur)
+            and np.array_equal(advanced.cpu().numpy(), want_adv) and live == want_adv.sum()):
+        raise AssertionError("the skewed sharded step differs from the host's step")
+    (_, _, skew_live), skew_errs, _, _ = checked(
+        lambda: step(skewed, np.ones(len(skewed), dtype=bool)))
+    errs = {name: max(errs[name], skew_errs[name]) for name in errs}
+
+    # the linked walks: checked both ways, against LinkedWalker
+    walker = wl.LinkedWalker(graph, [child], links, device=dev)
+    rows, w_ov, _, w_jn, rc = walker.walk(cks, PF_MAX_WALK)
+    both = cks + rc
+    both = km.pack_codes(km.strings_to_codes(both + both[:(-len(both)) % MESH_SHARDS]),
+                         graph.kmer_size)
+    run_links = pm.make_sharded_linked_walk_run(mesh, sgt, slt, [child], graph.kmer_size,
+                                                PF_MAX_WALK)
+    t0 = time.perf_counter()
+    linked, link_errs, link_calls, link_kept = checked(
+        lambda: run_links(both, np.ones(len(both), dtype=bool)),
+        lambda name, args: name == "link_step" and args[4] == 1,
+        lambda name, i: (i // MESH_SHARDS < MESH_LINK_CHECK_STEPS
+                         or i // MESH_SHARDS % MESH_LINK_CHECK_EVERY == 0))
+    link_checked_s = time.perf_counter() - t0
+    errs = {name: max(errs[name], link_errs[name]) for name in errs}
+    kept.update(link_kept)
+    b2 = len(rows)
+    for name, a, b in zip(("emitted", "overflow", "junctions"),
+                          (linked[0][:, :b2], linked[1][:b2], linked[2][:b2]),
+                          (torch.from_numpy(rows).t(), torch.from_numpy(w_ov),
+                           torch.from_numpy(w_jn))):
+        same(a.cpu(), b, f"the sharded linked walk's {name} against LinkedWalker")
+    want_contigs, want_ov, want_jn = walker.assemble(cks, PF_MAX_WALK)
+    if [contigs[s] for s in cks] != list(want_contigs) or \
+            not np.array_equal(overflow, want_ov) or int(junctions.sum()) != int(want_jn.sum()):
+        raise AssertionError("sharded_assemble_links differs from LinkedWalker.assemble")
+    del walker
+
+    # FindROIs and Call
+    got_rois = pm.sharded_find_rois_kmers(mesh, sgt, child, parents)
+    want_rois = tcore.find_rois(graph, rois.sample_name(0), ["mom", "dad"])
+    if not np.array_equal(km.words_to_bytes_be(got_rois, graph.kmer_size),
+                          np.sort(km.words_to_bytes_be(want_rois.kmers, graph.kmer_size))):
+        raise AssertionError("sharded FindROIs differs from the host's FindROIs")
+    call_mesh = pm.ShardMesh([dev] * MESH_CALL_SHARDS)
+    parts, refs = out["partitions"], mp["refs"]
+    caller = Caller(graph, rois, parts, backgrounds=["mom", "dad"], references=refs,
+                    links=links, device=dev)
+    caller.call = lambda: pm.sharded_call(call_mesh, graph, rois, parts, ["mom", "dad"], refs,
+                                          {"links": links})
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_call_") as wd:
+        variants, _ = caller.write_outputs(os.path.join(wd, "calls.vcf"),
+                                           os.path.join(wd, "accounting.txt"))
+        vcf = open(os.path.join(wd, "calls.vcf"), "rb").read()
+    call_s = time.perf_counter() - t0
+    if vcf != mp["calls_vcf"]:
+        raise AssertionError("sharded_call's VCF differs from phase 4's calls.vcf")
+
+    kernels = mesh_kernel_rows(kept, errs)
+    log(f"mesh: walk {walk_s * 1e3:.1f} ms, exchange {exchange['seconds'] * 1e3:.1f} ms, "
+        f"kernels {kernels}")
+    result = {
+        "shards": MESH_SHARDS, "devices": [str(d) for d in mesh.devices],
+        "records": g.num_records, "shard_records": sg.counts.tolist(),
+        "sharded_build_s": round(build_s, 2), "trio_records": graph.num_records,
+        "trio_sharded_build_s": round(trio_build_s, 2),
+        "seeds": len(seeds), "max_steps": SPEC_STEPS, "steps": steps_total,
+        "cycled": int(walked[1].sum()), "walk_s": round(walk_s, 4),
+        "walk_steps_per_s": round(steps_total / walk_s),
+        "exchange": {"steps": exchange["calls"], "bytes": exchange["bytes"],
+                     "ms": round(exchange["seconds"] * 1e3, 3),
+                     "ms_a_step": round(exchange["seconds"] * 1e3 / max(exchange["calls"], 1), 4),
+                     "bytes_a_step": exchange["bytes"] // max(exchange["calls"], 1)},
+        "walk_launches": walk_launches, "launches": launches,
+        "checked_s": round(checked_s, 2), "checked_calls": calls,
+        "single_device_identical": True, "replayed_seeds": len(strs),
+        "replay_s": round(replay_s, 2),
+        "skewed_queries": len(skewed), "skewed_owner": MESH_SKEW_SHARD,
+        "skewed_advanced": live, "skewed_checked_live": skew_live,
+        "roi_seeds": len(cks), "links_s": round(links_s, 3),
+        "link_checked_s": round(link_checked_s, 2), "link_checked_calls": link_calls,
+        "overflows": int(overflow.sum()), "junctions": int(junctions.sum()),
+        "linked_identical": True, "rois": len(got_rois), "rois_identical": True,
+        "call_shards": MESH_CALL_SHARDS, "calls": len(variants), "call_s": round(call_s, 2),
+        "vcf_identical": True, "kernels": kernels,
+        "seconds": round(time.perf_counter() - t_phase, 2)}
+    del sg, sgt, slt, walked, again, linked, kept
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     dev = require_cuda()
     t_all = time.perf_counter()
@@ -1605,19 +2125,25 @@ def main() -> int:
     # ---- 10. the device graph build on the trio's reads and the genome ----
     bp = build_phase(dev, mp["reads"], bench["genome"])
     emit("build_device", **bp)
-    del bench
 
     # ---- 11. the linked device walker on the trio's graph and links ------
     lp = link_walk_phase(dev, out)
     emit("link_walk_vs_plain", identical=True, **lp)
+
+    # ---- 12. the hash-sharded graph on four shards of the card -------------
+    hp = mesh_phase(dev, out, bench, mp)
+    emit("mesh_vs_plain", identical=True, **hp)
+    del bench
 
     prod, full, rp_sw, rp_ts = sw_times[0], sp["shapes"][0], rp["sw"], rp["tesserae"]
     replayed, chunk = pp["replay"], bp["chunk"]
     # no single PyTorch call computes any of these functions (banded or
     # full Smith-Waterman, the Tesserae HMM, a cuckoo jump table, a
     # linear-probe lookup, the speculative cuckoo walk, the window
-    # extraction, a keyed sum-and-OR reduction, a LinkStore walk):
-    # library_ms is null for each
+    # extraction, a keyed sum-and-OR reduction, a LinkStore walk or step, a
+    # cuckoo lookup with its payload gather, a Brent walk step):
+    # library_ms is null for each but the route's packing by owner, timed as
+    # a stable argsort of the owners and a bincount
     print(json.dumps({"kernels": [
         {"name": "sw_banded", "route": "cuda",
          "source": "corticall_tpu_torch/csrc/sw_banded.cu",
@@ -1692,6 +2218,14 @@ def main() -> int:
          "launches": lp["launches"], "max_abs_err": lp["max_abs_err"],
          "ms": lp["kernel_ms"], "plain_ms": lp["plain_ms"], **lp["bound"],
          "library_ms": None, "plain_lanes": lp["twin_lanes"]},
+        *({"name": name, "route": "cuda", "source": source,
+           "replaces": f"corticall_tpu/parallel/mesh.py:{line}",
+           "launches": hp["launches"][name], **hp["kernels"][name]}
+          for name, source, line in (
+              ("route", "corticall_tpu_torch/csrc/shard.cu", 111),
+              ("shard_answer", "corticall_tpu_torch/csrc/shard.cu", 182),
+              ("shard_walk_step", "corticall_tpu_torch/csrc/shard.cu", 420),
+              ("link_step", "corticall_tpu_torch/csrc/walk_links.cu", 306))),
     ]}), flush=True)
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(nvidia_smi(), flush=True)

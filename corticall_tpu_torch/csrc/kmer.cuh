@@ -94,6 +94,18 @@ __device__ __forceinline__ uint32_t lowest_set_base(uint32_t mask) {
   return (mask & 1u) ? 0u : (mask & 2u) ? 1u : (mask & 4u) ? 2u : 3u;
 }
 
+// The payload of one bucket entry (key words..., tag) if it is occupied and
+// holds the key, else 0.
+template <int W>
+__device__ __forceinline__ uint32_t entry_payload(const uint32_t* __restrict__ ent,
+                                                  const uint32_t (&canon)[W]) {
+  const uint32_t tag = __ldg(ent + W);
+  bool match = tag >= kTag;
+#pragma unroll
+  for (int j = 0; j < W; ++j) match = match && __ldg(ent + j) == canon[j];
+  return match ? tag & 0x7FFFFFFFu : 0u;
+}
+
 // The one-gather cuckoo lookup (corticall_tpu/ops/cuckoo.py::lookup_payload,
 // line 190) by a whole warp: buckets [NB][bs][W+1] words, an entry (key
 // words..., tag), tag = 0x80000000 | payload.  Lane e reads entry e of the
@@ -108,16 +120,26 @@ __device__ __forceinline__ uint32_t warp_lookup_payload(const uint32_t* __restri
   const uint32_t h = hash_words<W>(canon);
   const uint32_t b1 = h & nb_mask, b2 = mix32(h ^ kGolden) & nb_mask;
   uint32_t best = 0u;
-  for (int e = lane; e < 2 * bs; e += 32) {
-    const uint32_t* ent =
-        buckets + ((size_t)(e < bs ? b1 : b2) * bs + (e < bs ? e : e - bs)) * (W + 1);
-    const uint32_t tag = __ldg(ent + W);
-    bool match = tag >= kTag;
-#pragma unroll
-    for (int j = 0; j < W; ++j) match = match && __ldg(ent + j) == canon[j];
-    if (match) best = max(best, tag & 0x7FFFFFFFu);
-  }
+  for (int e = lane; e < 2 * bs; e += 32)
+    best = max(best, entry_payload<W>(
+        buckets + ((size_t)(e < bs ? b1 : b2) * bs + (e < bs ? e : e - bs)) * (W + 1), canon));
   return __reduce_max_sync(kFullMask, best);
+}
+
+// The same lookup by one thread (a query a thread, as the shard's answer
+// makes it): both candidate buckets, every entry; the payload is the largest
+// among the entries holding the key (0: a miss).
+template <int W>
+__device__ __forceinline__ uint32_t thread_lookup_payload(const uint32_t* __restrict__ buckets,
+                                                          uint32_t nb_mask, int bs,
+                                                          const uint32_t (&canon)[W]) {
+  const uint32_t h = hash_words<W>(canon);
+  const uint32_t b1 = h & nb_mask, b2 = mix32(h ^ kGolden) & nb_mask;
+  uint32_t best = 0u;
+  for (int e = 0; e < 2 * bs; ++e)
+    best = max(best, entry_payload<W>(
+        buckets + ((size_t)(e < bs ? b1 : b2) * bs + (e < bs ? e : e - bs)) * (W + 1), canon));
+  return best;
 }
 
 bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }

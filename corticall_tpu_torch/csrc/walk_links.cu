@@ -1,58 +1,49 @@
-// The linked device walker: link-assisted walks with a LinkStore a walk.
+// The linked device walkers: link-assisted walks with a LinkStore a walk.
 //
-// Replaces the XLA device code of corticall_tpu/ops/walk_links.py:
-//   ctk_link_walk <- walk_links_forward (line 199), its scan step with
-//                    store_add (97), store_advance (135) and _char_at (192),
-//                    and the one-gather cuckoo lookup_payload of
+// Replace the XLA device code of corticall_tpu/ops/walk_links.py and
+// corticall_tpu/parallel/mesh.py:
+//   ctk_link_walk <- walk_links_forward (walk_links.py:199), its scan step
+//                    with store_add (97), store_advance (135) and _char_at
+//                    (192), and the one-gather cuckoo lookup_payload of
 //                    corticall_tpu/ops/cuckoo.py (line 190), all fused into
-//                    one launch over num_steps.
-// Plain PyTorch twin: corticall_tpu_torch/ops/walk_links.py::
-// walk_links_forward_plain.
+//                    one launch over num_steps;
+//   ctk_link_step <- one step of the sharded linked walk (mesh.py:300-325):
+//                    the same store step on the payload that the walk's
+//                    owning shard returned (ctk_shard_answer), a launch a
+//                    step, the store in global memory between launches.
+// Plain PyTorch twins: corticall_tpu_torch/ops/walk_links.py::
+// walk_links_forward_plain and ops/sharding.py::link_step_plain.
 //
-// One warp a walk, lane j = LinkStore element j (CAP = 32, the warp's
-// width): each lane keeps its element in registers (two choice words, len,
-// pos, age, seq, valid), and every reduction over the store is a warp
-// intrinsic, so a step needs no shared memory and no barrier:
-// - store_add: lanes 0-15 hold the current k-mer's link records 0-15 (the
-//   CSR gather, orientation-gated); a record's add rank and a free slot's
-//   free rank are popcounts of ballots below the lane, and the slot of free
-//   rank r pulls the record of add rank r with __shfl_sync.  The element's
-//   seq is seq_counter + its record index; seq_counter grows by MAX_ADD a
-//   step;
-// - store_advance: oldest_age by __reduce_max_sync, the first oldest by
-//   __ffs of a ballot (lane 0 when there is none, as jnp.argmax gives for an
-//   all-false row), rep_char and rep_words by __shfl_sync, agree by
-//   __all_sync, same_list compares both words, latest is the first lane
-//   holding the largest masked seq (lane 0 when all are -1);
-// - the lookup: the warp reads both candidate buckets, an entry a lane
-//   (kmer.cuh::warp_lookup_payload), and takes the payload (record + 1) as a
-//   maximum.
-// Every value a step decides is the same in all lanes, so the warp's control
-// flow is uniform.  A walk whose step does not advance stays on its k-mer for
-// good and adds nothing more (its store_add is gated by `active`, and the
-// rec_cnt > MAX_ADD overflow of that k-mer was counted on the step that
-// stopped it), so the warp writes -1 for the remaining steps and leaves.
+// One warp a walk, lane j = LinkStore element j (csrc/link_store.cuh holds
+// the step both kernels run).  ctk_link_walk keeps the element in registers
+// for the whole walk; its lookup is kmer.cuh::warp_lookup_payload (the warp
+// reads both candidate buckets, an entry a lane, and takes the payload,
+// record + 1, as a maximum).  A walk whose step does not advance stays on
+// its k-mer for good and adds nothing more (its store_add is gated by
+// `active`, and the rec_cnt > MAX_ADD overflow of that k-mer was counted on
+// the step that stopped it), so the warp writes -1 for the remaining steps
+// and leaves.  Emission is one byte a walk a step: the warp stages 32 steps'
+// bytes, one a lane, and writes them as one 32-byte sector of the walk-major
+// [B][pitch] stream (pitch a multiple of 32); the wrapper hands back the
+// [T, B] view.
 //
-// Emission is one byte a walk a step.  The warp stages 32 steps' bytes, one
-// a lane, and writes them as one 32-byte sector of the walk-major [B][pitch]
-// stream (pitch a multiple of 32); the wrapper hands back the [T, B] view.
+// ctk_link_step keeps the store element-minor, int32 [B][7][32] (two choice
+// words, length, position, age, sequence, valid), so that a warp's load or
+// store of one field is one coalesced 128-byte row; it reads the walk's
+// answer row by the walk's slot (the unsort of mesh.py:163-165) and writes
+// row `step` of the [T, B] stream.
 //
-// What bounds it on this card: each step is a chain of dependent random
-// reads (the bucket pair, then the record's edge byte and CSR offsets, then
-// its link records) and ~30 warp-synchronous shuffles and votes; the lever is
-// walks in flight (128-thread blocks of 4 walks, few registers).
+// What bounds them on this card: each step is a chain of dependent random
+// reads (ctk_link_walk: the bucket pair, then the record's edge byte and CSR
+// offsets, then its link records; ctk_link_step: the answer row and the
+// store's 896 bytes) and ~30 warp-synchronous shuffles and votes; the lever
+// is walks in flight (128-thread blocks of 4 walks, few registers).
 
-#include "kmer.cuh"
+#include "link_store.cuh"
 
 namespace {
 
-constexpr int kMaxAdd = 16;  // walk_links.MAX_ADD; the store's CAP is the warp
-
-// position of the n-th (from 0) set bit of mask; mask has more than n
-__device__ __forceinline__ int nth_set_bit(unsigned mask, int n) {
-  for (int i = 0; i < n; ++i) mask &= mask - 1u;
-  return __ffs(mask) - 1;
-}
+constexpr int kStoreFields = 7;  // sharding.STORE_FIELDS
 
 template <int W>
 __global__ void __launch_bounds__(128)
@@ -66,14 +57,11 @@ link_walk_kernel(const uint32_t* __restrict__ buckets, uint32_t nb_mask, int bs,
   const int lane = threadIdx.x & 31;
   const int walk = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (walk >= batch) return;  // a whole warp
-  const unsigned below = (1u << lane) - 1u;
   uint32_t cur[W];
 #pragma unroll
   for (int j = 0; j < W; ++j) cur[j] = seeds[(size_t)walk * W + j];
 
-  uint32_t ch0 = 0u, ch1 = 0u;  // this lane's element
-  int len = 0, pos = 0, age = 0, seq = 0;
-  bool valid = false;
+  LinkElement el{0u, 0u, 0, 0, 0, 0, false};  // this lane's element
   bool overflow = false;
   int seq_counter = 0, steps = 0, junctions = 0;
   int8_t* row = stream + (size_t)walk * pitch;
@@ -90,8 +78,6 @@ link_walk_kernel(const uint32_t* __restrict__ buckets, uint32_t nb_mask, int bs,
       off = __ldg(link_off + rec);
       cnt = __ldg(link_off + rec + 1) - off;
     }
-
-    // 1. store_add: records of this k-mer into the free slots, by rank
     bool gate = false;
     uint2 rch = make_uint2(0u, 0u);
     int rlen = 0;
@@ -103,72 +89,24 @@ link_walk_kernel(const uint32_t* __restrict__ buckets, uint32_t nb_mask, int bs,
         rlen = __ldg(link_len + idx);
       }
     }
-    const unsigned gmask = __ballot_sync(kFullMask, gate);
-    const unsigned fmask = __ballot_sync(kFullMask, !valid);
-    const int ngate = __popc(gmask);
-    const int rfree = __popc(fmask & below);
-    const bool filled = !valid && rfree < ngate;
-    const int src = filled ? nth_set_bit(gmask, rfree) : lane;
-    const uint32_t p0 = __shfl_sync(kFullMask, rch.x, src);
-    const uint32_t p1 = __shfl_sync(kFullMask, rch.y, src);
-    const int plen = __shfl_sync(kFullMask, rlen, src);
-    if (filled) {
-      ch0 = p0;
-      ch1 = p1;
-      len = plen;
-      pos = 0;
-      age = 0;
-      seq = seq_counter + src;
-      valid = true;
-    }
-    overflow = overflow || ngate > __popc(fmask) || cnt > kMaxAdd;
+    const LinkStep st =
+        link_store_step(el, gate, rch, rlen, cnt, edge, flipped, t == 0, seq_counter, overflow,
+                        lane);
     seq_counter += kMaxAdd;
 
-    // 2-4. successor choice, junction consume, ageing
-    const uint32_t next_mask = (flipped ? edge >> 4 : edge) & 0xFu;
-    const int n = __popc(next_mask);
-    const bool live = valid && pos < len;
-    const int oldest = __reduce_max_sync(kFullMask, live ? age : -1);
-    const bool is_oldest = live && age == oldest && oldest >= 0;
-    const uint32_t ch = (((pos >> 4) ? ch1 : ch0) >> (2 * (pos & 15))) & 3u;
-    const unsigned omask = __ballot_sync(kFullMask, is_oldest);
-    const int first = omask ? __ffs(omask) - 1 : 0;
-    const uint32_t rep_char = __shfl_sync(kFullMask, ch, first);
-    const bool agree = __all_sync(kFullMask, !is_oldest || ch == rep_char);
-    const uint32_t rep0 = __shfl_sync(kFullMask, ch0, first);
-    const uint32_t rep1 = __shfl_sync(kFullMask, ch1, first);
-    const int masked = (valid && ch0 == rep0 && ch1 == rep1) ? seq : -1;
-    const int latest_seq = __reduce_max_sync(kFullMask, masked);
-    const int latest = __ffs(__ballot_sync(kFullMask, masked == latest_seq)) - 1;
-    const uint32_t choice = __shfl_sync(kFullMask, ch, latest);
-
-    const bool is_first = t == 0;
-    const bool junction = n > 1;
-    const bool take_choice =
-        junction && omask != 0u && agree && ((next_mask >> choice) & 1u) && !is_first;
-    const uint32_t base = junction ? choice : lowest_set_base(next_mask);
-    const bool advance = n == 1 || take_choice;
-    if (take_choice) {
-      const bool keep = valid && ch == choice && pos + 1 < len;
-      if (keep) ++pos;
-      valid = keep;
-    }
-    const bool new_paths = __any_sync(kFullMask, valid && age == 0);
-    if (valid && !is_first) age += (junction ? 1 : 0) + (new_paths ? 1 : 0);
-    const bool store_active = __any_sync(kFullMask, valid);
-
-    const int8_t e = advance ? (int8_t)(base | (store_active ? 8u : 0u)) : (int8_t)-1;
+    const int8_t e =
+        st.advance ? (int8_t)(st.base | (st.store_active ? 8u : 0u)) : (int8_t)-1;
     if (lane == (t & 31)) staged = e;
     if ((t & 31) == 31) {
       row[t - 31 + lane] = staged;
       staged = -1;
     }
     ++t;
-    junctions += take_choice ? 1 : 0;
-    if (!advance) break;
+    junctions += st.take_choice ? 1 : 0;
+    if (!st.advance) break;
     ++steps;
     uint32_t nxt[W];
-    shift_append<W>(cur, base, k, nxt);
+    shift_append<W>(cur, st.base, k, nxt);
 #pragma unroll
     for (int j = 0; j < W; ++j) cur[j] = nxt[j];
   }
@@ -181,6 +119,71 @@ link_walk_kernel(const uint32_t* __restrict__ buckets, uint32_t nb_mask, int bs,
     overflow_out[walk] = overflow;
     steps_out[walk] = steps;
     junctions_out[walk] = junctions;
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(128)
+link_step_kernel(uint32_t* __restrict__ cur, int batch, int k, uint8_t* __restrict__ active,
+                 const uint8_t* __restrict__ flipped, const int* __restrict__ slot,
+                 const int* __restrict__ back, int a_cols, int* __restrict__ store,
+                 uint8_t* __restrict__ overflow_io, int* __restrict__ junctions, int step,
+                 int8_t* __restrict__ row) {
+  const int lane = threadIdx.x & 31;
+  const int walk = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (walk >= batch) return;  // a whole warp
+  const int sl = slot[walk];
+  if (sl < 0) {  // not routed: a walk that has ended
+    if (lane == 0) row[walk] = -1;
+    return;
+  }
+  const int* ans = back + (size_t)sl * a_cols;
+  const int cnt = __ldg(ans + kAnsCnt);
+  if (!active[walk]) {  // routed at the seed step while inactive: store_add's count overflow
+    if (lane == 0) {
+      if (cnt > kMaxAdd) overflow_io[walk] = 1;
+      row[walk] = -1;
+    }
+    return;
+  }
+  const bool fl = flipped[walk] != 0;
+  bool gate = false;
+  uint2 rch = make_uint2(0u, 0u);
+  int rlen = 0;
+  if (lane < min(cnt, kMaxAdd)) {
+    gate = (__ldg(ans + kAnsFw + lane) != 0) == !fl;
+    if (gate) {
+      rch = make_uint2((uint32_t)__ldg(ans + kAnsChoices + 2 * lane),
+                       (uint32_t)__ldg(ans + kAnsChoices + 2 * lane + 1));
+      rlen = __ldg(ans + kAnsLen + lane);
+    }
+  }
+  int* el_row = store + (size_t)walk * kStoreFields * 32 + lane;
+  LinkElement el{(uint32_t)el_row[0], (uint32_t)el_row[32], el_row[64], el_row[96],
+                 el_row[128], el_row[160], el_row[192] != 0};
+  bool overflow = overflow_io[walk] != 0;
+  const LinkStep st = link_store_step(el, gate, rch, rlen, cnt, (uint32_t)__ldg(ans + kAnsEdge),
+                                      fl, step == 0, step * kMaxAdd, overflow, lane);
+  el_row[0] = (int)el.ch0;
+  el_row[32] = (int)el.ch1;
+  el_row[64] = el.len;
+  el_row[96] = el.pos;
+  el_row[128] = el.age;
+  el_row[160] = el.seq;
+  el_row[192] = el.valid ? 1 : 0;
+  if (lane == 0) {
+    overflow_io[walk] = overflow;
+    junctions[walk] += st.take_choice ? 1 : 0;
+    active[walk] = st.advance;
+    row[walk] = st.advance ? (int8_t)(st.base | (st.store_active ? 8u : 0u)) : (int8_t)-1;
+    if (st.advance) {
+      uint32_t c[W], nxt[W];
+#pragma unroll
+      for (int j = 0; j < W; ++j) c[j] = cur[(size_t)walk * W + j];
+      shift_append<W>(c, st.base, k, nxt);
+#pragma unroll
+      for (int j = 0; j < W; ++j) cur[(size_t)walk * W + j] = nxt[j];
+    }
   }
 }
 
@@ -224,5 +227,39 @@ extern "C" int ctk_link_walk(const void* buckets, int nb, int bs, int w, int k, 
     default: CTK_LINK_WALK(4); break;
   }
 #undef CTK_LINK_WALK
+  return (int)cudaGetLastError();
+}
+
+// cur: [batch][w] words (updated); active, flipped: batch bytes; slot: batch
+// ints (-1: not routed); back: [routed][a_cols] answer ints (a_cols >= the
+// linked answer's); store: [batch][7][32] ints (updated); overflow: batch
+// bytes, junctions: batch ints (updated); row: batch bytes out (row `step`
+// of the stream)
+extern "C" int ctk_link_step(void* cur, int batch, int w, int k, void* active,
+                             const void* flipped, const void* slot, const void* back, int a_cols,
+                             void* store, void* overflow, void* junctions, int step, void* row,
+                             cudaStream_t cuda_stream) {
+  if (batch <= 0 || k < 1 || k > 63 || w != (k + 15) / 16 || a_cols < kLinkAnswer || step < 0)
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((batch + 3) / 4);
+  uint32_t* cu = static_cast<uint32_t*>(cur);
+  uint8_t* ac = static_cast<uint8_t*>(active);
+  const uint8_t* fl = static_cast<const uint8_t*>(flipped);
+  const int* sl = static_cast<const int*>(slot);
+  const int* bk = static_cast<const int*>(back);
+  int* sto = static_cast<int*>(store);
+  uint8_t* ov = static_cast<uint8_t*>(overflow);
+  int* jn = static_cast<int*>(junctions);
+  int8_t* rw = static_cast<int8_t*>(row);
+#define CTK_LINK_STEP(WW)                                                                    \
+  link_step_kernel<WW><<<blocks, 128, 0, cuda_stream>>>(cu, batch, k, ac, fl, sl, bk, a_cols, \
+                                                        sto, ov, jn, step, rw)
+  switch (w) {
+    case 1: CTK_LINK_STEP(1); break;
+    case 2: CTK_LINK_STEP(2); break;
+    case 3: CTK_LINK_STEP(3); break;
+    default: CTK_LINK_STEP(4); break;
+  }
+#undef CTK_LINK_STEP
   return (int)cudaGetLastError();
 }

@@ -33,7 +33,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _U, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
 # entry point -> argtypes (every pointer and the stream are c_void_p)
 _SIGNATURES = {
     "ctk_sw_banded": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
@@ -49,6 +49,10 @@ _SIGNATURES = {
     "ctk_spec_walk": (_P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P),
     "ctk_link_walk": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P,
                       _P),
+    "ctk_link_step": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P),
+    "ctk_route": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+    "ctk_shard_answer": (_P, _I, _I, _P, _I, _I, _P, _I, _U, _P, _P, _P, _P, _I, _P, _I, _P),
+    "ctk_shard_walk_step": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P),
 }
 
 _lib = None

@@ -6,6 +6,7 @@ the other tests use to hand a JAX-package graph and its links to the port,
 through the .ctx and .ctp bytes."""
 
 import copy
+import gzip
 import os
 import tempfile
 
@@ -104,7 +105,7 @@ def test_ctx_bytes_round_trip(tmp_path, name):
 
 
 @pytest.mark.parametrize("indexed", [False, True])
-def test_ctp_bytes_round_trip(tmp_path, indexed):
+def test_ctp_bytes_round_trip(tmp_path, indexed, monkeypatch):
     g, _, ld = _links_case()
     assert len(ld) > 0
     if indexed:
@@ -119,7 +120,9 @@ def test_ctp_bytes_round_trip(tmp_path, indexed):
         for key in sorted(ld.records)[:20]:
             assert ra.get(key) is not None
     else:
-        # gzip's header names the file: the same name in two directories
+        # gzip's header names the file: the same name in two directories;
+        # and it holds the write time in seconds: one clock for both writes
+        monkeypatch.setattr(gzip.time, "time", lambda: 1_700_000_000.0)
         (tmp_path / "jax").mkdir()
         (tmp_path / "port").mkdir()
         jlinks.write_links(tmp_path / "jax" / "l.ctp", ld)

@@ -1,8 +1,9 @@
 """A tiny CPU rehearsal of chip_smoke.py's phases 9 (walk_table_vs_plain),
-10 (build_device) and 11 (link_walk_vs_plain): a 20 kbp bench graph, 300
-walks of 64 steps, three small read sets and chunks of 2^14 bases; a small
-trio with threaded links, its ROI-like seeds and 400 linked walks of 256
-steps.  The kernel launches are replaced by fakes that write their plain
+10 (build_device), 11 (link_walk_vs_plain) and 12 (mesh_vs_plain): a 20 kbp
+bench graph, 300 walks of 64 steps, three small read sets and chunks of 2^14
+bases; a small trio with threaded links, its ROI-like seeds and 400 linked
+walks of 256 steps; the sharded graph on four CPU shards, the trio's
+partitions and calls.  The kernel launches are replaced by fakes that write their plain
 twins' results and count a launch, and the CUDA events by host timers.  It
 runs in fresh processes, since chip_smoke.py makes jax and corticall_tpu
 unimportable in the process that imports it.  The phases' own checks (twins
@@ -194,7 +195,7 @@ def link_trio(k=31):
     links = tlinks.build_links(g, {"kid": [kid[i:i + 300] for i in range(0, len(kid) - 300, 60)]},
                                "kid")
     rois = fixtures.build_graph({"kid": [kid[i:i + k] for i in range(0, len(kid) - k, 53)]}, k)
-    return {"graph": g, "rois": rois, "links": [links]}
+    return {"graph": g, "rois": rois, "links": [links], "haplotypes": {"mom": mom, "dad": dad}}
 
 
 def scalar_link_reads(out, seeds, num_steps) -> dict:
@@ -339,3 +340,93 @@ def test_walk_table_and_build_phases_rehearse_on_cpu(tmp_path):
     parts = build["samples"]["kid"]["device_parts_s"]
     assert set(parts) == {"pack", "transfer", "windows", "compact", "sort", "reduce", "merge"}
     assert build["chunk"]["unique"] <= build["chunk"]["windows"] <= build["chunk"]["bases"]
+
+
+def rehearse_mesh() -> dict:
+    """Phase 12 at a tiny size on the CPU: phase 6's bench-graph fields
+    for 300 seeds of 64 steps, the link trio with its partitions, and the
+    calls.vcf that one Caller writes for them, as phase 4 writes it; the
+    four sharding wrappers replaced by twin-backed fakes that count a
+    launch.  Returns the phase's fields."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(TESTS))
+    import chip_smoke as cs
+    from corticall_tpu_torch import kmer as km
+    from corticall_tpu_torch.caller.call import Caller
+    from corticall_tpu_torch.commands import core as tcore
+    from corticall_tpu_torch.demo import build_bench_graph
+    from corticall_tpu_torch.models.reference_index import IndexedReference
+    from corticall_tpu_torch.ops import jump as tj, sharding as sh
+
+    def fake(name):
+        def launch(*args):
+            sh.LAUNCHES[name] += 1
+            return cs.MESH_TWINS[name](*args)
+        return launch
+
+    torch.set_num_threads(1)
+    fake_timers(cs, torch)
+    cs.queued_ms = cs.event_ms
+    for name in cs.MESH_TWINS:
+        setattr(sh, name, fake(name))
+    cs.SPEC_STEPS, cs.PF_MAX_WALK = 64, 256
+    cpu = torch.device("cpu")
+    g, genome = build_bench_graph(47, 20000)
+    nb, bucket_of, pos_of = tj.place(g.kmers)
+    starts = np.random.default_rng(11).integers(0, len(genome) - 47, 300)
+    seed_strs = [genome[i:i + 47] for i in starts]
+    bench = {"g": g, "nb": nb, "entry": bucket_of * 2 + pos_of, "seed_strs": seed_strs,
+             "seeds": km.pack_codes(km.strings_to_codes(seed_strs), 47)}
+    out = link_trio()
+    graph, rois, links = out["graph"], out["rois"], out["links"]
+    out["partitions"] = tcore.partition(graph, rois, links=links, max_walk=cs.PF_MAX_WALK,
+                                        device=cpu)
+    refs = {p: IndexedReference({"chr1": h}) for p, h in out["haplotypes"].items()}
+    caller = Caller(graph, rois, out["partitions"], backgrounds=["mom", "dad"],
+                    references=refs, links=links, device=cpu)
+    with tempfile.TemporaryDirectory() as wd:
+        caller.write_outputs(os.path.join(wd, "calls.vcf"), os.path.join(wd, "acct.txt"))
+        calls_vcf = open(os.path.join(wd, "calls.vcf"), "rb").read()
+    phase = cs.mesh_phase(cpu, out, bench, {"refs": refs, "calls_vcf": calls_vcf})
+    phase["partitions"] = len(out["partitions"])
+    # the step bounds of eight walks of which none is live: each reads its
+    # active flag (the linked step its slot too) and writes its stream byte
+    idle = sh.WalkState.start(torch.zeros((8, 3), dtype=torch.int32),
+                              torch.zeros(8, dtype=torch.uint8), 4)
+    idle_links = sh.LinkState.start(idle.cur, idle.active, 4)
+    none = sh.route_plain(idle.cur, idle.active, 47, 4)
+    phase["idle_bounds"] = [
+        cs.walk_step_bound(idle, idle, none, torch.zeros((0, sh.WALK_ANSWER), dtype=torch.int32)),
+        cs.link_step_bound(idle_links, idle_links, none,
+                           torch.zeros((0, sh.LINK_ANSWER), dtype=torch.int32), 1)]
+    return phase
+
+
+def test_mesh_phase_rehearses_on_cpu(tmp_path):
+    code = (f"import json, sys; sys.path.insert(0, {TESTS!r}); "
+            "import test_torch_smoke_phases as t; print(json.dumps(t.rehearse_mesh()))")
+    env = {**os.environ, "CORTICALL_TPU_TESTS_ON_TPU": "1"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600, env=env, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["shards"] == 4 and sum(out["shard_records"]) == out["records"]
+    assert all(out["launches"].values()) and out["walk_launches"]["link_step"] == 0
+    assert out["walk_launches"]["shard_walk_step"] == 4 * out["exchange"]["steps"]
+    assert out["single_device_identical"] and out["linked_identical"] and out["vcf_identical"]
+    assert out["skewed_queries"] == 300 and out["skewed_advanced"] == out["skewed_checked_live"]
+    assert out["calls"] > 0 and out["partitions"] > 1 and out["junctions"] > 0
+    assert out["exchange"]["bytes"] > 0 and out["steps"] > 0
+    assert out["idle_bounds"] == [[2 * 8, 0], [(1 + 4 + 1) * 8, 0]]
+    for name in ("route", "shard_answer", "shard_walk_step", "link_step"):
+        row = out["kernels"][name]
+        assert row["max_abs_err"] == 0.0 and row["bound_ms"] > 0 and row["bytes"] > 0
+        assert row["bound_by"] == ("bytes" if row["bytes"] / 3.35e12 >= row["ops"] / 67e12
+                                   else "operations")
+        assert (row["library_ms"] is not None) == (name == "route")
+        assert out["checked_calls"][name] + out["link_checked_calls"][name] > 0
+    assert out["kernels"]["link_step"]["step"] == 1

@@ -69,7 +69,10 @@ Phases, one JSON line each (progress goes to stderr):
    walked as Partition walks it (no contig of a walk without overflow may
    differ, once decoded by the host's seen rule), then 262,144 record
    k-mers x 2,000 steps through ctk_link_walk against its plain twin, on
-   every lane within the twin's 60 s budget, timed beside the bound;
+   every lane within the twin's 60 s budget, timed beside the bound; the
+   ROI walks' bound too, the needy share of both (the walk steps whose
+   store a warp steps, from the twin's trace), and the launch shape,
+   registers and occupancy of both launches;
 12. mesh_vs_plain: the hash-sharded graph (corticall_tpu_torch.parallel
    .mesh) on four shards, all on the card: on phase 6's graph, the sharded
    walk of phase 9's 262,144 seeds x 256 steps (the exchange's bytes and ms
@@ -83,7 +86,10 @@ Phases, one JSON line each (progress goes to stderr):
    streams against LinkedWalker's, sharded FindROIs against FindROIs,
    and sharded_call on two Callers against phase 4's calls.vcf, byte for
    byte; ctk_route, ctk_shard_answer, ctk_shard_walk_step and ctk_link_step
-   timed at a call of those runs beside their bounds.
+   (one launch a step over the four shards) timed at a call of those runs
+   beside their bounds, ctk_link_step also at the linked step with the most
+   needy walks, and each kernel's path_ms: the walk run and the linked walks
+   once more, every launch between its own CUDA events.
 
 Then one JSON line with each kernel's route, source, launches, error,
 times and bound (fifteen kernels), the nvidia-smi line, and the result line.
@@ -1369,6 +1375,25 @@ def link_walk_bound(tables, seeds, outputs, reads):
     return bound_ms(moved, reads["ops"])
 
 
+class NeedyTally:
+    """A twin trace (walk_links_forward_plain's `trace`) that counts, on
+    the device, the active walk steps and the needy ones (the steps whose
+    store the kernels step by a warp)."""
+
+    def __init__(self, dev):
+        self.active = torch.zeros((), dtype=torch.int64, device=dev)
+        self.needy = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def __call__(self, t, rec):
+        self.active += rec["active"].sum()
+        self.needy += rec["needy"].sum()
+
+    def fields(self) -> dict:
+        active, needy = int(self.active), int(self.needy)
+        return {"walk_steps": active, "needy_steps": needy,
+                "needy_share": round(needy / max(active, 1), 5)}
+
+
 def link_walk_phase(dev, out) -> dict:
     """Phase 11: the linked device walker on phase 4's graph, ROIs and links
     (the trio's threaded links).  The path (launches counted): LinkedWalker
@@ -1413,8 +1438,10 @@ def link_walk_phase(dev, out) -> dict:
     words = km.pack_codes(km.strings_to_codes(decoded + rc, k), k)
     roi_words = tk.words_tensor(words, dev)
     emitted = torch.from_numpy(rows.T.copy()).to(dev)
+    roi_sizes = torch.full((PF_MAX_WALK, roi_words.shape[0]), -1, dtype=torch.int8, device=dev)
+    roi_needy = NeedyTally(dev)
     roi_plain_ms, want = host_ms(lambda: wl.walk_links_forward_plain(
-        *walker.args, roi_words, k, PF_MAX_WALK))
+        *walker.args, roi_words, k, PF_MAX_WALK, store_sizes=roi_sizes, trace=roi_needy))
     roi_err = max(same(a.to(dev), w, f"link_walk ROI {name}") for name, a, w in zip(
         ("emitted", "overflow", "steps", "junctions"),
         (emitted, *(torch.from_numpy(x) for x in (roi_ov, steps, roi_jn))), want))
@@ -1425,8 +1452,11 @@ def link_walk_phase(dev, out) -> dict:
     back, _ = native.walk(rc, PF_MAX_WALK)
     native_s = time.perf_counter() - t0
     want = [(km.revcomp(b) if b else "") + s + f for s, f, b in zip(decoded, fwd, back)]
-    roi_reads = link_walk_reads(walker.args, roi_words, k, emitted)
+    roi_reads = link_walk_reads(walker.args, roi_words, k, emitted, roi_sizes)
     succ = roi_reads.pop("successors").T.cpu().numpy()
+    roi_bound = link_walk_bound(walker.args, roi_words, (emitted, *(torch.from_numpy(x).to(dev)
+                                for x in (roi_ov, steps, roi_jn))), roi_reads)
+    del roi_sizes
     b = len(decoded)
     mismatches = seen_rule = 0
     for i, seed in enumerate(decoded):
@@ -1454,11 +1484,13 @@ def link_walk_phase(dev, out) -> dict:
                                                      *out_bufs), 3)
     err = same(out_bufs[0][:, :JUMP_STEPS].t(), got[0], "link_walk, launched again")
     sizes = torch.full((JUMP_STEPS, LINK_SEEDS), -1, dtype=torch.int8, device=dev)
+    bulk_needy = NeedyTally(dev)
     twin_lanes, plain_ms, chunk_ms = 0, 0.0, 0.0
     while twin_lanes < LINK_SEEDS and plain_ms + chunk_ms <= LINK_TWIN_BUDGET_S * 1e3:
         lo, hi = twin_lanes, min(twin_lanes + LINK_TWIN_CHUNK, LINK_SEEDS)
         chunk_ms, want = host_ms(lambda: wl.walk_links_forward_plain(
-            *walker.args, bulk[lo:hi], k, JUMP_STEPS, store_sizes=sizes[:, lo:hi]))
+            *walker.args, bulk[lo:hi], k, JUMP_STEPS, store_sizes=sizes[:, lo:hi],
+            trace=bulk_needy))
         for name, a, w in zip(("emitted", "overflow", "steps", "junctions"), got, want):
             lanes = a[:, lo:hi] if name == "emitted" else a[lo:hi]
             err = max(err, same(lanes, w, f"link_walk {name}"))
@@ -1468,7 +1500,11 @@ def link_walk_phase(dev, out) -> dict:
     del reads["successors"], sizes
     bound = link_walk_bound(walker.args, bulk, got, reads)
     total_steps = int(got[2].sum())
-    log(f"link walk: kernel {kernel_ms:.3f} ms, twin {plain_ms:.0f} ms on {twin_lanes} lanes")
+    w = bulk.shape[1]
+    shapes = {"bulk": wl.kernel_info("link_walk", w, LINK_SEEDS, walker.args[0]),
+              "roi": wl.kernel_info("link_walk", w, roi_words.shape[0], walker.args[0])}
+    log(f"link walk: kernel {kernel_ms:.3f} ms, twin {plain_ms:.0f} ms on {twin_lanes} lanes, "
+        f"{shapes}")
     result = {
         "records": n, "roi_seeds": len(cks), "decoded_seeds": b,
         "decode_note": (f"the first {b} of {len(cks)} ROI seeds decoded" if len(cks) > b
@@ -1482,7 +1518,11 @@ def link_walk_phase(dev, out) -> dict:
         "decode_s": round((assemble_ms - walk_ms) / 1e3, 4),
         "roi_kernel_ms": round(roi_kernel_ms, 4), "roi_plain_ms": round(roi_plain_ms, 1),
         "roi_err": roi_err, "native_s": round(native_s, 4),
-        "roi_reads": roi_reads,
+        "roi_reads": roi_reads, "roi_bound": bound_fields(roi_bound),
+        "roi_needy": roi_needy.fields(), "bulk_needy": bulk_needy.fields(),
+        "bulk_needy_note": ("every lane" if twin_lanes == LINK_SEEDS
+                            else f"the first {twin_lanes} lanes (the twin's)"),
+        "kernel_shapes": shapes,
         "lanes": LINK_SEEDS, "max_steps": JUMP_STEPS, "bulk_call_ms": round(bulk_ms, 3),
         "steps": total_steps, "bulk_overflows": int(got[1].sum()),
         "bulk_junctions": int(got[3].sum()), "kernel_ms": round(kernel_ms, 4),
@@ -1525,9 +1565,21 @@ ANSWER_OPS = (10, 19)
 WALK_STEP_OPS = (8, 25)
 
 
+PATH_SPIN_CYCLES = 1_000_000                  # ~0.5 ms of spin ahead of a launch path_ms times
+# each sharding wrapper's C entry point (ops/_kernels.py), where path_ms times its launches
+PATH_ENTRIES = {"route": "ctk_route", "shard_answer": "ctk_shard_answer",
+                "shard_walk_step": "ctk_shard_walk_step", "link_step": "ctk_link_step"}
+
+
+def link_steps_plain(states, routes, backs, k: int, step: int) -> None:
+    """The twin of one link_step call: link_step_plain shard by shard."""
+    for state, route, back in zip(states, routes, backs):
+        sh.link_step_plain(state, route, back, k, step)
+
+
 # each sharding wrapper's plain twin, by the wrapper's name
 MESH_TWINS = {"route": sh.route_plain, "shard_answer": sh.shard_answer_plain,
-              "shard_walk_step": sh.shard_walk_step_plain, "link_step": sh.link_step_plain}
+              "shard_walk_step": sh.shard_walk_step_plain, "link_step": link_steps_plain}
 
 
 def queued_ms(fn, reps: int) -> float:
@@ -1558,7 +1610,28 @@ def mesh_clone(x, stream: bool = True):
     if isinstance(x, (sh.WalkState, sh.LinkState)):
         return type(x)(**{f: (v.clone() if stream or f != "stream" else torch.empty_like(v))
                           for f, v in vars(x).items()})
+    if isinstance(x, list):
+        return [mesh_clone(v, stream) for v in x]
     return x
+
+
+def kernel_vs_twin(name, args, got, before, want) -> float:
+    """A sharding wrapper's call against its twin's on a copy of its
+    inputs (raising on any difference): a route in its queries' order
+    (route_by_query, whatever order the atomic cursor gave), answers as they
+    are, a step's every state field and its stream row (`args` and `before`:
+    the inputs the kernel and the twin updated)."""
+    if name == "route":
+        return max(same(a, b, f"route {what}") for what, a, b in zip(
+            ("words", "owner", "flipped", "counts"), sh.route_by_query(got),
+            sh.route_by_query(want)))
+    if name == "shard_answer":
+        return same(got, want, "shard_answer")
+    step = args[4]
+    pairs = zip(args[0], before[0]) if name == "link_step" else [(args[0], before[0])]
+    return max((same(getattr(a, f)[step] if f == "stream" else getattr(a, f),
+                     getattr(b, f)[step] if f == "stream" else getattr(b, f), f"{name} {f}")
+                for a, b in pairs for f in vars(a)), default=0.0)
 
 
 def checked(fn, keep=lambda name, args: False, compare=lambda name, i: True):
@@ -1585,19 +1658,7 @@ def checked(fn, keep=lambda name, args: False, compare=lambda name, i: True):
             before = tuple(mesh_clone(a, stream=False) for a in args)
             got = real[name](*args)
             want = MESH_TWINS[name](*before)
-            if name == "route":
-                err = max(same(a, b, f"route {what}") for what, a, b in zip(
-                    ("words", "owner", "flipped", "counts"), sh.route_by_query(got),
-                    sh.route_by_query(want)))
-            elif name == "shard_answer":
-                err = same(got, want, "shard_answer")
-            else:
-                step = args[4]
-                err = max(same(getattr(args[0], f)[step] if f == "stream" else getattr(args[0], f),
-                               getattr(before[0], f)[step] if f == "stream"
-                               else getattr(before[0], f), f"{name} {f}")
-                          for f in vars(args[0]))
-            errs[name] = max(errs[name], err)
+            errs[name] = max(errs[name], kernel_vs_twin(name, args, got, before, want))
             calls[name] += 1
             return got
         return run
@@ -1610,6 +1671,82 @@ def checked(fn, keep=lambda name, args: False, compare=lambda name, i: True):
         for name, f in real.items():
             setattr(sh, name, f)
     return out, errs, calls, kept
+
+
+def entry_timers(kernels=None):
+    """Each sharding kernel's C entry point (PATH_ENTRIES) in the library of
+    `kernels` (an ops._kernels module; this package's by default) replaced
+    by one that runs it queued behind a PATH_SPIN_CYCLES spin, between two
+    CUDA events, so that the wrapper's host work falls outside them; a call
+    whose launch was queued only after the device had passed its start
+    event (the host was late: the events then hold idle time too) is
+    counted as late.  Returns ({name: [a function giving a call's ms once
+    the device has passed it]}, {name: late calls}, a function that puts
+    the entry points back)."""
+    lib = (kernels or _kernels).library()
+    timers = {name: [] for name in PATH_ENTRIES}
+    late = dict.fromkeys(PATH_ENTRIES, 0)
+    saved = {entry: getattr(lib, entry) for entry in PATH_ENTRIES.values()}
+
+    def timed(name, fn):
+        def run(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(PATH_SPIN_CYCLES)
+            start.record()
+            err = fn(*args)
+            late[name] += start.query()
+            stop.record()
+            timers[name].append(lambda: start.elapsed_time(stop))
+            return err
+        return run
+
+    for name, entry in PATH_ENTRIES.items():
+        setattr(lib, entry, timed(name, saved[entry]))
+
+    def restore():
+        for entry, fn in saved.items():
+            setattr(lib, entry, fn)
+    return timers, late, restore
+
+
+def path_sums(timers, late, before) -> dict:
+    """entry_timers' records as {name: {"launches", "path_ms", "late"}}
+    (launches: the LAUNCHES counted since `before`)."""
+    torch.cuda.synchronize()
+    return {name: {"launches": sh.LAUNCHES[name] - before[name],
+                   "path_ms": round(sum(t() for t in timers[name]), 4), "late": late[name]}
+            for name in PATH_ENTRIES}
+
+
+def path_timed(fn):
+    """fn() with every launch of the four sharding kernels timed on its own
+    (entry_timers; Python's collector off meanwhile, so that its pauses do
+    not make the host late), and a copy of the inputs of the linked step's
+    call with the most needy walks (needy_walks).  Returns (fn's result,
+    path_sums', {"needy_walks", "step", "args"})."""
+    import gc
+
+    most = {"needy_walks": -1, "step": None, "args": None}
+    before = dict(sh.LAUNCHES)
+    timers, late, restore = entry_timers()
+    real = sh.link_step
+
+    def link_step(*args):
+        needy = sum(int(needy_walks(*a).sum()) for a in zip(*args[:3]))
+        if needy > most["needy_walks"]:
+            most.update(needy_walks=needy, step=args[4], args=tuple(mesh_clone(a) for a in args))
+        return real(*args)
+
+    sh.link_step = link_step
+    gc.disable()
+    try:
+        out = fn()
+    finally:
+        gc.enable()
+        sh.link_step = real
+        restore()
+    return out, path_sums(timers, late, before), most
 
 
 def exchange_timed(fn):
@@ -1705,41 +1842,58 @@ def walk_step_bound(before, after, route, back, cycle_check: bool = True):
     return moved, live * (WALK_STEP_OPS[0] * w + WALK_STEP_OPS[1])
 
 
-def link_step_bound(before, after, route, back, step: int):
-    """ctk_link_step's bound, as (bytes, operations), from the state before
-    and after the step: every walk's active flag and slot in; each routed
-    walk's record count in (an inactive one only takes its overflow); each
-    live walk's words, route flag, edge byte, its first min(count, MAX_ADD)
-    link rows, its store's valid flags and the other fields of its valid
-    elements in, and its junction count where it takes a choice; every
-    element of the state and stores that the step changed out, and the
-    stream row out.  The live walks' operations by link_step_ops (the shift
-    and emission for the k-mer's work: the lookup is the answer's), with
-    each walk's records, gated records, store sizes before and after and
-    successors read from these inputs and outputs."""
-    live = before.active.to(torch.bool)
-    routed = route.slot >= 0
-    b, w = before.cur.shape
-    count = back[route.slot[routed].to(torch.int64), sh.ANS_CNT].to(torch.int64)
-    got = back[route.slot[live].to(torch.int64)].to(torch.int64)
-    cnt = got[:, sh.ANS_CNT].clamp(max=sh.MAX_ADD)
-    valid = before.store[live][:, 6] != 0
-    junction_bytes = changed_bytes(before.junctions, after.junctions)
-    moved = (nbytes(before.active, route.slot) + count.numel() * 4
-             + int(live.sum()) * (w * 4 + 1 + 4 + sh.CAP * 4)
-             + int(cnt.sum()) * (sh.JW + 2) * 4
-             + int(valid.sum()) * (sh.STORE_FIELDS - 1) * 4 + junction_bytes + b
-             + sum(changed_bytes(getattr(before, f), getattr(after, f))
-                   for f in ("cur", "active", "overflow", "junctions", "store")))
-    flipped = route.flipped[live].to(torch.bool)
-    take = torch.arange(sh.MAX_ADD, device=got.device)[None, :] < cnt[:, None]
-    gated = (take & ((got[:, sh.ANS_FW:sh.LINK_ANSWER] != 0) == ~flipped[:, None])).sum(1)
+def needy_walks(state, route, back):
+    """The walks of a shard whose linked step is needy (bool [B]), from
+    the state's bits and each live walk's returned answer."""
+    live = state.active.to(torch.bool)
+    got = sh._answers(route, back, live)
     edge = got[:, sh.ANS_EDGE]
-    succ = tk.popcount4(torch.where(flipped, edge >> 4, edge & 0xF))
-    sizes = [s.store[live][:, 6].to(torch.int64).sum(1) for s in (before, after)]
-    ops = link_step_ops(4 * w + 9, torch.full_like(cnt, step == 0, dtype=torch.bool), cnt,
-                        gated, *sizes, succ)
-    return moved, int(ops.sum())
+    succ = tk.popcount4(torch.where(route.flipped.to(torch.bool), edge >> 4, edge & 0xF))
+    bits = state.bits.to(torch.int64)
+    return live & ((got[:, sh.ANS_CNT] > 0) | ((bits & sh.STORE_PENDING) != 0)
+                   | ((succ > 1) & ((bits & sh.STORE_NONEMPTY) != 0)))
+
+
+def link_step_bound(befores, afters, routes, backs, step: int):
+    """ctk_link_step's bound over the shards of one call, as (bytes,
+    operations), from each state before and after the step: every walk's
+    active flag and slot in; each routed walk's record count in (an
+    inactive one only takes its overflow); each live walk's words, route
+    flag, edge byte and store bits in, and its junction count where it
+    takes a choice; each needy walk's (needy_walks) first min(count,
+    MAX_ADD) link rows, its store's valid flags and the other fields of its
+    valid elements in; every element of the state, bits and stores that the
+    step changed out, and the stream row out.  The live walks' operations
+    by link_step_ops (the shift and emission for the k-mer's work: the
+    lookup is the answer's), with each walk's records, gated records, store
+    sizes before and after and successors read from these inputs and
+    outputs."""
+    moved = ops = 0
+    for before, after, route, back in zip(befores, afters, routes, backs):
+        live = before.active.to(torch.bool)
+        routed = route.slot >= 0
+        b, w = before.cur.shape
+        count = back[route.slot[routed].to(torch.int64), sh.ANS_CNT].to(torch.int64)
+        got = back[route.slot[live].to(torch.int64)].to(torch.int64)
+        cnt = got[:, sh.ANS_CNT].clamp(max=sh.MAX_ADD)
+        needy = needy_walks(before, route, back)
+        valid = before.store[needy][:, 6] != 0
+        moved += (nbytes(before.active, route.slot) + count.numel() * 4
+                  + int(live.sum()) * (w * 4 + 1 + 4 + 1) + int(needy.sum()) * sh.CAP * 4
+                  + int(cnt.sum()) * (sh.JW + 2) * 4
+                  + int(valid.sum()) * (sh.STORE_FIELDS - 1) * 4
+                  + changed_bytes(before.junctions, after.junctions) + b
+                  + sum(changed_bytes(getattr(before, f), getattr(after, f))
+                        for f in ("cur", "active", "overflow", "junctions", "store", "bits")))
+        flipped = route.flipped[live].to(torch.bool)
+        take = torch.arange(sh.MAX_ADD, device=got.device)[None, :] < cnt[:, None]
+        gated = (take & ((got[:, sh.ANS_FW:sh.LINK_ANSWER] != 0) == ~flipped[:, None])).sum(1)
+        edge = got[:, sh.ANS_EDGE]
+        succ = tk.popcount4(torch.where(flipped, edge >> 4, edge & 0xF))
+        sizes = [s.store[live][:, 6].to(torch.int64).sum(1) for s in (before, after)]
+        ops += int(link_step_ops(4 * w + 9, torch.full_like(cnt, step == 0, dtype=torch.bool),
+                                 cnt, gated, *sizes, succ).sum())
+    return moved, ops
 
 
 def mesh_kernel_rows(kept, errs) -> dict:
@@ -1748,10 +1902,12 @@ def mesh_kernel_rows(kept, errs) -> dict:
     the library's packing (a stable argsort of the owners and a bincount)."""
     rows = {}
     for name, args in kept.items():
-        copies = iter([tuple(mesh_clone(a) for a in args) for _ in range(4)])
+        copies = iter([tuple(mesh_clone(a) for a in args) for _ in range(5)])
         ms = queued_ms(lambda: getattr(sh, name)(*next(copies)), 3)
         fresh = tuple(mesh_clone(a) for a in args)
         plain_ms, out = host_ms(lambda: MESH_TWINS[name](*fresh))
+        launched = next(copies)
+        err = kernel_vs_twin(name, launched, getattr(sh, name)(*launched), fresh, out)
         library = None
         if name == "route":
             bound = route_bound(*args, out)
@@ -1767,11 +1923,13 @@ def mesh_kernel_rows(kept, errs) -> dict:
             shape = {"walks": int(args[0].cur.shape[0]), "step": args[4]}
         else:
             bound = link_step_bound(args[0], fresh[0], *args[1:3], args[4])
-            shape = {"walks": int(args[0].cur.shape[0]), "step": args[4]}
+            shape = {"walks": sum(int(st.cur.shape[0]) for st in args[0]),
+                     "shards": len(args[0]), "step": args[4],
+                     "needy_walks": sum(int(needy_walks(*a).sum()) for a in zip(*args[:3]))}
         rows[name] = {"ms": round(ms, 5), "plain_ms": round(plain_ms, 3),
                       **bound_fields(bound_ms(*bound)), "bytes": bound[0], "ops": bound[1],
                       "library_ms": None if library is None else round(library, 5),
-                      "max_abs_err": errs[name], **shape}
+                      "max_abs_err": max(errs.get(name, 0.0), err), **shape}
     return rows
 
 
@@ -1931,8 +2089,8 @@ def mesh_phase(dev, out, bench, mp) -> dict:
     linked, link_errs, link_calls, link_kept = checked(
         lambda: run_links(both, np.ones(len(both), dtype=bool)),
         lambda name, args: name == "link_step" and args[4] == 1,
-        lambda name, i: (i // MESH_SHARDS < MESH_LINK_CHECK_STEPS
-                         or i // MESH_SHARDS % MESH_LINK_CHECK_EVERY == 0))
+        lambda name, i: (lambda s: s < MESH_LINK_CHECK_STEPS or s % MESH_LINK_CHECK_EVERY == 0)(
+            i if name == "link_step" else i // MESH_SHARDS))
     link_checked_s = time.perf_counter() - t0
     errs = {name: max(errs[name], link_errs[name]) for name in errs}
     kept.update(link_kept)
@@ -1969,7 +2127,24 @@ def mesh_phase(dev, out, bench, mp) -> dict:
     if vcf != mp["calls_vcf"]:
         raise AssertionError("sharded_call's VCF differs from phase 4's calls.vcf")
 
+    # every launch of the walk run and the linked walks again, each timed on
+    # its own (path_ms), keeping the linked step with the most needy walks
+    t0 = time.perf_counter()
+    (timed_walk, (timed_contigs, _, _)), path, most = path_timed(lambda: (
+        walk(seeds, ones), pm.sharded_assemble_links(mesh, sgt, slt, [child], cks, PF_MAX_WALK)))
+    path_s = time.perf_counter() - t0
+    for name, a, b in zip(("bases", "cycled", "steps"), timed_walk, walked):
+        same(a, b, f"the sharded walk's {name}, run with its launches timed")
+    if timed_contigs != contigs:
+        raise AssertionError("the linked walks run with their launches timed differ")
+    del timed_walk
+
     kernels = mesh_kernel_rows(kept, errs)
+    for name, row in kernels.items():
+        row.update(path_ms=path[name]["path_ms"], path_launches=path[name]["launches"],
+                   path_late=path[name]["late"])
+    kernels["link_step"]["most_needy"] = mesh_kernel_rows({"link_step": most["args"]},
+                                                          errs)["link_step"]
     log(f"mesh: walk {walk_s * 1e3:.1f} ms, exchange {exchange['seconds'] * 1e3:.1f} ms, "
         f"kernels {kernels}")
     result = {
@@ -1995,9 +2170,11 @@ def mesh_phase(dev, out, bench, mp) -> dict:
         "overflows": int(overflow.sum()), "junctions": int(junctions.sum()),
         "linked_identical": True, "rois": len(got_rois), "rois_identical": True,
         "call_shards": MESH_CALL_SHARDS, "calls": len(variants), "call_s": round(call_s, 2),
-        "vcf_identical": True, "kernels": kernels,
+        "vcf_identical": True, "kernels": kernels, "path_s": round(path_s, 2),
+        "path_note": ("path_ms: every launch of the walk run and the linked walks, each "
+                      "between CUDA events behind a spin"),
         "seconds": round(time.perf_counter() - t_phase, 2)}
-    del sg, sgt, slt, walked, again, linked, kept
+    del sg, sgt, slt, walked, again, linked, kept, most
     torch.cuda.empty_cache()
     return result
 

@@ -107,28 +107,10 @@ __device__ __forceinline__ uint32_t entry_payload(const uint32_t* __restrict__ e
 }
 
 // The one-gather cuckoo lookup (corticall_tpu/ops/cuckoo.py::lookup_payload,
-// line 190) by a whole warp: buckets [NB][bs][W+1] words, an entry (key
-// words..., tag), tag = 0x80000000 | payload.  Lane e reads entry e of the
-// pair (primary bucket h, then second bucket mix32(h ^ kGolden)), both
-// buckets always, as the gather does; the payload is the maximum over the
-// entries holding the key (0: a miss), the same in every lane.  Every lane of
-// the warp must call it.
-template <int W>
-__device__ __forceinline__ uint32_t warp_lookup_payload(const uint32_t* __restrict__ buckets,
-                                                        uint32_t nb_mask, int bs,
-                                                        const uint32_t (&canon)[W], int lane) {
-  const uint32_t h = hash_words<W>(canon);
-  const uint32_t b1 = h & nb_mask, b2 = mix32(h ^ kGolden) & nb_mask;
-  uint32_t best = 0u;
-  for (int e = lane; e < 2 * bs; e += 32)
-    best = max(best, entry_payload<W>(
-        buckets + ((size_t)(e < bs ? b1 : b2) * bs + (e < bs ? e : e - bs)) * (W + 1), canon));
-  return __reduce_max_sync(kFullMask, best);
-}
-
-// The same lookup by one thread (a query a thread, as the shard's answer
-// makes it): both candidate buckets, every entry; the payload is the largest
-// among the entries holding the key (0: a miss).
+// line 190) by one thread: buckets [NB][bs][W+1] words, an entry (key
+// words..., tag), tag = 0x80000000 | payload; both candidate buckets (primary
+// h, then mix32(h ^ kGolden)), every entry, as the gather reads them; the
+// payload is the largest among the entries holding the key (0: a miss).
 template <int W>
 __device__ __forceinline__ uint32_t thread_lookup_payload(const uint32_t* __restrict__ buckets,
                                                           uint32_t nb_mask, int bs,
@@ -139,6 +121,49 @@ __device__ __forceinline__ uint32_t thread_lookup_payload(const uint32_t* __rest
   for (int e = 0; e < 2 * bs; ++e)
     best = max(best, entry_payload<W>(
         buckets + ((size_t)(e < bs ? b1 : b2) * bs + (e < bs ? e : e - bs)) * (W + 1), canon));
+  return best;
+}
+
+// The same lookup by one thread for buckets of BS entries held as whole
+// 16-byte vectors (BS * (W + 1) words a multiple of 4, the table 16-byte
+// aligned): both buckets' vectors are loaded before any compare, so the two
+// reads are in flight together and a bucket costs W + 1 vector loads, not
+// BS * (W + 1) word loads.
+template <int W, int BS>
+__device__ __forceinline__ uint32_t thread_lookup_payload_vec(const uint32_t* __restrict__ buckets,
+                                                              uint32_t nb_mask,
+                                                              const uint32_t (&canon)[W]) {
+  static_assert(BS * (W + 1) % 4 == 0, "a bucket must be whole 16-byte vectors");
+  constexpr int kVec = BS * (W + 1) / 4;
+  const uint32_t h = hash_words<W>(canon);
+  const uint4* rows = reinterpret_cast<const uint4*>(buckets);
+  const uint4* b1 = rows + (size_t)(h & nb_mask) * kVec;
+  const uint4* b2 = rows + (size_t)(mix32(h ^ kGolden) & nb_mask) * kVec;
+  uint32_t ent[2][4 * kVec];
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    const uint4 x = __ldg(b1 + v), y = __ldg(b2 + v);
+    ent[0][4 * v] = x.x;
+    ent[0][4 * v + 1] = x.y;
+    ent[0][4 * v + 2] = x.z;
+    ent[0][4 * v + 3] = x.w;
+    ent[1][4 * v] = y.x;
+    ent[1][4 * v + 1] = y.y;
+    ent[1][4 * v + 2] = y.z;
+    ent[1][4 * v + 3] = y.w;
+  }
+  uint32_t best = 0u;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+#pragma unroll
+    for (int e = 0; e < BS; ++e) {
+      const uint32_t tag = ent[c][e * (W + 1) + W];
+      bool match = tag >= kTag;
+#pragma unroll
+      for (int j = 0; j < W; ++j) match = match && ent[c][e * (W + 1) + j] == canon[j];
+      best = max(best, match ? tag & 0x7FFFFFFFu : 0u);
+    }
+  }
   return best;
 }
 

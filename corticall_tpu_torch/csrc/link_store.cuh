@@ -1,5 +1,6 @@
 // One step of a walk's LinkStore by a whole warp, shared by the linked
-// walkers of csrc/walk_links.cu (ctk_link_walk, ctk_link_step).
+// walkers of csrc/walk_links.cu (ctk_link_walk, ctk_link_step), and the rule
+// that tells a walk's step that can change its store from one that cannot.
 //
 // The step is store_add then store_advance of corticall_tpu/ops/
 // walk_links.py (:97, :135), with _char_at (:192); the plain PyTorch twins
@@ -19,6 +20,14 @@
 //   holding the largest masked seq (lane 0 when all are -1).
 // Every value the step decides is the same in all lanes, so the warp's
 // control flow stays uniform.
+//
+// A walk's step is "needy" (ops/walk_links.py::needy_steps) when its k-mer
+// has link records, or it is a junction and the store holds an element, or
+// an element of age 0 is pending (one filled at the seed step: any later
+// fill bumps every age).  Any other step of an active walk leaves every
+// store field and the overflow as they are and emits base | 8 * non-empty
+// (or -1 at a dead end or a junction), so the kernels keep two bits a walk
+// (kNonEmpty, kPending) and bring the warp to a store only on needy steps.
 #pragma once
 
 #include "kmer.cuh"
@@ -46,6 +55,50 @@ struct LinkStep {
   bool store_active;  // an element is valid after the step
   uint32_t base;
 };
+
+constexpr uint32_t kNonEmpty = 1u;  // a walk's bits (sharding.STORE_NONEMPTY): an element is valid
+constexpr uint32_t kPending = 2u;   // (sharding.STORE_PENDING): a valid element has age 0
+
+// whether an active walk's step must run link_store_step: `cnt` link
+// records at its k-mer, `next_mask` its successors in the walk's
+// orientation, `bits` its store's kNonEmpty | kPending
+__device__ __forceinline__ bool needy_step(int cnt, uint32_t next_mask, uint32_t bits) {
+  return cnt > 0 || (bits & kPending) || (__popc(next_mask) > 1 && (bits & kNonEmpty));
+}
+
+// the step of an active walk that is not needy: the store stays as it is
+__device__ __forceinline__ LinkStep idle_step(uint32_t next_mask, uint32_t bits) {
+  LinkStep out;
+  out.advance = __popc(next_mask) == 1;
+  out.take_choice = false;
+  out.store_active = (bits & kNonEmpty) != 0;
+  out.base = lowest_set_base(next_mask);
+  return out;
+}
+
+// a store's element `lane` in the element-minor [7][32] int32 layout (two
+// choice words, length, position, age, sequence, valid); `row` points at
+// field 0 of this lane's element
+__device__ __forceinline__ LinkElement load_element(const int* row) {
+  return LinkElement{(uint32_t)row[0], (uint32_t)row[32], row[64], row[96], row[128], row[160],
+                     row[192] != 0};
+}
+
+__device__ __forceinline__ void store_element(int* row, const LinkElement& el) {
+  row[0] = (int)el.ch0;
+  row[32] = (int)el.ch1;
+  row[64] = el.len;
+  row[96] = el.pos;
+  row[128] = el.age;
+  row[160] = el.seq;
+  row[192] = el.valid ? 1 : 0;
+}
+
+// the store's bits after a step, the same in every lane
+__device__ __forceinline__ uint32_t store_bits(const LinkElement& el, bool store_active) {
+  return (store_active ? kNonEmpty : 0u) |
+         (__any_sync(kFullMask, el.valid && el.age == 0) ? kPending : 0u);
+}
 
 // One step of an active walk at its current k-mer: the k-mer's gated link
 // records join the store (this lane's record: gate, rch, rlen, on lanes <

@@ -48,8 +48,9 @@ _SIGNATURES = {
     "ctk_ht_lookup": (_P, _I, _P, _I, _P, _I, _I, _P, _P),
     "ctk_spec_walk": (_P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P),
     "ctk_link_walk": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P,
-                      _P),
-    "ctk_link_step": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P),
+                      _P, _P),
+    "ctk_link_step": (_P, _I, _I, _I, _I, _P),
+    "ctk_link_kernel_info": (_I, _I, _I, _P, _I, _P),
     "ctk_route": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     "ctk_shard_answer": (_P, _I, _I, _P, _I, _I, _P, _I, _U, _P, _P, _P, _P, _I, _P, _I, _P),
     "ctk_shard_walk_step": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P),

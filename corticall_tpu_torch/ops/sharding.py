@@ -13,7 +13,8 @@ Counterpart of the XLA device code of corticall_tpu/parallel/mesh.py:
   shard_walk_step <- the walk step of :419-438 and :568-583, with the unsort
                      of the returned answers (:163-165);
   link_step       <- one step of :300-325, walk_links.store_add and
-                     store_advance on the routed payload.
+                     store_advance on the routed payload, for every shard
+                     of one device in one call.
 The capacity-bounded exchange rounds of _routed_exchange (`_lookup_cap`, the
 `pmax` of the rounds, the `q_pad` clamp guard, `pcast`) exist for XLA's
 static shapes and are not ported: a shard sends each owner exactly its
@@ -36,11 +37,14 @@ Each wrapper runs its twin for CPU tensors and launches its kernel
 (csrc/shard.cu; ctk_link_step in csrc/walk_links.cu) for CUDA tensors, with
 their card as the current device (a shard may sit on any card), and counts
 the launch in LAUNCHES.  The step wrappers update the walk state in
-place and write row `step` of the emission stream.
+place and write row `step` of the emission stream; `link_step` takes the
+shards of one device together and steps them in one launch (its twin,
+`link_step_plain`, one shard a call).
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -51,7 +55,8 @@ from . import _kernels
 from . import cuckoo as ck
 from . import kmer as tk
 from .placement import GOLDEN, np_hash_words, np_mix32
-from .walk_links import CAP, JW, MAX_ADD, store_add, store_advance
+from .walk_links import (CAP, JW, MAX_ADD, STORE_FIELDS, store_add, store_advance,
+                         store_flags)
 
 MAX_SHARDS = 64          # the route kernel's per-owner tables live in shared memory
 
@@ -63,7 +68,7 @@ ANS_FW = ANS_LEN + MAX_ADD
 WALK_ANSWER = 2
 LINK_ANSWER = ANS_FW + MAX_ADD
 
-STORE_FIELDS = 7         # ch0, ch1, len, pos, age, seq, valid: int32 [B, 7, CAP]
+STORE_NONEMPTY, STORE_PENDING = 1, 2     # LinkState.bits (csrc/link_store.cuh)
 
 # kernel launches (plain integers; chip_smoke.py resets and reads them)
 LAUNCHES = {"route": 0, "shard_answer": 0, "shard_walk_step": 0, "link_step": 0}
@@ -114,13 +119,17 @@ class WalkState:
 class LinkState:
     """A shard's linked walks (mesh.py:300-325): the walks' words, flags and
     junction counts, each walk's LinkStore as int32 [B, STORE_FIELDS, CAP]
-    (element-minor: one field of one walk is 128 contiguous bytes), and the
-    int8 [T, B] emission stream."""
+    (element-minor: one field of one walk is 128 contiguous bytes), the
+    store's bits (uint8 [B]: STORE_NONEMPTY, a valid element; STORE_PENDING,
+    a valid element of age 0; the kernel reads them in place of the store
+    on the steps that cannot change it), and the int8 [T, B] emission
+    stream."""
     cur: torch.Tensor
     active: torch.Tensor
     overflow: torch.Tensor
     junctions: torch.Tensor
     store: torch.Tensor
+    bits: torch.Tensor
     stream: torch.Tensor
 
     @classmethod
@@ -130,6 +139,7 @@ class LinkState:
                    torch.zeros(b, dtype=torch.uint8, device=dev),
                    torch.zeros(b, dtype=torch.int32, device=dev),
                    torch.zeros((b, STORE_FIELDS, CAP), dtype=torch.int32, device=dev),
+                   torch.zeros(b, dtype=torch.uint8, device=dev),
                    torch.full((num_steps, b), -1, dtype=torch.int8, device=dev))
 
 
@@ -417,12 +427,13 @@ def shard_walk_step_kernel(state: WalkState, route: Route, back, k: int, step: i
 # ---------------------------------------------------------------------------
 
 def link_step_plain(state: LinkState, route: Route, back, k: int, step: int) -> None:
-    """Twin of ctk_link_step: store_add, then store_advance
+    """Twin of ctk_link_step for one shard: store_add, then store_advance
     (ops/walk_links.py) on each walk's returned payload, at step `step`
     (the seed step is 0, and the insertion counter is MAX_ADD * step, as in
     every walk of the JAX scan); a walk routed while inactive only takes its
     k-mer's record-count overflow, as store_add does.  Updates `state` in
-    place and writes row `step` of its stream."""
+    place, its bits derived from the store after the step, and writes row
+    `step` of its stream."""
     live = state.active.to(torch.bool)
     routed = route.slot >= 0
     got = _answers(route, back, routed)
@@ -442,6 +453,9 @@ def link_step_plain(state: LinkState, route: Route, back, k: int, step: int) -> 
     fields = (tk.to_bits32(el_choices[..., 0]), tk.to_bits32(el_choices[..., 1]), el_len,
               el_pos, el_age, el_seq, el_valid)
     state.store.copy_(torch.stack([f.to(torch.int32) for f in fields], dim=1))
+    nonempty, pending = store_flags(el_valid, el_age)
+    state.bits.copy_(nonempty.to(torch.uint8) * STORE_NONEMPTY
+                     + pending.to(torch.uint8) * STORE_PENDING)
     state.cur.copy_(tk.to_bits32(cur))
     state.overflow.copy_(overflow.to(torch.uint8))
     state.junctions += take_choice.to(torch.int32)
@@ -449,29 +463,57 @@ def link_step_plain(state: LinkState, route: Route, back, k: int, step: int) -> 
     state.stream[step] = emitted.to(torch.int8)
 
 
-def link_step(state: LinkState, route: Route, back, k: int, step: int) -> None:
-    """One linked step of a shard's walks from the answers to its route
-    (int32 [routed, LINK_ANSWER] in send order): the twin for CPU tensors,
-    one ctk_link_step launch for CUDA ones.  Updates `state` in place."""
-    dev = _check_step("link_step", state.cur, state.active, route, back, k, step,
-                      state.stream, LINK_ANSWER)
-    if state.store.shape != (state.cur.shape[0], STORE_FIELDS, CAP) or \
-            state.store.dtype != torch.int32:
-        raise ValueError(f"link_step: the store must be int32 [B, {STORE_FIELDS}, {CAP}]")
-    if dev.type == "cpu":
-        link_step_plain(state, route, back, k, step)
-    elif state.cur.shape[0]:
-        link_step_kernel(state, route, back.contiguous(), k, step)
+def link_step(states: list, routes: list, backs: list, k: int, step: int) -> None:
+    """One linked step of the walks of several shards on one device, each
+    from the answers to its route (int32 [routed, LINK_ANSWER] in send
+    order): the twin shard by shard for CPU tensors, one ctk_link_step
+    launch over them all for CUDA ones.  Updates each state in place."""
+    if not len(states) == len(routes) == len(backs):
+        raise ValueError("link_step: one route and one answer block a state")
+    devices = set()
+    for state, route, back in zip(states, routes, backs):
+        devices.add(_check_step("link_step", state.cur, state.active, route, back, k, step,
+                                state.stream, LINK_ANSWER))
+        b = state.cur.shape[0]
+        if state.store.shape != (b, STORE_FIELDS, CAP) or state.store.dtype != torch.int32 \
+                or state.bits.shape != (b,) or state.bits.dtype != torch.uint8:
+            raise ValueError(f"link_step: the store must be int32 [B, {STORE_FIELDS}, {CAP}] "
+                             "and its bits uint8 [B]")
+    if len(devices) > 1:
+        raise ValueError(f"link_step: the shards must lie on one device, not {devices}")
+    if not devices:
+        return
+    if devices.pop().type == "cpu":
+        for state, route, back in zip(states, routes, backs):
+            link_step_plain(state, route, back, k, step)
+    elif any(state.cur.shape[0] for state in states):
+        link_step_kernel(states, routes, [bk.contiguous() for bk in backs], k, step)
 
 
-def link_step_kernel(state: LinkState, route: Route, back, k: int, step: int) -> None:
-    """One ctk_link_step launch on checked card tensors."""
-    with torch.cuda.device(state.cur.device):
-        err = _kernels.library().ctk_link_step(
-            state.cur.data_ptr(), state.cur.shape[0], state.cur.shape[1], k,
-            state.active.data_ptr(), route.flipped.data_ptr(), route.slot.data_ptr(),
-            back.data_ptr(), back.shape[1], state.store.data_ptr(), state.overflow.data_ptr(),
-            state.junctions.data_ptr(), step, state.stream[step].data_ptr(),
-            _kernels.stream(state.cur.device))
+# ctk_link_step's shard descriptor (csrc/walk_links.cu::LinkShard)
+LINK_SHARD_FIELDS = ("cur", "active", "bits", "flipped", "slot", "back", "store", "overflow",
+                     "junctions", "row")
+
+
+class LinkShard(ctypes.Structure):
+    _fields_ = [*((f, ctypes.c_void_p) for f in LINK_SHARD_FIELDS),
+                ("batch", ctypes.c_int), ("a_cols", ctypes.c_int), ("warp0", ctypes.c_int)]
+
+
+def link_step_kernel(states: list, routes: list, backs: list, k: int, step: int) -> None:
+    """One ctk_link_step call over checked card tensors of one card: a
+    table of shard descriptors passed by value, one launch for up to 32
+    shards."""
+    table = (LinkShard * len(states))()
+    for d, state, route, back in zip(table, states, routes, backs):
+        for f, t in zip(LINK_SHARD_FIELDS, (state.cur, state.active, state.bits, route.flipped,
+                                            route.slot, back, state.store, state.overflow,
+                                            state.junctions, state.stream[step])):
+            setattr(d, f, t.data_ptr())
+        d.batch, d.a_cols, d.warp0 = state.cur.shape[0], back.shape[1], 0
+    dev = states[0].cur.device
+    with torch.cuda.device(dev):
+        err = _kernels.library().ctk_link_step(ctypes.addressof(table), len(states),
+                                               tk.words(k), k, step, _kernels.stream(dev))
     _kernels.check(err, "link_step")
     LAUNCHES["link_step"] += 1

@@ -18,11 +18,18 @@ host store's semantics (traversal/linkstore.py):
 The seed step follows the degree only and consults no store.  A capacity
 overflow sets a per-walk flag, for callers to replay on the host.
 
+A step of an active walk is needy (`needy_steps`) when its k-mer has link
+records, or it is a junction and the store holds an element, or an element
+of age 0 is pending (filled at the seed step); any other step leaves the
+store and the overflow as they are and emits base | 8 * non-empty, or -1 at
+a dead end or a junction.
+
 `walk_links_forward` runs `walk_links_forward_plain` (PyTorch, one step at a
 time, uint32 words held in int64) for CPU tensors and one `ctk_link_walk`
-launch (csrc/walk_links.cu: one warp a walk, lane j = element j, the cuckoo
-lookup fused) for CUDA tensors.  The k-mer table is the cuckoo table of
-ops/cuckoo.py with payload record + 1; W = ceil(k/16) <= 4, so k <= 63.
+launch (csrc/walk_links.cu: a thread a walk with the cuckoo lookup fused,
+and the warp on a walk's store only at its needy steps) for CUDA tensors.
+The k-mer table is the cuckoo table of ops/cuckoo.py with payload record +
+1; W = ceil(k/16) <= 4, so k <= 63.
 Both also take the JAX package's arrays as numpy (uint32 [NB, BS*(W+1)]
 buckets, the LinkArrays fields, uint32 seeds).
 
@@ -47,6 +54,7 @@ CAP = 32                 # active link elements a walk
 MAX_J = 32               # junction choices a link record
 JW = (MAX_J + 15) // 16  # uint32 words a choice string
 MAX_ADD = 16             # link records appended a k-mer arrival
+STORE_FIELDS = 7         # a store element in the kernels: ch0, ch1, len, pos, age, seq, valid
 
 # kernel launches (plain integers; chip_smoke.py resets and reads them)
 LAUNCHES = {"link_walk": 0}
@@ -217,13 +225,38 @@ def store_advance(cur, active, el_choices, el_len, el_pos, el_age, el_valid,
     return cur, advance, el_pos, el_valid, el_age, emitted, take_choice
 
 
+def needy_steps(active, cnt, edge, flipped, el_valid, el_age):
+    """The walks whose step must run the LinkStore (bool [B]): active, and
+    their k-mer has link records (`cnt` > 0), or it is a junction (more than
+    one successor of the combined `edge` byte in the walk's orientation,
+    `flipped`) and the store holds a valid element, or a valid element has
+    age 0.  `el_valid` / `el_age` [B, CAP] are the store before the step.
+    Every other step leaves the store and the overflow as they are
+    (tests/test_torch_link_needy.py)."""
+    nonempty, pending = store_flags(el_valid, el_age)
+    next_mask = torch.where(flipped, edge >> 4, edge & 0xF)
+    junction = tk.popcount4(next_mask) > 1
+    return active & ((cnt > 0) | (junction & nonempty) | pending)
+
+
+def store_flags(el_valid, el_age):
+    """(non-empty, pending) of each walk's store [B, CAP]: a valid element,
+    and a valid element of age 0 (the kernels' kNonEmpty and kPending)."""
+    return el_valid.any(1), (el_valid & (el_age == 0)).any(1)
+
+
 def walk_links_forward_plain(buckets, edges, link_off, link_choices, link_len, link_fw,
-                             seeds, k: int, num_steps: int, store_sizes=None):
+                             seeds, k: int, num_steps: int, store_sizes=None, trace=None):
     """Plain twin of walk_links.walk_links_forward on the kernel's tensors
     (see `walk_links_forward`): (emitted int8 [T, B], overflow bool [B],
     steps int32 [B], junctions int32 [B]).  `store_sizes`, an int8 [T, B]
     tensor if given, receives each walk's valid elements after each step it
-    ran (rows after the last step are left as they were)."""
+    ran (rows after the last step are left as they were).  `trace`, if
+    given, is called after each step t as trace(t, rec) with a dict of that
+    step's tensors: active (before the step), needy (`needy_steps`), cnt,
+    edge, flipped, the store before and after (tuples of el_choices, el_len,
+    el_pos, el_age, el_valid, el_seq), overflow before and after, emitted
+    and take_choice."""
     dev = seeds.device
     cur = tk.from_bits32(seeds)
     b = cur.shape[0]
@@ -252,6 +285,7 @@ def walk_links_forward_plain(buckets, edges, link_off, link_choices, link_len, l
         off = torch.where(found, off_all[r], 0)
         cnt = torch.where(found, off_all[r + 1] - off, 0)
         idx = (off[:, None] + jj).clamp(max=pool_len.shape[0] - 1)
+        before = (el_choices, el_len, el_pos, el_age, el_valid, el_seq, overflow, active)
         (el_choices, el_len, el_pos, el_age, el_valid, el_seq, seq_counter,
          overflow) = store_add(el_choices, el_len, el_pos, el_age, el_valid, el_seq,
                                seq_counter, overflow, active, flipped,
@@ -261,6 +295,13 @@ def walk_links_forward_plain(buckets, edges, link_off, link_choices, link_len, l
             edge, flipped, t == 0, k)
         emitted[t] = emit.to(torch.int8)
         junctions += take_choice.to(torch.int64)
+        if trace is not None:
+            trace(t, {"active": before[7],
+                      "needy": needy_steps(before[7], cnt, edge, flipped, before[4], before[3]),
+                      "cnt": cnt, "edge": edge, "flipped": flipped, "store_before": before[:6],
+                      "store_after": (el_choices, el_len, el_pos, el_age, el_valid, el_seq),
+                      "overflow_before": before[6], "overflow_after": overflow,
+                      "emitted": emit, "take_choice": take_choice})
         if store_sizes is not None:
             store_sizes[t] = el_valid.sum(1).to(torch.int8)
         if not bool(active.any()):
@@ -381,16 +422,39 @@ def link_walk_kernel(buckets, edges, link_off, link_choices, link_len, link_fw, 
                      num_steps: int, stream, overflow, steps, junctions) -> None:
     """One `ctk_link_walk` launch on checked, contiguous card tensors:
     stream int8 [B, pitch] (every byte written), overflow uint8 [B], steps
-    and junctions int32 [B]."""
+    and junctions int32 [B].  The walks' stores are scratch, int32 [B,
+    STORE_FIELDS, CAP] (896 bytes a walk), allocated here and not zeroed:
+    the kernel reads a store only after writing it."""
     nb, bs, _ = buckets.shape
+    stores = torch.empty((seeds.shape[0], STORE_FIELDS, CAP), dtype=torch.int32,
+                         device=seeds.device)
     err = _kernels.library().ctk_link_walk(
         buckets.data_ptr(), nb, bs, seeds.shape[1], k, edges.data_ptr(), link_off.data_ptr(),
         link_choices.data_ptr(), link_len.data_ptr(), link_fw.data_ptr(), link_len.shape[0],
-        seeds.data_ptr(), seeds.shape[0], num_steps, stream.shape[1], stream.data_ptr(),
-        overflow.data_ptr(), steps.data_ptr(), junctions.data_ptr(),
+        seeds.data_ptr(), seeds.shape[0], num_steps, stream.shape[1], stores.data_ptr(),
+        stream.data_ptr(), overflow.data_ptr(), steps.data_ptr(), junctions.data_ptr(),
         _kernels.stream(seeds.device))
     _kernels.check(err, "link_walk")
     LAUNCHES["link_walk"] += 1
+
+
+def kernel_info(which: str, w: int, batch: int, buckets=None) -> dict:
+    """How a launch of `batch` walks at W = w runs on the current card:
+    ctk_link_walk ("link_walk", on the card table `buckets`, whose bucket
+    size and alignment choose its lookup) or ctk_link_step ("link_step"):
+    {"threads" a block, "registers" a thread, "blocks_per_sm" resident,
+    "warps_per_sm", "local_bytes" a thread}."""
+    import ctypes
+
+    out = (ctypes.c_int * 4)()
+    bs = buckets.shape[1] if buckets is not None else 0
+    ptr = buckets.data_ptr() if buckets is not None else None
+    err = _kernels.library().ctk_link_kernel_info(("link_walk", "link_step").index(which), w, bs,
+                                                  ptr, batch, out)
+    _kernels.check(err, "link_kernel_info")
+    threads, regs, blocks, local = out
+    return {"threads": threads, "registers": regs, "blocks_per_sm": blocks,
+            "warps_per_sm": blocks * threads // 32, "local_bytes": local}
 
 
 # ---------------------------------------------------------------------------

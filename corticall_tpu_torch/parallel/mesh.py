@@ -16,8 +16,9 @@ virtual devices share the host.
   queries (`dispatch`: a slice where the two shards share a device, a
   `Tensor.to` copy where they do not), answers them there
   (`sh.shard_answer`), brings the answers back in the send order
-  (`combine`) and steps the walks (`sh.shard_walk_step`, `sh.link_step`,
-  which take each walk's answer by its slot).  The host reads the [n, n]
+  (`combine`) and steps the walks (`sh.shard_walk_step` a shard,
+  `sh.link_step` once a device over the shards it holds; both take each
+  walk's answer by its slot).  The host reads the [n, n]
   query counts once a step; the loop ends when no shard has a live walk,
   after which every walk would emit -1, as the JAX scan does to the end.
 - FindROIs scans each shard's coverages and sums the counts; Call runs one
@@ -279,6 +280,9 @@ def _walk(mesh, sg, seeds, active, colors, num_steps: int, links=None,
     state = sh.WalkState if links is None else sh.LinkState
     states = [state.start(s, a, num_steps)
               for s, a in zip(_split(mesh, seeds), _split(mesh, active))]
+    on_device: dict = {}                 # device -> its shards, for the linked step
+    for s, dev in enumerate(mesh.devices):
+        on_device.setdefault(dev, []).append(s)
     for step in range(num_steps):
         route_all = links is not None and step == 0
         routes, back, counts = routed_exchange(
@@ -286,11 +290,13 @@ def _walk(mesh, sg, seeds, active, colors, num_steps: int, links=None,
             None if route_all else [st.active for st in states])
         if not counts.sum():
             break                  # no live walk: the rest of every stream is -1
-        for st, r, bk in zip(states, routes, back):
-            if links is None:
+        if links is None:
+            for st, r, bk in zip(states, routes, back):
                 sh.shard_walk_step(st, r, bk, k, step, cycle_check)
-            else:
-                sh.link_step(st, r, bk, k, step)
+        else:
+            for shards in on_device.values():
+                sh.link_step([states[s] for s in shards], [routes[s] for s in shards],
+                             [back[s] for s in shards], k, step)
     return states
 
 

@@ -386,9 +386,13 @@ def test_link_step_twin_matches_jax(monkeypatch):
     cks = _sorted_roi_strings(g)
     seeds = _words(cks + [jkm.revcomp(s) for s in cks], k)
     tpm.make_sharded_linked_walk_run(mesh, sg, sl, [0], k, 256)(seeds, np.ones(len(seeds), bool))
-    assert len(calls) >= 2 * 64
+    # one call a step for the two shards (one device), each shard's step a case
+    assert all(len(c[1][0]) == 2 for c in calls) and len(calls) >= 64
+    shard_steps = [(state, route, back, step, after)
+                   for _, (states, routes, backs, _, step), _, (afters, *_) in calls
+                   for state, route, back, after in zip(states, routes, backs, afters)]
     juncs = 0
-    for _, (state, route, back, _, step), _, (after, *_) in calls:
+    for state, route, back, step, after in shard_steps:
         if step % 32 and (after.junctions == state.junctions).all():
             continue           # every step that took a link choice, and every 32nd
         routed = route.slot.numpy() >= 0
@@ -417,6 +421,9 @@ def test_link_step_twin_matches_jax(monkeypatch):
                                *(np.asarray(x).astype(np.int32) for x in (
                                    el_len, el_pos, el_age, el_seq, el_valid))], axis=1)
         np.testing.assert_array_equal(after.store.numpy(), want_store)
+        valid, age = np.asarray(el_valid), np.asarray(el_age)
+        np.testing.assert_array_equal(after.bits.numpy(), valid.any(1) * sh.STORE_NONEMPTY
+                                      + (valid & (age == 0)).any(1) * sh.STORE_PENDING)
         np.testing.assert_array_equal(after.cur.numpy().view(np.uint32), np.asarray(cur))
         np.testing.assert_array_equal(after.active.numpy().astype(bool), np.asarray(adv))
         np.testing.assert_array_equal(after.overflow.numpy().astype(bool), np.asarray(overflow))
@@ -707,9 +714,12 @@ def _replay_on_card(calls, dev):
         elif name == "shard_answer":
             np.testing.assert_array_equal(_np(got), _np(out))
         else:
-            for field, value in vars(after[0]).items():
-                np.testing.assert_array_equal(_np(getattr(card[0], field)), _np(value),
-                                              err_msg=f"{name} {field}")
+            pairs = (zip(card[0], after[0]) if name == "link_step"
+                     else [(card[0], after[0])])
+            for got_state, want_state in pairs:
+                for field, value in vars(want_state).items():
+                    np.testing.assert_array_equal(_np(getattr(got_state, field)), _np(value),
+                                                  err_msg=f"{name} {field}")
     torch.cuda.synchronize()
     for name in {c[0] for c in calls}:
         assert sh.LAUNCHES[name] - before[name] == sum(c[0] == name for c in calls)
@@ -753,6 +763,58 @@ def test_link_kernels_match_twins(cuda, n, monkeypatch):
     tpm.make_sharded_linked_walk_run(mesh, sg, sl, [0], g.kmer_size, 256)(seeds, active)
     monkeypatch.undo()
     assert {c[0] for c in calls} == {"route", "shard_answer", "link_step"}
+    _replay_on_card(calls, cuda)
+
+
+def _uneven_link_steps(sizes=(37, 0, 70), steps=160):
+    """The trio's linked walks (ROI seeds both ways) split over 3 CPU shards
+    of uneven sizes, one of them empty, each step routed and answered by the
+    mesh and stepped by one link_step call over the three shards; the calls
+    recorded as _recording records them."""
+    g, links, _ = _trio()
+    k = g.kmer_size
+    pg, mesh, sg = _port(g, len(sizes))
+    sl = tpm.ShardedLinks.from_graph(pg, [port_links(links)], sg)
+    cks = _sorted_roi_strings(g)
+    words = _words(cks + [jkm.revcomp(s) for s in cks], k)
+    assert len(words) >= sum(sizes)
+    ends = np.cumsum(sizes)
+    states = [sh.LinkState.start(torch.from_numpy(words[e - n:e].view(np.int32)),
+                                 torch.ones(n, dtype=torch.uint8), steps)
+              for n, e in zip(sizes, ends)]
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        calls = _recording(mp, ["link_step"])
+        for step in range(steps):
+            routes, back, counts = tpm.routed_exchange(
+                mesh, sg, [st.cur for st in states], [0], sl,
+                None if step == 0 else [st.active for st in states])
+            if not counts.sum():
+                break
+            sh.link_step(states, routes, back, k, step)
+    return calls, states
+
+
+def test_link_step_over_uneven_shards():
+    """One link_step call over shards of 37, 0 and 70 walks gives each shard
+    what its own call gives (the twin, shard by shard), with needy and idle
+    walks among them and junctions resolved."""
+    calls, states = _uneven_link_steps()
+    assert len(calls) > 32 and int(sum(st.junctions.sum() for st in states)) > 0
+    for _, (before, routes, backs, k, step), _, (after, *_) in calls[::8]:
+        for i, (state, route, back) in enumerate(zip(before, routes, backs)):
+            alone = sh.LinkState(*(v.clone() for v in vars(state).values()))
+            sh.link_step([alone], [route], [back], k, step)
+            for field, value in vars(after[i]).items():
+                np.testing.assert_array_equal(_np(getattr(alone, field)), _np(value))
+    assert before[1].cur.shape[0] == 0
+
+
+@pytest.mark.cuda
+def test_link_kernel_over_uneven_shards(cuda):
+    """ctk_link_step: one launch a step over the three uneven shards (one
+    empty), against the twin's every step."""
+    calls, _ = _uneven_link_steps()
     _replay_on_card(calls, cuda)
 
 

@@ -282,10 +282,15 @@ def rehearse_links() -> dict:
         wl.link_walk_kernel(*tables, seeds, k, num_steps, *bufs)
         return bufs[0][:, :num_steps].t(), bufs[1].view(torch.bool), bufs[2], bufs[3]
 
+    def kernel_info(which, w, batch, buckets=None):
+        return {"threads": 32 if batch < 4 * 132 * 32 else 128, "registers": 0,
+                "blocks_per_sm": 0, "warps_per_sm": 0, "local_bytes": 0}
+
     torch.set_num_threads(1)        # many tiny ops: threads only contend with other workers
     fake_timers(cs, torch)
     real = wl.link_walk_kernel, wl.walk_links_forward
     wl.link_walk_kernel, wl.walk_links_forward = link_walk_kernel, walk_links_forward
+    wl.kernel_info = kernel_info
     cs.LINK_SEEDS, cs.JUMP_STEPS, cs.PF_MAX_WALK, cs.LINK_TWIN_CHUNK = 400, 256, 512, 160
     out = link_trio()
     phase = cs.link_walk_phase(torch.device("cpu"), out)
@@ -311,6 +316,12 @@ def test_link_walk_phase_rehearses_on_cpu(tmp_path):
     assert out["decoded_seeds"] == out["roi_seeds"] and out["roi_steps"] > 0
     assert out["scalar_reads"] == out["reads"]
     assert out["bound"]["bound_ms"] > 0 and out["truncated_links"] == 0
+    assert out["roi_bound"]["bound_ms"] > 0 and out["roi_reads"]["ops"] > 0
+    for key in ("roi_needy", "bulk_needy"):
+        needy = out[key]
+        assert 0 < needy["needy_steps"] < needy["walk_steps"] and needy["needy_share"] < 0.25
+    assert out["bulk_needy"]["walk_steps"] == out["reads"]["walk_steps"]   # every lane's
+    assert out["kernel_shapes"]["roi"]["threads"] == 32
 
 
 def test_walk_table_and_build_phases_rehearse_on_cpu(tmp_path):
@@ -368,9 +379,31 @@ def rehearse_mesh() -> dict:
             return cs.MESH_TWINS[name](*args)
         return launch
 
+    import time
+
+    def entry_timers():
+        # the fakes launch nothing: each wrapper's call on the host clock
+        timers = {name: [] for name in cs.PATH_ENTRIES}
+        saved = {name: getattr(sh, name) for name in cs.PATH_ENTRIES}
+
+        def timed(name, fn):
+            def run(*args):
+                t0 = time.perf_counter()
+                out = fn(*args)
+                dt = (time.perf_counter() - t0) * 1e3
+                timers[name].append(lambda: dt)
+                return out
+            return run
+
+        for name, fn in saved.items():
+            setattr(sh, name, timed(name, fn))
+        return (timers, dict.fromkeys(cs.PATH_ENTRIES, 0),
+                lambda: [setattr(sh, name, fn) for name, fn in saved.items()])
+
     torch.set_num_threads(1)
     fake_timers(cs, torch)
     cs.queued_ms = cs.event_ms
+    cs.entry_timers = entry_timers
     for name in cs.MESH_TWINS:
         setattr(sh, name, fake(name))
     cs.SPEC_STEPS, cs.PF_MAX_WALK = 64, 256
@@ -401,8 +434,8 @@ def rehearse_mesh() -> dict:
     none = sh.route_plain(idle.cur, idle.active, 47, 4)
     phase["idle_bounds"] = [
         cs.walk_step_bound(idle, idle, none, torch.zeros((0, sh.WALK_ANSWER), dtype=torch.int32)),
-        cs.link_step_bound(idle_links, idle_links, none,
-                           torch.zeros((0, sh.LINK_ANSWER), dtype=torch.int32), 1)]
+        cs.link_step_bound([idle_links], [idle_links], [none],
+                           [torch.zeros((0, sh.LINK_ANSWER), dtype=torch.int32)], 1)]
     return phase
 
 
@@ -430,3 +463,27 @@ def test_mesh_phase_rehearses_on_cpu(tmp_path):
         assert (row["library_ms"] is not None) == (name == "route")
         assert out["checked_calls"][name] + out["link_checked_calls"][name] > 0
     assert out["kernels"]["link_step"]["step"] == 1
+    # one linked step launch a step over the four shards, all on one device
+    link = out["kernels"]["link_step"]
+    assert link["shards"] == 4 and link["path_launches"] == out["launches"]["link_step"]
+    most = link["most_needy"]
+    assert most["needy_walks"] >= link["needy_walks"] and most["needy_walks"] > 0
+    assert most["max_abs_err"] == 0.0 and most["bound_ms"] > 0
+    for name in ("route", "shard_answer", "shard_walk_step", "link_step"):
+        row = out["kernels"][name]
+        assert row["path_ms"] > 0 and row["path_launches"] > 0 and row["path_late"] == 0
+
+
+def test_link_probe_builds_its_inputs_on_cpu(tmp_path):
+    """corticall_tpu_torch/tools/link_probe.py parses its arguments and
+    builds its inputs (a 0.05 Mbp trio's graph, links, ROI and bulk seeds)
+    on the CPU with --inputs-only."""
+    probe = os.path.join(os.path.dirname(TESTS), "corticall_tpu_torch", "tools", "link_probe.py")
+    proc = subprocess.run([sys.executable, probe, "--inputs-only", "--device", "cpu", "--mbp",
+                           "0.05", "--bulk", "256"], capture_output=True, text=True, timeout=300,
+                          cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    sizes = json.loads(proc.stdout.strip().splitlines()[-1])["inputs"]
+    assert sizes["bulk_walks"] == 256 and sizes["device"] == "cpu"
+    assert sizes["roi_walks"] == 2 * sizes["roi_kmers"] > 0
+    assert sizes["records"] > sizes["roi_kmers"] and sizes["link_pool_rows"] > 0

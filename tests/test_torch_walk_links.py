@@ -588,11 +588,10 @@ def test_kernel_stops_early_like_twin(cuda):
     assert got[1].cpu().numpy()[0] and got[2].cpu().numpy()[0] == 0
 
 
-@pytest.mark.cuda
-def test_kernel_at_100k_records(cuda):
-    """A 100k-record graph with threaded links, 4,096 lanes x 1,024 steps."""
-    rng = np.random.default_rng(100)
-    k = 31
+def _graph_100k(rng, k=31):
+    """A 100k-record graph whose genome repeats an 80-base unit every 400
+    bases, with links threaded from 2 kbp reads: (port graph, port links,
+    genome)."""
     genome = _genome(rng, 100_000)
     unit = _genome(rng, 80)
     pieces = [genome[i:i + 400] for i in range(0, len(genome), 400)]
@@ -601,9 +600,115 @@ def test_kernel_at_100k_records(cuda):
     assert g.num_records >= 100_000
     reads = [genome[i:i + 2000] for i in range(0, len(genome) - 2000, 1000)]
     links = jlk.build_links(g, {"s": reads}, "s")
-    pg, plinks = _port(g, [links])
+    return (*_port(g, [links]), genome)
+
+
+@pytest.mark.cuda
+def test_kernel_at_100k_records(cuda):
+    """A 100k-record graph with threaded links, 4,096 lanes x 1,024 steps."""
+    rng = np.random.default_rng(100)
+    k = 31
+    pg, plinks, genome = _graph_100k(rng, k)
     walker = twl.LinkedWalker(pg, [0], plinks, device=cuda)
     idx = rng.integers(0, len(genome) - k, 2048)
     seeds = [genome[i:i + k] for i in idx]
     got = _kernel_vs_twin(walker.args, _both_ways(seeds, k), k, 1024, cuda)
     assert int(got[3].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_kernel_at_the_roi_batch(cuda):
+    """The ROI walks' batch of chip_smoke.py's phase 11 (1,406 seeds both
+    ways: 2,812 walks, 88 warps in 32-thread blocks) at Partition's 2,000
+    steps, on the 100k-record graph."""
+    rng = np.random.default_rng(101)
+    k = 31
+    pg, plinks, genome = _graph_100k(rng, k)
+    walker = twl.LinkedWalker(pg, [0], plinks, device=cuda)
+    seeds = [genome[i:i + k] for i in rng.integers(0, len(genome) - k, 1406)]
+    got = _kernel_vs_twin(walker.args, _both_ways(seeds, k), k, 2000, cuda)
+    assert got[0].shape == (2000, 2812) and int(got[3].sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the kernel's lanes: needy and idle walks in one warp, at each width
+# ---------------------------------------------------------------------------
+
+WIDTHS = [15, 31, 47, 63]                  # k at W = 1, 2, 3, 4
+
+
+def width_case(k):
+    """A trio at k whose child has a hub every 90 bases, the child's links
+    threaded from its reads, its seeds both ways cut to a batch that is not
+    a multiple of 32: (walker arrays on the CPU, seed words, steps)."""
+    g, links, colour, seeds = _trio(k, k, spacing=90)
+    pg, plinks = _port(g, links)
+    walker = twl.LinkedWalker(pg, [colour], plinks, device="cpu")
+    words = _both_ways(seeds, k)
+    return walker.args, words[:len(words) - 3], 512
+
+
+@pytest.mark.parametrize("k", WIDTHS)
+def test_width_cases_mix_needy_and_idle_lanes(k):
+    """The inputs of test_kernel_at_each_width hold what the kernel's lanes
+    must get right: a warp whose active walks are needy and idle at one
+    step, walks that end at different steps inside one warp, overflow, and
+    a ragged last warp."""
+    arrays, words, steps = width_case(k)
+    b = words.shape[0]
+    mixed = []
+
+    def trace(t, rec):
+        active, needy = rec["active"], rec["needy"]
+        pad = (-b) % 32
+        act = torch.cat([active, torch.zeros(pad, dtype=torch.bool)]).view(-1, 32)
+        nd = torch.cat([needy & active, torch.zeros(pad, dtype=torch.bool)]).view(-1, 32)
+        mixed.append(int((nd.any(1) & (act & ~nd).any(1)).sum()))
+
+    seeds = torch.from_numpy(words.view(np.int32))
+    emitted, overflow, walked, _ = twl.walk_links_forward_plain(*arrays, seeds, k, steps,
+                                                                trace=trace)
+    assert b % 32 and sum(mixed) > 0 and overflow.any()
+    ends = torch.cat([walked, walked[-1:].expand((-b) % 32)]).view(-1, 32)
+    assert int((ends.amax(1) > ends.amin(1)).sum()) > 0
+
+
+def two_entry_case():
+    """hub47's walks (256 steps) over a cuckoo table of 2-entry buckets,
+    which takes the kernel's word-at-a-time lookup: (arrays on the CPU,
+    seed words, k, steps)."""
+    from corticall_tpu_torch.ops import cuckoo as tck
+    g, links, colour, seeds, _ = case("hub47")
+    steps = 256
+    pg, plinks = _port(g, links)
+    walker = twl.LinkedWalker(pg, [colour], plinks, device="cpu")
+    table = tck.build_cuckoo(pg.kmers, np.arange(pg.num_records, dtype=np.uint32) + 1,
+                             bucket_size=2, device="cpu")
+    assert table.buckets.shape[1] == 2
+    return (table.buckets, *walker.args[1:]), _both_ways(seeds, g.kmer_size), g.kmer_size, steps
+
+
+def test_two_entry_buckets_walk_as_four():
+    """The twin gives the same walks over 2-entry and 4-entry buckets (the
+    payload of a k-mer does not depend on the table's shape)."""
+    arrays, words, k, steps = two_entry_case()
+    g, links, colour, _, _ = case("hub47")
+    pg, plinks = _port(g, links)
+    four = twl.LinkedWalker(pg, [colour], plinks, device="cpu").args
+    _equal_walks(twl.walk_links_forward(*arrays, words, k, steps, device="cpu"),
+                 twl.walk_links_forward(*four, words, k, steps, device="cpu"))
+
+
+@pytest.mark.cuda
+def test_kernel_on_two_entry_buckets(cuda):
+    arrays, words, k, steps = two_entry_case()
+    got = _kernel_vs_twin([a.to(cuda) for a in arrays], words, k, steps, cuda)
+    assert int(got[3].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", WIDTHS)
+def test_kernel_at_each_width(cuda, k):
+    arrays, words, steps = width_case(k)
+    got = _kernel_vs_twin([a.to(cuda) for a in arrays], words, k, steps, cuda)
+    assert int(got[3].sum()) > 0 and bool(got[1].any())

@@ -1578,7 +1578,7 @@ def link_steps_plain(states, routes, backs, k: int, step: int) -> None:
 
 
 # each sharding wrapper's plain twin, by the wrapper's name
-MESH_TWINS = {"route": sh.route_plain, "shard_answer": sh.shard_answer_plain,
+MESH_TWINS = {"route": sh.route_plain, "shard_answer": sh.card_answer_plain,
               "shard_walk_step": sh.shard_walk_step_plain, "link_step": link_steps_plain}
 
 
@@ -1617,16 +1617,17 @@ def mesh_clone(x, stream: bool = True):
 
 def kernel_vs_twin(name, args, got, before, want) -> float:
     """A sharding wrapper's call against its twin's on a copy of its
-    inputs (raising on any difference): a route in its queries' order
-    (route_by_query, whatever order the atomic cursor gave), answers as they
-    are, a step's every state field and its stream row (`args` and `before`:
-    the inputs the kernel and the twin updated)."""
+    inputs (raising on any difference): a route's every field (its send
+    buffer's routed rows), the answers' rows up to the routed total, a
+    step's every state field and its stream row (`args` and `before`: the
+    inputs the kernel and the twin updated)."""
     if name == "route":
-        return max(same(a, b, f"route {what}") for what, a, b in zip(
-            ("words", "owner", "flipped", "counts"), sh.route_by_query(got),
-            sh.route_by_query(want)))
+        total = int(want.offsets[-1])
+        return max(same(a[:total] if what == "send" else a, b[:total] if what == "send" else b,
+                        f"route {what}") for what, a, b in zip(sh.Route._fields, got, want))
     if name == "shard_answer":
-        return same(got, want, "shard_answer")
+        total = int(args[1][-1])
+        return same(got[:total], want[:total], "shard_answer")
     step = args[4]
     pairs = zip(args[0], before[0]) if name == "link_step" else [(args[0], before[0])]
     return max((same(getattr(a, f)[step] if f == "stream" else getattr(a, f),
@@ -1634,15 +1635,13 @@ def kernel_vs_twin(name, args, got, before, want) -> float:
                 for a, b in pairs for f in vars(a)), default=0.0)
 
 
-def checked(fn, keep=lambda name, args: False, compare=lambda name, i: True):
+def checked(fn, keep=lambda name, i, args: False, compare=lambda name, i: True):
     """fn() with each of the four sharding wrappers replaced by one that
     launches its kernel (the wrapper as it was) and, on the kernel's i-th
     call where `compare(name, i)`, runs its plain twin on a copy of the
-    same inputs, raising on any difference: a route in its queries' order
-    (route_by_query, whatever order the atomic cursor gave), answers as they
-    are, a step's every state field and its stream row.  Returns (fn's
+    same inputs, raising on any difference (kernel_vs_twin).  Returns (fn's
     result, the largest difference and the calls compared of each kernel,
-    and a copy of the inputs of the first call of each that `keep(name,
+    and a copy of the inputs of the first call of each that `keep(name, i,
     args)` accepts)."""
     real = {name: getattr(sh, name) for name in MESH_TWINS}
     errs, calls, kept = dict.fromkeys(real, 0.0), dict.fromkeys(real, 0), {}
@@ -1650,7 +1649,7 @@ def checked(fn, keep=lambda name, args: False, compare=lambda name, i: True):
 
     def wrap(name):
         def run(*args):
-            if name not in kept and keep(name, args):
+            if name not in kept and keep(name, seen[name], args):
                 kept[name] = tuple(mesh_clone(a) for a in args)
             seen[name] += 1
             if not compare(name, seen[name] - 1):
@@ -1750,70 +1749,95 @@ def path_timed(fn):
 
 
 def exchange_timed(fn):
-    """fn() with the sharded graph's exchange (mesh.dispatch and
-    mesh.combine: the copies between shards, the host's read of the
-    counts) timed on the host clock, each call ended by a synchronize.
-    Returns (fn's result, {"calls", "bytes", "seconds"})."""
+    """fn() with each sharded exchange (mesh.routed_exchange: the route and
+    the owners' answers; on one card no copy and no host read) timed on the
+    host clock between synchronizes.  Returns (fn's result, {"calls",
+    "bytes": the routed queries' words and their answer rows, "seconds"})."""
     from corticall_tpu_torch.parallel import mesh as pm
 
     stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
-    dispatch, combine = pm.dispatch, pm.combine
+    real = pm.routed_exchange
 
-    def clocked(f, *a):
+    def timed(*args, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = f(*a)
+        routes, backs, routed = real(*args, **kw)
         torch.cuda.synchronize()
         stats["seconds"] += time.perf_counter() - t0
-        return out
-
-    def dispatch_timed(mesh, routes):
-        recv, counts = clocked(dispatch, mesh, routes)
         stats["calls"] += 1
-        stats["bytes"] += nbytes(*recv)
-        return recv, counts
+        rows = int(routed.sum())
+        stats["bytes"] += rows * 4 * (routes[0].send.shape[1] + backs[0].shape[1])
+        return routes, backs, routed
 
-    def combine_timed(mesh, answers, counts):
-        back = clocked(combine, mesh, answers, counts)
-        stats["bytes"] += nbytes(*back)
-        return back
-
-    pm.dispatch, pm.combine = dispatch_timed, combine_timed
+    pm.routed_exchange = timed
     try:
         out = fn()
     finally:
-        pm.dispatch, pm.combine = dispatch, combine
+        pm.routed_exchange = real
     return out, stats
 
 
-def route_bound(cur, active, k: int, n: int, route):
-    """ctk_route's bound, as (bytes, operations): the queries (and their active flags) in; the
-    routed queries' words, each query's slot, owner and flag, and the
-    counts out; ROUTE_OPS a query."""
-    w, routed = cur.shape[1], int(route.counts.sum())
-    moved = (nbytes(cur, route.slot, route.owner, route.flipped, route.counts)
+def host_timed(module, name: str, fn):
+    """fn() with module.name's calls timed on the host clock: (fn's
+    result, their seconds)."""
+    real, total = getattr(module, name), [0.0]
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        total[0] += time.perf_counter() - t0
+        return out
+
+    setattr(module, name, timed)
+    try:
+        return fn(), total[0]
+    finally:
+        setattr(module, name, real)
+
+
+def exchange_fields(stats) -> dict:
+    """exchange_timed's stats as phase 12 reports them."""
+    steps = max(stats["calls"], 1)
+    return {"steps": stats["calls"], "bytes": stats["bytes"],
+            "ms": round(stats["seconds"] * 1e3, 3),
+            "ms_a_step": round(stats["seconds"] * 1e3 / steps, 4),
+            "bytes_a_step": stats["bytes"] // steps}
+
+
+def route_bound(cur, active, k: int, n: int, batches, route):
+    """ctk_route's bound, as (bytes, operations): the queries (and their
+    active flags) in; the routed queries' words, each query's slot, owner
+    and flag, the askers' counts and the owners' offsets out; ROUTE_OPS a
+    query."""
+    w, routed = cur.shape[1], int(route.offsets[-1])
+    moved = (nbytes(cur, route.slot, route.owner, route.flipped, route.counts, route.offsets)
              + (0 if active is None else nbytes(active)) + routed * w * 4)
     return moved, cur.shape[0] * (ROUTE_OPS[0] * w + ROUTE_OPS[1])
 
 
-def answer_bound(recv, buckets, edges, colors, links, ans):
-    """ctk_shard_answer's bound, as (bytes, operations): the queries in, the answers out, the
-    distinct buckets their lookups read (both candidates), the colours'
-    edge bytes of the distinct records found, and with the link CSR their
-    offsets and pool rows (at most MAX_ADD a record); ANSWER_OPS a query,
-    the entries' compares, the colours' ORs and the rows' copies."""
-    (r, w), (nb, bs, _) = recv.shape, buckets.shape
-    h = tk.hash_words(tk.from_bits32(recv))
-    ids = torch.cat([h & (nb - 1), tk.mix32(h ^ tj.GOLDEN) & (nb - 1)])
-    rec = ans[:, sh.ANS_REC].to(torch.int64)
-    hit = torch.unique(rec[rec >= 0])
-    moved = nbytes(recv, ans) + bucket_bytes(buckets, ids) + hit.numel() * len(colors)
-    ops = r * (ANSWER_OPS[0] * w + ANSWER_OPS[1] + 2 * bs * (2 * w + 2) + 2 * len(colors))
-    if links is not None:
-        off = links[0].to(torch.int64)
-        rows = int((off[hit + 1] - off[hit]).clamp(max=sh.MAX_ADD).sum())
-        moved += hit.numel() * 8 + rows * LINK_POOL_ROW_BYTES
-        ops += r * 4 * sh.MAX_ADD
+def answer_bound(recv, offsets, buckets, edges, colors, links, ans):
+    """ctk_shard_answer's bound, as (bytes, operations), summed over the
+    owners' blocks: the queries in, the answers out, the distinct buckets
+    their lookups read (both candidates), the colours' edge bytes of the
+    distinct records found, and with the link CSR their offsets and pool
+    rows (at most MAX_ADD a record); ANSWER_OPS a query, the entries'
+    compares, the colours' ORs and the rows' copies."""
+    off = offsets.tolist()
+    moved = ops = nbytes(offsets)
+    for j, (lo, hi) in enumerate(zip(off, off[1:])):
+        q, a = recv[lo:hi], ans[lo:hi]
+        (r, w), (nb, bs, _) = q.shape, buckets[j].shape
+        h = tk.hash_words(tk.from_bits32(q))
+        ids = torch.cat([h & (nb - 1), tk.mix32(h ^ tj.GOLDEN) & (nb - 1)])
+        rec = a[:, sh.ANS_REC].to(torch.int64)
+        hit = torch.unique(rec[rec >= 0])
+        moved += nbytes(q, a) + bucket_bytes(buckets[j], ids) + hit.numel() * len(colors)
+        ops += r * (ANSWER_OPS[0] * w + ANSWER_OPS[1] + 2 * bs * (2 * w + 2) + 2 * len(colors))
+        if links is not None:
+            lo_t = links[j][0].to(torch.int64)
+            rows = int((lo_t[hit + 1] - lo_t[hit]).clamp(max=sh.MAX_ADD).sum())
+            moved += hit.numel() * 8 + rows * LINK_POOL_ROW_BYTES
+            ops += r * 4 * sh.MAX_ADD
     return moved, ops
 
 
@@ -1899,7 +1923,8 @@ def link_step_bound(befores, afters, routes, backs, step: int):
 def mesh_kernel_rows(kept, errs) -> dict:
     """Each kernel at the inputs `checked` kept: its time (queued_ms, on
     fresh copies), its twin's (host clock), its bound and, for ctk_route,
-    the library's packing (a stable argsort of the owners and a bincount)."""
+    the library's packing (a stable argsort of the owners, the queries not
+    routed last, and a bincount)."""
     rows = {}
     for name, args in kept.items():
         copies = iter([tuple(mesh_clone(a) for a in args) for _ in range(5)])
@@ -1911,20 +1936,25 @@ def mesh_kernel_rows(kept, errs) -> dict:
         library = None
         if name == "route":
             bound = route_bound(*args, out)
-            owner = out.owner.to(torch.int64)
-            library = queued_ms(lambda: (torch.argsort(owner, stable=True),
-                                         torch.bincount(owner, minlength=args[3])), 3)
-            shape = {"queries": int(args[0].shape[0]), "shards": args[3]}
+            n = args[3]
+            key = out.owner.to(torch.int64)
+            if args[1] is not None:
+                key = torch.where(args[1].to(torch.bool), key, n)
+            library = queued_ms(lambda: (torch.argsort(key, stable=True),
+                                         torch.bincount(key, minlength=n + 1)), 3)
+            shape = {"queries": int(args[0].shape[0]), "routed": int(out.offsets[-1]),
+                     "shards": n, "askers": int(out.counts.shape[0])}
         elif name == "shard_answer":
             bound = answer_bound(*args, out)
-            shape = {"queries": int(args[0].shape[0]), "answer_words": int(out.shape[1])}
+            shape = {"queries": int(args[1][-1]), "owners": len(args[2]),
+                     "answer_words": int(out.shape[1])}
         elif name == "shard_walk_step":
             bound = walk_step_bound(args[0], fresh[0], *args[1:3], *args[5:])
             shape = {"walks": int(args[0].cur.shape[0]), "step": args[4]}
         else:
             bound = link_step_bound(args[0], fresh[0], *args[1:3], args[4])
             shape = {"walks": sum(int(st.cur.shape[0]) for st in args[0]),
-                     "shards": len(args[0]), "step": args[4],
+                     "states": len(args[0]), "step": args[4],
                      "needy_walks": sum(int(needy_walks(*a).sum()) for a in zip(*args[:3]))}
         rows[name] = {"ms": round(ms, 5), "plain_ms": round(plain_ms, 3),
                       **bound_fields(bound_ms(*bound)), "bytes": bound[0], "ops": bound[1],
@@ -1969,8 +1999,10 @@ def mesh_phase(dev, out, bench, mp) -> dict:
     graph, make_sharded_walk_run over phase 6's seeds x SPEC_STEPS (phase
     9's walks) and one make_sharded_walk_step of skewed queries (every one
     owned by MESH_SKEW_SHARD); on phase 4's trio, sharded_assemble_links
-    over the sorted ROI k-mers at Partition's max_walk.  Then: the walk run
-    again with its exchange timed (exchange_timed), equal to the path's;
+    over the sorted ROI k-mers at Partition's max_walk.  A step of either is
+    three launches on the card: ctk_route, ctk_shard_answer, then the walk
+    or linked step.  Then: the walk run and the linked walks again with
+    their exchanges timed (exchange_timed), equal to the path's;
     once more with every kernel call held against its twin on the same inputs
     (`checked`), equal to the path's, and against the single-device walk
     (walk_forward_spec on phase 9's walk table): every lane's stream with
@@ -1982,7 +2014,9 @@ def mesh_phase(dev, out, bench, mp) -> dict:
     their contigs, overflow and junctions equal to LinkedWalker.assemble's;
     sharded FindROIs against the host's FindROIs; and sharded_call on
     MESH_CALL_SHARDS Callers, whose VCF must be phase 4's calls.vcf byte for
-    byte.  Each kernel is timed at a call of the checked runs."""
+    byte.  Each kernel is timed at a call of the checked runs: ctk_route
+    and ctk_shard_answer at step 1 of the linked walks (the size most of
+    their launches run at) and at step 0 of the walk run."""
     from corticall_tpu_torch import kmer as km
     from corticall_tpu_torch.caller.call import Caller
     from corticall_tpu_torch.commands import core as tcore
@@ -2024,27 +2058,35 @@ def mesh_phase(dev, out, bench, mp) -> dict:
     walk_launches = dict(sh.LAUNCHES)
     cur, advanced, live = step(skewed, np.ones(len(skewed), dtype=bool))
     t0 = time.perf_counter()
-    contigs, overflow, junctions = pm.sharded_assemble_links(mesh, sgt, slt, [child], cks,
-                                                            PF_MAX_WALK)
+    (contigs, overflow, junctions), links_decode_s = host_timed(
+        wl, "decode_linked_walk",
+        lambda: pm.sharded_assemble_links(mesh, sgt, slt, [child], cks, PF_MAX_WALK))
     torch.cuda.synchronize()
     links_s = time.perf_counter() - t0
     launches = dict(sh.LAUNCHES)
     if not all(launches.values()):
         raise AssertionError(f"a sharding kernel never launched: {launches}")
+    if not launches["route"] == launches["shard_answer"] == (
+            launches["shard_walk_step"] + launches["link_step"]):
+        raise AssertionError(f"a step on the card is not three launches: {launches}")
 
-    # the exchange alone: the walk again, each dispatch and combine between
-    # synchronizes (so walk_s above has none of them)
+    # the exchange alone: the walk and the linked walks again, each exchange
+    # between synchronizes (so walk_s and links_s above have none of them)
     rerun, exchange = exchange_timed(lambda: walk(seeds, ones))
     for name, a, b in zip(("bases", "cycled", "steps"), rerun, walked):
         same(a, b, f"the sharded walk's {name}, run with its exchange timed")
     del rerun
+    (relinked, _, _), link_exchange = exchange_timed(lambda: pm.sharded_assemble_links(
+        mesh, sgt, slt, [child], cks, PF_MAX_WALK))
+    if relinked != contigs:
+        raise AssertionError("the linked walks run with their exchanges timed differ")
 
     # the walk run: every kernel call against its twin; then the single-device
     # walk: every lane's stream (its stalls taken out), cycle flag and steps,
     # and the first MESH_REPLAY_SEEDS lanes' extensions through replay_walk
     t0 = time.perf_counter()
     again, errs, calls, kept = checked(lambda: walk(seeds, ones),
-                                       lambda name, args: name != "link_step")
+                                       lambda name, i, args: i == 0)
     checked_s = time.perf_counter() - t0
     for name, a, b in zip(("bases", "cycled", "steps"), again, walked):
         same(a, b, f"the sharded walk's {name}, run again")
@@ -2088,12 +2130,10 @@ def mesh_phase(dev, out, bench, mp) -> dict:
     t0 = time.perf_counter()
     linked, link_errs, link_calls, link_kept = checked(
         lambda: run_links(both, np.ones(len(both), dtype=bool)),
-        lambda name, args: name == "link_step" and args[4] == 1,
-        lambda name, i: (lambda s: s < MESH_LINK_CHECK_STEPS or s % MESH_LINK_CHECK_EVERY == 0)(
-            i if name == "link_step" else i // MESH_SHARDS))
+        lambda name, i, args: i == 1,
+        lambda name, i: i < MESH_LINK_CHECK_STEPS or i % MESH_LINK_CHECK_EVERY == 0)
     link_checked_s = time.perf_counter() - t0
     errs = {name: max(errs[name], link_errs[name]) for name in errs}
-    kept.update(link_kept)
     b2 = len(rows)
     for name, a, b in zip(("emitted", "overflow", "junctions"),
                           (linked[0][:, :b2], linked[1][:b2], linked[2][:b2]),
@@ -2139,7 +2179,12 @@ def mesh_phase(dev, out, bench, mp) -> dict:
         raise AssertionError("the linked walks run with their launches timed differ")
     del timed_walk
 
-    kernels = mesh_kernel_rows(kept, errs)
+    walk_rows, link_rows = mesh_kernel_rows(kept, errs), mesh_kernel_rows(link_kept, errs)
+    kernels = {"route": {**link_rows["route"], "walk_step0": walk_rows["route"]},
+               "shard_answer": {**link_rows["shard_answer"],
+                                "walk_step0": walk_rows["shard_answer"]},
+               "shard_walk_step": walk_rows["shard_walk_step"],
+               "link_step": link_rows["link_step"]}
     for name, row in kernels.items():
         row.update(path_ms=path[name]["path_ms"], path_launches=path[name]["launches"],
                    path_late=path[name]["late"])
@@ -2155,10 +2200,7 @@ def mesh_phase(dev, out, bench, mp) -> dict:
         "seeds": len(seeds), "max_steps": SPEC_STEPS, "steps": steps_total,
         "cycled": int(walked[1].sum()), "walk_s": round(walk_s, 4),
         "walk_steps_per_s": round(steps_total / walk_s),
-        "exchange": {"steps": exchange["calls"], "bytes": exchange["bytes"],
-                     "ms": round(exchange["seconds"] * 1e3, 3),
-                     "ms_a_step": round(exchange["seconds"] * 1e3 / max(exchange["calls"], 1), 4),
-                     "bytes_a_step": exchange["bytes"] // max(exchange["calls"], 1)},
+        "exchange": exchange_fields(exchange), "link_exchange": exchange_fields(link_exchange),
         "walk_launches": walk_launches, "launches": launches,
         "checked_s": round(checked_s, 2), "checked_calls": calls,
         "single_device_identical": True, "replayed_seeds": len(strs),
@@ -2166,6 +2208,7 @@ def mesh_phase(dev, out, bench, mp) -> dict:
         "skewed_queries": len(skewed), "skewed_owner": MESH_SKEW_SHARD,
         "skewed_advanced": live, "skewed_checked_live": skew_live,
         "roi_seeds": len(cks), "links_s": round(links_s, 3),
+        "links_decode_s": round(links_decode_s, 3),
         "link_checked_s": round(link_checked_s, 2), "link_checked_calls": link_calls,
         "overflows": int(overflow.sum()), "junctions": int(junctions.sum()),
         "linked_identical": True, "rois": len(got_rois), "rois_identical": True,
@@ -2174,7 +2217,7 @@ def mesh_phase(dev, out, bench, mp) -> dict:
         "path_note": ("path_ms: every launch of the walk run and the linked walks, each "
                       "between CUDA events behind a spin"),
         "seconds": round(time.perf_counter() - t_phase, 2)}
-    del sg, sgt, slt, walked, again, linked, kept, most
+    del sg, sgt, slt, walked, again, linked, kept, link_kept, most
     torch.cuda.empty_cache()
     return result
 

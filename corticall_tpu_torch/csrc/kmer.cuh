@@ -167,6 +167,23 @@ __device__ __forceinline__ uint32_t thread_lookup_payload_vec(const uint32_t* __
   return best;
 }
 
+// the lookup: the vector form for 4-entry buckets on a 16-byte aligned
+// table (BS = 4), else the word-at-a-time form (BS = 0, any bucket size)
+template <int W, int BS>
+__device__ __forceinline__ uint32_t lookup_payload(const uint32_t* __restrict__ buckets,
+                                                   uint32_t nb_mask, int bs,
+                                                   const uint32_t (&canon)[W]) {
+  if constexpr (BS == 0)
+    return thread_lookup_payload<W>(buckets, nb_mask, bs, canon);
+  else
+    return thread_lookup_payload_vec<W, BS>(buckets, nb_mask, canon);
+}
+
 bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
+
+// whether lookup_payload may take its vector form (BS = 4) on this table
+bool vector_lookup(const void* buckets, int bs) {
+  return bs == 4 && reinterpret_cast<uintptr_t>(buckets) % 16 == 0;
+}
 
 }  // namespace

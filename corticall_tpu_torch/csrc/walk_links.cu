@@ -63,17 +63,6 @@ int block_threads(int warps) {
   return warps < 4 * sms ? 32 : 128;
 }
 
-// the lookup: the vector form for 4-entry buckets on a 16-byte aligned
-// table (BS = 4), else the word-at-a-time form (BS = 0, any bucket size)
-template <int W, int BS>
-__device__ __forceinline__ uint32_t lookup(const uint32_t* __restrict__ buckets, uint32_t nb_mask,
-                                           int bs, const uint32_t (&canon)[W]) {
-  if constexpr (BS == 0)
-    return thread_lookup_payload<W>(buckets, nb_mask, bs, canon);
-  else
-    return thread_lookup_payload_vec<W, BS>(buckets, nb_mask, canon);
-}
-
 // a lane's staged emission: 8 words of the current 32-step sector and the
 // word being filled (`acc`, a byte a step from the top)
 struct Staged {
@@ -130,7 +119,7 @@ link_walk_kernel(const uint32_t* __restrict__ buckets, uint32_t nb_mask, int bs,
     if (active) {
       uint32_t canon[W];
       flipped = canonicalize<W>(cur, canon, k);
-      const int rec = (int)lookup<W, BS>(buckets, nb_mask, bs, canon) - 1;
+      const int rec = (int)lookup_payload<W, BS>(buckets, nb_mask, bs, canon) - 1;
       if (rec >= 0) {
         edge = __ldg(edges + rec);
         off = __ldg(link_off + rec);
@@ -325,10 +314,6 @@ const void* step_kernel_for(int w) {
     case 3: return reinterpret_cast<const void*>(&link_step_kernel<3>);
     default: return reinterpret_cast<const void*>(&link_step_kernel<4>);
   }
-}
-
-bool vector_lookup(const void* buckets, int bs) {
-  return bs == 4 && reinterpret_cast<uintptr_t>(buckets) % 16 == 0;
 }
 
 }  // namespace

@@ -51,8 +51,8 @@ _SIGNATURES = {
                       _P, _P),
     "ctk_link_step": (_P, _I, _I, _I, _I, _P),
     "ctk_link_kernel_info": (_I, _I, _I, _P, _I, _P),
-    "ctk_route": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
-    "ctk_shard_answer": (_P, _I, _I, _P, _I, _I, _P, _I, _U, _P, _P, _P, _P, _I, _P, _I, _P),
+    "ctk_route": (_P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "ctk_shard_answer": (_P, _I, _P, _I, _I, _P, _I, _I, _I, _U, _P, _I, _P),
     "ctk_shard_walk_step": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P),
 }
 

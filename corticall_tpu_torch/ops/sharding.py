@@ -1,4 +1,4 @@
-"""The hash-sharded graph's device steps: routing, the shard's answer, the
+"""The hash-sharded graph's device steps: routing, the owners' answers, the
 walk step and the linked step, each a CUDA kernel with a plain PyTorch twin.
 
 Counterpart of the XLA device code of corticall_tpu/parallel/mesh.py:
@@ -17,14 +17,17 @@ Counterpart of the XLA device code of corticall_tpu/parallel/mesh.py:
                      of one device in one call.
 The capacity-bounded exchange rounds of _routed_exchange (`_lookup_cap`, the
 `pmax` of the rounds, the `q_pad` clamp guard, `pcast`) exist for XLA's
-static shapes and are not ported: a shard sends each owner exactly its
-queries (parallel/mesh.dispatch).
+static shapes and are not ported: each owner gets exactly its queries.
 
-A route packs the routed queries by owner, ascending; within an owner's
-block the kernel's order comes from an atomic cursor and may vary from run
-to run, the twin's is the queries' order.  Every answer returns to its asker
-through `slot`, so nothing downstream depends on that order
-(`route_by_query` gives a route in the queries' order, for comparing one).
+The exchange works a device at a time.  A device's queries are those of
+the shards it holds (its askers), one shard after another; `route` packs
+them all into one send buffer, owner-major: owner t's block,
+send[offsets[t]:offsets[t + 1]], holds the queries sent to t in the
+queries' order, so asker after asker (the order of a stable sort by owner,
+JAX's argsort within each asker).  `shard_answer` answers the owners of a
+device at once, each from its own block of a received buffer (on one
+device, the send buffer itself), into an answer buffer of the same rows:
+a query's answer is row slot[query] wherever it was answered.
 
 Answers are int32 rows [R, A]: the shard-local record (-1: a miss), the
 combined edge byte (the OR over the walk colours; 0 on a miss), and with the
@@ -86,11 +89,14 @@ def routing_hash(words: torch.Tensor) -> torch.Tensor:
 
 
 class Route(NamedTuple):
-    send: torch.Tensor     # int32 [B, W]: canonical words of the routed queries, by owner
-    slot: torch.Tensor     # int32 [B]: the send row of each query, -1 when not routed
+    """A device's route of its askers' queries (B of them, asker after
+    asker, over n owners)."""
+    send: torch.Tensor     # int32 [B, W]: the routed queries' canonical words, owner-major
+    slot: torch.Tensor     # int32 [B]: each query's row in send (and in the answers), -1: not routed
     owner: torch.Tensor    # int32 [B]: routing_hash(canonical) % n
     flipped: torch.Tensor  # uint8 [B]: the canonical form is the reverse complement
-    counts: torch.Tensor   # int32 [n]: routed queries of each owner
+    counts: torch.Tensor   # int32 [askers, n]: each asker's routed queries of each owner
+    offsets: torch.Tensor  # int32 [n + 1]: owner t's block of send; offsets[n], the routed total
 
 
 @dataclass
@@ -157,11 +163,25 @@ def _check_device(what: str, *tensors) -> torch.device:
 # route
 # ---------------------------------------------------------------------------
 
-def route_plain(cur: torch.Tensor, active, k: int, n: int) -> Route:
-    """Twin of ctk_route: canonical form, owner and the send buffer packed by
-    owner in the queries' order; `active` (uint8 [B], or None for every
-    query) picks the queries to send."""
+ROUTE_TILE = 256         # queries a tile of ctk_route (csrc/shard.cu kRouteThreads)
+_BARRIERS: dict = {}     # card -> ctk_route's grid-barrier words (zero, and left so)
+
+
+def _batches(b: int, batches) -> list:
+    batches = [b] if batches is None else [int(x) for x in batches]
+    if not 1 <= len(batches) <= MAX_SHARDS or min(batches) < 0 or sum(batches) != b:
+        raise ValueError(f"the askers' counts {batches} do not split {b} queries "
+                         f"(1 to {MAX_SHARDS} askers)")
+    return batches
+
+
+def route_plain(cur: torch.Tensor, active, k: int, n: int, batches=None) -> Route:
+    """Twin of ctk_route: canonical form, owner, and the send buffer packed
+    by a stable sort of the routed queries by owner; `active` (uint8 [B],
+    or None for every query) picks the queries to send, `batches` the
+    askers' counts (default: one asker)."""
     b = cur.shape[0]
+    batches = _batches(b, batches)
     canon, flipped = tk.canonicalize_words(tk.from_bits32(cur), k)
     owner = routing_hash(canon) % n
     live = (torch.ones(b, dtype=torch.bool, device=cur.device) if active is None
@@ -172,14 +192,20 @@ def route_plain(cur: torch.Tensor, active, k: int, n: int) -> Route:
     slot[order[:routed]] = torch.arange(routed, dtype=torch.int32, device=cur.device)
     send = torch.zeros_like(cur)
     send[:routed] = tk.to_bits32(canon[order[:routed]])
-    counts = torch.bincount(owner[live], minlength=n)
+    asker = torch.repeat_interleave(torch.arange(len(batches), device=cur.device),
+                                    torch.tensor(batches, device=cur.device), output_size=b)
+    counts = torch.bincount((asker * n + owner)[live], minlength=len(batches) * n)
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=cur.device)
+    offsets[1:] = torch.cumsum(counts.reshape(-1, n).sum(0), 0)
     return Route(send, slot, owner.to(torch.int32), flipped.to(torch.uint8),
-                 counts.to(torch.int32))
+                 counts.reshape(-1, n).to(torch.int32), offsets.to(torch.int32))
 
 
-def route(cur: torch.Tensor, active, k: int, n: int) -> Route:
-    """Walk-oriented k-mers int32 [B, W] -> their Route over n shards: the
-    twin for CPU tensors, one ctk_route launch (two passes) for CUDA ones."""
+def route(cur: torch.Tensor, active, k: int, n: int, batches=None) -> Route:
+    """A device's walk-oriented k-mers int32 [B, W], its askers' queries one
+    asker after another (`batches`: their counts; default one asker), ->
+    their Route over n shards: the twin for CPU tensors, one ctk_route
+    launch for CUDA ones."""
     w = tk.words(k)
     if cur.dtype != torch.int32 or cur.dim() != 2 or cur.shape[1] != w or not 1 <= k <= 63:
         raise ValueError(f"queries must be int32 [B, {w}] words, 1 <= k <= 63")
@@ -187,51 +213,40 @@ def route(cur: torch.Tensor, active, k: int, n: int) -> Route:
         raise ValueError(f"1 <= shards <= {MAX_SHARDS}")
     if active is not None and (active.dtype != torch.uint8 or active.shape != cur.shape[:1]):
         raise ValueError("active must be uint8 [B]")
+    batches = _batches(cur.shape[0], batches)
     dev = _check_device("route", cur, active)
     if dev.type == "cpu":
-        return route_plain(cur, active, k, n)
+        return route_plain(cur, active, k, n, batches)
     b = cur.shape[0]
     out = Route(torch.empty_like(cur), torch.empty(b, dtype=torch.int32, device=dev),
                 torch.empty(b, dtype=torch.int32, device=dev),
                 torch.empty(b, dtype=torch.uint8, device=dev),
-                torch.empty(n, dtype=torch.int32, device=dev))
-    cursor = torch.empty(n, dtype=torch.int32, device=dev)
+                torch.empty((len(batches), n), dtype=torch.int32, device=dev),
+                torch.empty(n + 1, dtype=torch.int32, device=dev))
     route_kernel(cur.contiguous(), None if active is None else active.contiguous(), k, n,
-                 *out, cursor)
+                 batches, out)
     return out
 
 
-def route_kernel(cur, active, k: int, n: int, send, slot, owner, flipped, counts,
-                 cursor) -> None:
-    """One ctk_route launch on checked, contiguous card tensors (`cursor`,
-    int32 [n], is scratch; counts and cursor are zeroed on the stream)."""
-    with torch.cuda.device(cur.device):
+def route_kernel(cur, active, k: int, n: int, batches: list, out: Route) -> None:
+    """One ctk_route launch on checked, contiguous card tensors, writing
+    `out` (a cooperative launch: its blocks meet at grid barriers, whose
+    words this card keeps in _BARRIERS)."""
+    dev = cur.device
+    if dev not in _BARRIERS:
+        _BARRIERS[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
+    tiles = sum(-(-x // ROUTE_TILE) for x in batches)
+    scratch = torch.empty(n * (tiles + 1), dtype=torch.int32, device=dev)
+    counts = (ctypes.c_int * len(batches))(*batches)
+    with torch.cuda.device(dev):
         err = _kernels.library().ctk_route(
-            cur.data_ptr(), cur.shape[0], cur.shape[1], k, n,
-            None if active is None else active.data_ptr(), send.data_ptr(), slot.data_ptr(),
-            owner.data_ptr(), flipped.data_ptr(), counts.data_ptr(), cursor.data_ptr(),
-            _kernels.stream(cur.device))
+            cur.data_ptr(), cur.shape[1], k, n, None if active is None else active.data_ptr(),
+            ctypes.addressof(counts), len(batches), out.owner.data_ptr(),
+            out.flipped.data_ptr(), out.slot.data_ptr(), out.send.data_ptr(),
+            out.counts.data_ptr(), out.offsets.data_ptr(), scratch.data_ptr(),
+            _BARRIERS[dev].data_ptr(), _kernels.stream(dev))
     _kernels.check(err, "route")
     LAUNCHES["route"] += 1
-
-
-def route_by_query(r: Route) -> tuple:
-    """A route in the queries' order, the same for the kernel and its twin:
-    (canonical words each query was sent as, 0 where it was not routed;
-    owner; flipped; counts).  Raises unless the slots pack the routed
-    queries by owner: each once, inside its owner's block."""
-    routed = r.slot >= 0
-    total = int(r.counts.sum())
-    starts = torch.cumsum(r.counts.to(torch.int64), 0) - r.counts.to(torch.int64)
-    s = r.slot[routed].to(torch.int64)
-    o = r.owner[routed].to(torch.int64)
-    if s.numel() != total or (s.numel() and (
-            torch.unique(s).numel() != total or bool((s < starts[o]).any())
-            or bool((s >= starts[o] + r.counts.to(torch.int64)[o]).any()))):
-        raise AssertionError("the route's slots do not pack its queries by owner")
-    sent = torch.zeros_like(r.send)
-    sent[routed] = r.send[s]
-    return sent, r.owner, r.flipped, r.counts
 
 
 # ---------------------------------------------------------------------------
@@ -239,8 +254,9 @@ def route_by_query(r: Route) -> tuple:
 # ---------------------------------------------------------------------------
 
 def shard_answer_plain(recv, buckets, edges, colors, links=None) -> torch.Tensor:
-    """Twin of ctk_shard_answer: canonical queries int32 [R, W] received by
-    one shard -> int32 answer rows [R, A] (see the module docstring)."""
+    """One owner's answers: canonical queries int32 [R, W] it received ->
+    int32 answer rows [R, A] (see the module docstring); card_answer_plain
+    runs it on each owner's block."""
     r = recv.shape[0]
     dev = recv.device
     rec = tk.from_bits32(ck.lookup_payload(buckets, recv)) - 1
@@ -266,9 +282,24 @@ def shard_answer_plain(recv, buckets, edges, colors, links=None) -> torch.Tensor
         ch[take] = tk.from_bits32(choices[src])
         ln[take] = lengths[src].to(torch.int64)
         fw[take] = forward[src].to(torch.int64)
-        cols += [cnt, ch.reshape(r, -1), ln, fw]
+        cols += [cnt, ch.reshape(r, MAX_ADD * JW), ln, fw]
     cols = [c[:, None] if c.dim() == 1 else c for c in cols]
     return tk.to_bits32(torch.cat(cols, dim=1))
+
+
+def card_answer_plain(recv, offsets, buckets, edges, colors, links=None) -> torch.Tensor:
+    """Twin of ctk_shard_answer: the answers of several owners of one
+    device to the queries they received, owner j's block
+    recv[offsets[j]:offsets[j + 1]] by shard_answer_plain on its tables;
+    rows past offsets[-1] zero."""
+    cols = WALK_ANSWER if links is None else LINK_ANSWER
+    ans = torch.zeros((recv.shape[0], cols), dtype=torch.int32, device=recv.device)
+    off = offsets.tolist()
+    for j, (lo, hi) in enumerate(zip(off, off[1:])):
+        if hi > lo:
+            ans[lo:hi] = shard_answer_plain(recv[lo:hi], buckets[j], edges[j], colors,
+                                            None if links is None else links[j])
+    return ans
 
 
 def _color_mask(colors, num_colors: int) -> int:
@@ -280,62 +311,91 @@ def _color_mask(colors, num_colors: int) -> int:
     return mask
 
 
-def shard_answer(recv, buckets, edges, colors, links=None) -> torch.Tensor:
-    """One shard's answers to the canonical queries it received (int32
-    [R, W]): buckets int32 [NB, BS, W+1] (payload = shard-local record + 1),
-    edges uint8 [N, C], the walk colours, and optionally the shard's link
-    CSR (offsets int32 [N+1], choices int32 [P, JW], lengths int32 [P],
-    forward uint8 [P], P >= 1).  The twin for CPU tensors, one
+def shard_answer(recv, offsets, buckets, edges, colors, links=None) -> torch.Tensor:
+    """The answers of a device's owners to the canonical queries they
+    received: recv int32 [R, W], owner j's block recv[offsets[j]:offsets[j +
+    1]] (offsets int32 [m + 1] on the device, offsets[m] <= R, read there by
+    the kernel); each owner's buckets int32 [NB, BS, W+1] (payload = its
+    record + 1, one shape for all), edges uint8 [N_j, C], the walk colours,
+    and optionally each owner's link CSR (offsets int32 [N_j + 1], choices
+    int32 [P, JW], lengths int32 [P], forward uint8 [P], P >= 1).  Returns
+    int32 [R, A], row i answering recv row i; rows past offsets[m] are left
+    unwritten (zero in the twin).  The twin for CPU tensors, one
     ctk_shard_answer launch for CUDA ones."""
-    w = buckets.shape[2] - 1 if buckets.dim() == 3 else 0
-    nb = buckets.shape[0]
-    if buckets.dtype != torch.int32 or buckets.dim() != 3 or not 1 <= w <= 4 or nb & (nb - 1):
-        raise ValueError("buckets must be int32 [NB, BS, W+1], NB a power of two")
+    m = len(buckets)
+    if not 1 <= m <= MAX_SHARDS or len(edges) != m or (links is not None and len(links) != m):
+        raise ValueError(f"one to {MAX_SHARDS} owners, each with buckets, edges (and links)")
+    shape = buckets[0].shape
+    w = shape[2] - 1 if len(shape) == 3 else 0
+    nb = shape[0]
+    if any(b.dtype != torch.int32 or b.shape != shape for b in buckets) or len(shape) != 3 \
+            or not 1 <= w <= 4 or nb & (nb - 1):
+        raise ValueError("buckets must be int32 [NB, BS, W+1], NB a power of two, one shape "
+                         "for every owner")
     if recv.dtype != torch.int32 or recv.dim() != 2 or recv.shape[1] != w:
         raise ValueError(f"queries must be int32 [R, {w}]")
-    if edges.dtype != torch.uint8 or edges.dim() != 2:
-        raise ValueError("edges must be uint8 [N, C]")
-    mask = _color_mask(colors, edges.shape[1])
-    if links is not None:
-        offsets, choices, lengths, forward = links
+    if offsets.dtype != torch.int32 or tuple(offsets.shape) != (m + 1,):
+        raise ValueError(f"offsets must be int32 [{m + 1}]")
+    num_colors = edges[0].shape[1] if edges[0].dim() == 2 else 0
+    if any(e.dtype != torch.uint8 or e.dim() != 2 or e.shape[1] != num_colors for e in edges):
+        raise ValueError("edges must be uint8 [N, C], one C for every owner")
+    mask = _color_mask(colors, num_colors)
+    for j, csr in enumerate(links or ()):
+        lo, choices, lengths, forward = csr
         p = lengths.shape[0]
-        if offsets.dtype != torch.int32 or tuple(offsets.shape) != (edges.shape[0] + 1,) or \
+        if lo.dtype != torch.int32 or tuple(lo.shape) != (edges[j].shape[0] + 1,) or \
                 p < 1 or choices.dtype != torch.int32 or tuple(choices.shape) != (p, JW) or \
                 lengths.dtype != torch.int32 or forward.dtype != torch.uint8 or \
                 tuple(forward.shape) != (p,):
             raise ValueError("the link CSR must be int32 [N+1], int32 [P, JW], int32 [P], "
                              "uint8 [P], P >= 1")
-    dev = _check_device("shard_answer", recv, buckets, edges, *(links or ()))
+    dev = _check_device("shard_answer", recv, offsets, *buckets, *edges,
+                        *(t for csr in links or () for t in csr))
     if dev.type == "cpu":
-        return shard_answer_plain(recv, buckets, edges, colors, links)
+        return card_answer_plain(recv, offsets, buckets, edges, colors, links)
     ans = torch.empty((recv.shape[0], WALK_ANSWER if links is None else LINK_ANSWER),
                       dtype=torch.int32, device=dev)
     if recv.shape[0]:
-        shard_answer_kernel(recv.contiguous(), buckets.contiguous(), edges.contiguous(), mask,
-                            None if links is None else tuple(x.contiguous() for x in links),
-                            ans)
+        shard_answer_kernel(recv.contiguous(), offsets.contiguous(),
+                            [b.contiguous() for b in buckets], [e.contiguous() for e in edges],
+                            mask, None if links is None else
+                            [tuple(x.contiguous() for x in csr) for csr in links], ans)
     return ans
 
 
-def shard_answer_kernel(recv, buckets, edges, color_mask: int, links, ans) -> None:
-    """One ctk_shard_answer launch on checked, contiguous card tensors."""
-    nb, bs, _ = buckets.shape
-    off, ch, ln, fw = links if links is not None else (None,) * 4
+# ctk_shard_answer's owner descriptor (csrc/shard.cu::AnswerOwner)
+ANSWER_OWNER_FIELDS = ("buckets", "edges", "link_off", "link_choices", "link_len", "link_fw")
+
+
+class AnswerOwner(ctypes.Structure):
+    _fields_ = [*((f, ctypes.c_void_p) for f in ANSWER_OWNER_FIELDS), ("num_links", ctypes.c_int)]
+
+
+def shard_answer_kernel(recv, offsets, buckets: list, edges: list, color_mask: int, links,
+                        ans) -> None:
+    """One ctk_shard_answer launch on checked, contiguous card tensors: a
+    table of owner descriptors passed by value."""
+    table = (AnswerOwner * len(buckets))()
+    for j, d in enumerate(table):
+        d.buckets, d.edges = buckets[j].data_ptr(), edges[j].data_ptr()
+        if links is not None:
+            lo, ch, ln, fw = links[j]
+            d.link_off, d.link_choices, d.link_len, d.link_fw = (
+                lo.data_ptr(), ch.data_ptr(), ln.data_ptr(), fw.data_ptr())
+            d.num_links = ln.shape[0]
+    nb, bs, _ = buckets[0].shape
     with torch.cuda.device(recv.device):
         err = _kernels.library().ctk_shard_answer(
-            recv.data_ptr(), recv.shape[0], recv.shape[1], buckets.data_ptr(), nb, bs,
-            edges.data_ptr(), edges.shape[1], color_mask,
-            None if off is None else off.data_ptr(), None if ch is None else ch.data_ptr(),
-            None if ln is None else ln.data_ptr(), None if fw is None else fw.data_ptr(),
-            0 if ln is None else ln.shape[0], ans.data_ptr(), ans.shape[1],
-            _kernels.stream(recv.device))
+            ctypes.addressof(table), len(buckets), recv.data_ptr(), recv.shape[0],
+            recv.shape[1], offsets.data_ptr(), nb, bs, edges[0].shape[1], color_mask,
+            ans.data_ptr(), ans.shape[1], _kernels.stream(recv.device))
     _kernels.check(err, "shard_answer")
     LAUNCHES["shard_answer"] += 1
 
 
 def _answers(route: Route, back: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
     """The answer row of each live walk (zeros elsewhere), from the answers
-    in send order (the unsort)."""
+    by slot (the unsort)."""
     got = torch.zeros((live.shape[0], back.shape[1]), dtype=torch.int64, device=back.device)
     got[live] = back[route.slot[live].to(torch.int64)].to(torch.int64)
     return got
@@ -397,9 +457,10 @@ def _check_step(what: str, cur, active, route: Route, back, k: int, step: int, s
 
 def shard_walk_step(state: WalkState, route: Route, back, k: int, step: int,
                     cycle_check: bool = True) -> None:
-    """One step of a shard's walks from the answers to its route (int32
-    [routed, A] in send order): the twin for CPU tensors, one
-    ctk_shard_walk_step launch for CUDA ones.  Updates `state` in place."""
+    """One step of a shard's walks (or of every walk of a device's shards,
+    as one state) from the answers to its route (int32 [R, A], walk i's at
+    row slot[i]): the twin for CPU tensors, one ctk_shard_walk_step launch
+    for CUDA ones.  Updates `state` in place."""
     dev = _check_step("shard_walk_step", state.cur, state.active, route, back, k, step,
                       state.stream, WALK_ANSWER)
     if dev.type == "cpu":
@@ -465,8 +526,8 @@ def link_step_plain(state: LinkState, route: Route, back, k: int, step: int) -> 
 
 def link_step(states: list, routes: list, backs: list, k: int, step: int) -> None:
     """One linked step of the walks of several shards on one device, each
-    from the answers to its route (int32 [routed, LINK_ANSWER] in send
-    order): the twin shard by shard for CPU tensors, one ctk_link_step
+    from the answers to its route (int32 [R, LINK_ANSWER], walk i's at row
+    slot[i]): the twin shard by shard for CPU tensors, one ctk_link_step
     launch over them all for CUDA ones.  Updates each state in place."""
     if not len(states) == len(routes) == len(backs):
         raise ValueError("link_step: one route and one answer block a state")

@@ -11,16 +11,21 @@ virtual devices share the host.
   graph's order, and a cuckoo table over them (payload = shard-local record
   + 1), all shards at one bucket count (mesh.py:46-86).
 - Walks are data-parallel over the shards: the seeds split into n
-  contiguous blocks, as P("shards") splits them.  Each step routes every
-  walk's k-mer to its owner (`sh.route`), sends each owner exactly its
-  queries (`dispatch`: a slice where the two shards share a device, a
-  `Tensor.to` copy where they do not), answers them there
-  (`sh.shard_answer`), brings the answers back in the send order
-  (`combine`) and steps the walks (`sh.shard_walk_step` a shard,
-  `sh.link_step` once a device over the shards it holds; both take each
-  walk's answer by its slot).  The host reads the [n, n]
-  query counts once a step; the loop ends when no shard has a live walk,
-  after which every walk would emit -1, as the JAX scan does to the end.
+  contiguous blocks, as P("shards") splits them, and the shards that share
+  a device walk as one batch there (their blocks in mesh order).  Each step
+  routes every walk's k-mer to its owner and packs a device's queries into
+  one owner-major buffer (`sh.route`, one launch a device), answers them
+  (`sh.shard_answer`, one launch a device over the owners it holds) and
+  steps the walks, each taking its answer by its slot (`sh.shard_walk_step`
+  or `sh.link_step`, one launch a device).  When every shard sits on one
+  device the exchange never leaves it: three launches a step, and the
+  owners read their queries from the send buffer in place.  When the shards
+  span devices, the host reads each device's owner offsets once a step and
+  copies each owner's block there and its answers back (`Tensor.to`).  The
+  loop ends once no walk was routed; it learns that END_TEST_LAG steps late
+  from a total copied to the host behind an event, so that the test never
+  waits for the step just launched, and the steps it runs past the end
+  change nothing (no walk is live), as the JAX scan emits -1 to the end.
 - FindROIs scans each shard's coverages and sums the counts; Call runs one
   `Caller` a shard over round-robin partitions and merges in partition
   order.
@@ -48,6 +53,7 @@ from ..ops.sharding import routing_hash, routing_hash_np  # noqa: F401  (mesh.py
 from ..ops.walk_np import replay_walk
 
 AXIS = "shards"
+END_TEST_LAG = 2         # steps between a step and the host's test of its routed total
 
 
 class ShardMesh:
@@ -75,6 +81,14 @@ class ShardMesh:
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    def groups(self) -> list:
+        """Each device once, in the order of its first shard, with the
+        shards it holds: [(device, [shard, ...])]."""
+        held: dict = {}
+        for s, dev in enumerate(self.devices):
+            held.setdefault(dev, []).append(s)
+        return list(held.items())
 
     def __repr__(self) -> str:
         return f"ShardMesh({[str(d) for d in self.devices]})"
@@ -168,41 +182,90 @@ class ShardedLinks:
 # the exchange
 # ---------------------------------------------------------------------------
 
-def dispatch(mesh: ShardMesh, routes: list):
-    """Each owner's received queries (the askers' blocks in asker order) on
-    its device, and the [asker, owner] counts, read on the host."""
-    n = mesh.size
-    counts = np.stack([r.counts.cpu().numpy() for r in routes]).astype(np.int64)
-    start = np.cumsum(counts, axis=1) - counts
-    recv = [torch.cat([routes[s].send[start[s, t]:start[s, t] + counts[s, t]].to(dev)
-                       for s in range(n)])
-            for t, dev in enumerate(mesh.devices)]
-    return recv, counts
-
-
-def combine(mesh: ShardMesh, answers: list, counts: np.ndarray) -> list:
-    """Each asker's answers from every owner, in its send order (owner by
-    owner) on its device."""
-    n = mesh.size
-    start = np.cumsum(counts, axis=0) - counts
-    return [torch.cat([answers[t][start[s, t]:start[s, t] + counts[s, t]].to(dev)
-                       for t in range(n)])
-            for s, dev in enumerate(mesh.devices)]
-
-
 def routed_exchange(mesh: ShardMesh, sg: ShardedGraph, cur: list, colors, links=None,
                     active=None):
-    """Route each shard's walk-oriented k-mers to their owners, answer them
-    there and bring the answers back (_routed_exchange, mesh.py:100).
-    Returns (the routes, each asker's answers in its send order, the
-    [asker, owner] counts)."""
+    """Route each device's walk-oriented k-mers to their owners, answer them
+    there and bring the answers back (_routed_exchange, mesh.py:100).  `cur`
+    holds one int32 [B_g, W] tensor a device of mesh.groups(), its shards'
+    queries one shard after another, as many each, `active` their uint8
+    flags (None: route every query).
+    Returns (each device's Route; its answers, int32 [R_g, A], the answer to
+    its query i at row slot[i]; the routed total, int32 [1])."""
     n, k = mesh.size, sg.kmer_size
-    routes = [sh.route(c, a, k, n) for c, a in zip(cur, active or [None] * n)]
-    recv, counts = dispatch(mesh, routes)
-    answers = [sh.shard_answer(q, sg.buckets[t], sg.edges[t], colors,
-                               None if links is None else links.csr(t))
-               for t, q in enumerate(recv)]
-    return routes, combine(mesh, answers, counts), counts
+    groups = mesh.groups()
+    routes = [sh.route(c, a, k, n, [c.shape[0] // len(held)] * len(held))
+              for c, a, (_, held) in zip(cur, active or [None] * len(groups), groups)]
+    if len(groups) > 1:
+        return _exchange_across(mesh, sg, routes, colors, links)
+    r = routes[0]
+    ans = sh.shard_answer(r.send, r.offsets, sg.buckets, sg.edges, colors,
+                          None if links is None else [links.csr(t) for t in range(n)])
+    return routes, [ans], r.offsets[n:]
+
+
+def _exchange_across(mesh: ShardMesh, sg: ShardedGraph, routes: list, colors, links):
+    """The exchange of shards on several devices: the host reads each
+    device's owner offsets once, copies each owner's block of every
+    device's send buffer to the owner's device (its received buffer holds
+    its owners' blocks in turn), answers them there (one shard_answer a
+    device) and copies the answers back into each asker device's send
+    order."""
+    n = mesh.size
+    groups = mesh.groups()
+    offs = [r.offsets.cpu().tolist() for r in routes]
+    where = {}                                        # (owner, asker device) -> answer rows
+    answers = []
+    for d, (dev, owners) in enumerate(groups):
+        blocks, starts, rows = [], [0], 0
+        for t in owners:
+            for c, r in enumerate(routes):
+                lo, hi = offs[c][t], offs[c][t + 1]
+                where[t, c] = (d, rows)
+                blocks.append(r.send[lo:hi].to(dev))
+                rows += hi - lo
+            starts.append(rows)
+        answers.append(sh.shard_answer(
+            torch.cat(blocks), torch.tensor(starts, dtype=torch.int32).to(dev),
+            [sg.buckets[t] for t in owners], [sg.edges[t] for t in owners], colors,
+            None if links is None else [links.csr(t) for t in owners]))
+    backs = []
+    for c, (dev, _) in enumerate(groups):
+        parts = []
+        for t in range(n):
+            d, row = where[t, c]
+            parts.append(answers[d][row:row + offs[c][t + 1] - offs[c][t]].to(dev))
+        backs.append(torch.cat(parts))
+    return routes, backs, torch.tensor([sum(o[n] for o in offs)], dtype=torch.int32)
+
+
+class _EndTest:
+    """The walk loop's end test, END_TEST_LAG steps behind the device:
+    each step's routed total is copied to pinned host memory without
+    blocking, behind an event, and the host reads the total of the step
+    that lies END_TEST_LAG steps back."""
+
+    def __init__(self):
+        self.lag, self.seen = END_TEST_LAG, 0
+        self.host = self.events = None
+
+    def ended(self, routed: torch.Tensor) -> bool:
+        """Record this step's total; whether the step END_TEST_LAG back
+        routed nothing."""
+        on_card = routed.device.type == "cuda"
+        if self.host is None:
+            self.host = torch.empty(self.lag + 1, dtype=torch.int32, pin_memory=on_card)
+            self.events = [torch.cuda.Event() if on_card else None for _ in self.host]
+        i = self.seen % (self.lag + 1)
+        self.host[i:i + 1].copy_(routed, non_blocking=on_card)
+        if on_card:
+            self.events[i].record(torch.cuda.current_stream(routed.device))
+        self.seen += 1
+        if self.seen <= self.lag:
+            return False
+        j = (self.seen - 1 - self.lag) % (self.lag + 1)
+        if self.events[j] is not None:
+            self.events[j].synchronize()
+        return int(self.host[j]) == 0
 
 
 def _tensor(x) -> torch.Tensor:
@@ -218,24 +281,37 @@ def _tensor(x) -> torch.Tensor:
 
 
 def _split(mesh: ShardMesh, x) -> list:
-    """Rows split over the shards as P("shards") splits them: n contiguous
-    blocks, each on its shard's device."""
+    """Rows split over the shards as P("shards") splits them, n contiguous
+    blocks, gathered a device: the blocks of its shards in mesh order, on
+    it (one tensor a device of mesh.groups())."""
     x = _tensor(x)
     n = mesh.size
     if x.shape[0] % n:
         raise ValueError(f"{x.shape[0]} rows do not split over {n} shards")
     per = x.shape[0] // n
-    return [x[s * per:(s + 1) * per].to(dev) for s, dev in enumerate(mesh.devices)]
+    groups = mesh.groups()
+    if len(groups) == 1:
+        return [x.to(groups[0][0])]
+    return [torch.cat([x[s * per:(s + 1) * per] for s in held]).to(dev) for dev, held in groups]
 
 
 def _gather(mesh: ShardMesh, parts: list, dim: int = 0) -> torch.Tensor:
-    """The shards' blocks, concatenated on the first shard's device."""
-    return torch.cat([p.to(mesh.devices[0]) for p in parts], dim=dim)
+    """The inverse of _split: each device's part cut into its shards'
+    blocks, concatenated in mesh order on the first shard's device."""
+    groups = mesh.groups()
+    first = mesh.devices[0]
+    if len(groups) == 1:
+        return parts[0].to(first)
+    blocks = {}
+    for part, (_, held) in zip(parts, groups):
+        for s, block in zip(held, part.chunk(len(held), dim)):
+            blocks[s] = block.to(first)
+    return torch.cat([blocks[s] for s in range(mesh.size)], dim=dim)
 
 
 def _lookup(mesh, sg, queries, colors, links=None):
-    routes, back, _ = routed_exchange(mesh, sg, _split(mesh, queries), colors, links)
-    answers = [bk[r.slot.to(torch.int64)] for r, bk in zip(routes, back)]
+    routes, backs, _ = routed_exchange(mesh, sg, _split(mesh, queries), colors, links)
+    answers = [bk[r.slot.to(torch.int64)] for r, bk in zip(routes, backs)]
     return _gather(mesh, answers), _gather(mesh, [r.owner for r in routes])
 
 
@@ -271,32 +347,32 @@ def sharded_lookup_tree_fn(mesh: ShardMesh, sg: ShardedGraph, sl: ShardedLinks, 
 
 def _walk(mesh, sg, seeds, active, colors, num_steps: int, links=None,
           cycle_check: bool = True) -> list:
-    """Every shard's walk states after the steps: single-successor walks,
-    or linked walks given the links (every walk is routed at the seed step,
-    so that one inactive from the start still takes its k-mer's
-    record-count overflow, as the JAX scan gives it)."""
+    """The walk states of each device of mesh.groups() after the steps (its
+    shards' walks as one batch): single-successor walks, or linked walks
+    given the links (every walk is routed at the seed step, so that one
+    inactive from the start still takes its k-mer's record-count overflow,
+    as the JAX scan gives it).  A step is a route, an answer and a walk or
+    linked step a device, with no host read when the mesh has one device;
+    the loop stops END_TEST_LAG steps after the first step that routed no
+    walk (_EndTest), the steps between changing nothing."""
     k = sg.kmer_size
     colors = list(colors)
     state = sh.WalkState if links is None else sh.LinkState
     states = [state.start(s, a, num_steps)
               for s, a in zip(_split(mesh, seeds), _split(mesh, active))]
-    on_device: dict = {}                 # device -> its shards, for the linked step
-    for s, dev in enumerate(mesh.devices):
-        on_device.setdefault(dev, []).append(s)
+    end = _EndTest()
     for step in range(num_steps):
         route_all = links is not None and step == 0
-        routes, back, counts = routed_exchange(
+        routes, backs, routed = routed_exchange(
             mesh, sg, [st.cur for st in states], colors, links,
             None if route_all else [st.active for st in states])
-        if not counts.sum():
-            break                  # no live walk: the rest of every stream is -1
-        if links is None:
-            for st, r, bk in zip(states, routes, back):
+        for st, r, bk in zip(states, routes, backs):
+            if links is None:
                 sh.shard_walk_step(st, r, bk, k, step, cycle_check)
-        else:
-            for shards in on_device.values():
-                sh.link_step([states[s] for s in shards], [routes[s] for s in shards],
-                             [back[s] for s in shards], k, step)
+            else:
+                sh.link_step([st], [r], [bk], k, step)
+        if end.ended(routed):
+            break                  # no live walk: the rest of every stream is -1
     return states
 
 

@@ -19,11 +19,15 @@ the same card and inputs (CUDA events, the mean of REPS launches):
   each launch of the four sharding kernels timed on its own
   (chip_smoke.entry_timers: `links_path`, each kernel's launches and
   path_ms);
-- ctk_link_step over the four shards at that run's step with the most
-  needy walks (chip_smoke.needy_walks), each run queued behind a spin
-  (chip_smoke.queued_ms): this checkout's one launch over the four, a
-  checkout whose link_step takes one shard as its launches one a shard,
-  back to back.
+- the single-successor walk of the bulk seeds over the same shards,
+  WALK_STEPS steps (make_sharded_walk_run, phase 12's shape on this
+  graph), on the host clock: a first run (`walk_first_ms`) and a second
+  (`walk_ms`);
+- ctk_link_step over the four shards' walks at that run's step with the
+  most needy walks (chip_smoke.needy_walks), each run queued behind a spin
+  (chip_smoke.queued_ms): this checkout's one launch over the card's
+  walks, a checkout whose link_step takes one shard as its launches one a
+  shard, back to back.
 Every version's outputs are held equal to this checkout's.
 
 --repo DIR also times the package of another checkout (for example the
@@ -56,6 +60,7 @@ sys.path.insert(0, HERE)
 sys.modules["jax"] = None
 
 STEPS = 2000                                  # Partition's max_walk, chip_smoke's JUMP_STEPS
+WALK_STEPS = 256                              # the sharded walk's steps (chip_smoke's SPEC_STEPS)
 SHARDS = 4
 REPS = 5
 # the walk kernel's register cap, taken from 8 blocks an SM (64 registers) to 12 (40)
@@ -120,7 +125,8 @@ class Version:
         names = [f.name for f in dataclasses.fields(self.sh.LinkState)]
         return ([self.sh.LinkState(**{f: getattr(st, f).clone() for f in names})
                  for st in states],
-                [self.sh.Route(*(t.clone() for t in r)) for r in routes],
+                [self.sh.Route(**{f: getattr(r, f).clone() for f in self.sh.Route._fields})
+                 for r in routes],
                 [b.clone() for b in backs], k, step)
 
     def step(self, states, routes, backs, k, step):
@@ -213,6 +219,16 @@ def linked_walks(v: Version, mesh_args, inputs):
     return v.pm.sharded_assemble_links(mesh, sg, sl, [colour], inputs["cks"], STEPS)
 
 
+def sharded_walk(v: Version, mesh_args, inputs):
+    """The bulk seeds' single-successor walks over the shards, by v's mesh
+    module: make_sharded_walk_run's (bases, cycled, steps)."""
+    import torch
+    mesh, sg, _, colour = mesh_args
+    seeds = inputs["bulk"]
+    return v.pm.make_sharded_walk_run(mesh, sg, [colour], inputs["k"], WALK_STEPS)(
+        seeds, torch.ones(seeds.shape[0], dtype=torch.bool, device=seeds.device))
+
+
 def time_version(cs, v: Version, inputs, want, captured, mesh_args, turn) -> dict:
     """One version's times, and the host seconds of its sharded linked
     walks (`links_s`); raises where its outputs differ from `want`."""
@@ -236,6 +252,14 @@ def time_version(cs, v: Version, inputs, want, captured, mesh_args, turn) -> dic
     row["links_s"] = round(time.perf_counter() - t0, 3)
     if contigs != want["contigs"] or not np.array_equal(overflow, want["overflow"]):
         raise AssertionError(f"{v.name}: the sharded linked walks differ")
+    for name in ("walk_first_ms", "walk_ms"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        walked = sharded_walk(v, mesh_args, inputs)
+        torch.cuda.synchronize()
+        row[name] = round((time.perf_counter() - t0) * 1e3, 3)
+        for what, a, b in zip(("bases", "cycled", "steps"), walked, want["walk"]):
+            cs.same(a, b, f"{v.name}: the sharded walk's {what}")
     if v.lib is None:
         # the same walks, each launch of the four sharding kernels timed on its own
         timers, late, restore = cs.entry_timers(v.wl._kernels)
@@ -293,6 +317,7 @@ def main() -> int:
     want = {name: this.walk(inputs["tables"], inputs[name], k) for name in ("bulk", "roi")}
     want = {name: (got[0][:, :STEPS], *got[1:]) for name, got in want.items()}
     mesh_args = sharded(this, inputs, dev)
+    want["walk"] = sharded_walk(this, mesh_args, inputs)
     (want["contigs"], want["overflow"], _), path, most = cs.path_timed(
         lambda: linked_walks(this, mesh_args, inputs))
     ref = this.states(most["args"])

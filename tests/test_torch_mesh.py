@@ -7,9 +7,12 @@ twin.  The same graphs (through the .ctx bytes), links, seeds and queries go
 to both: shard tables and link arrays, single steps (balanced and skewed),
 FindROIs, multi-step and linked walks, and the sharded Call's VCF bytes must
 be equal; each twin is held against the JAX expression it replaces, on the
-states of a sharded run.  Everything is integer or string: every comparison
-is exact.  The `cuda` tests replay the twins' recorded calls through the
-kernels on a card."""
+states of a sharded run, and the walk loops' lagged end test against the
+loop that tests every step.  Everything is integer or string: every
+comparison is exact.  The `cuda` tests replay the twins' recorded calls
+through the kernels on a card, hold both exchange kernels to their twins
+from 2,812 to 65,536 queries and at 64 shards, and run a mesh of CPU and
+card shards through the exchange between devices."""
 
 import os
 import tempfile
@@ -216,18 +219,68 @@ def test_route_twin_matches_jax(n):
     got = sh.route(torch.from_numpy(cur.view(np.int32)), None, k, n)
     np.testing.assert_array_equal(_np(got.owner), owner)
     np.testing.assert_array_equal(_np(got.flipped).astype(bool), np.asarray(flipped))
-    np.testing.assert_array_equal(_np(got.counts), np.bincount(owner, minlength=n))
+    np.testing.assert_array_equal(_np(got.counts), [np.bincount(owner, minlength=n)])
+    np.testing.assert_array_equal(_np(got.offsets),
+                                  np.r_[0, np.cumsum(np.bincount(owner, minlength=n))])
     np.testing.assert_array_equal(_np(got.send).view(np.uint32), np.asarray(canon)[order])
-    sent, _, _, _ = sh.route_by_query(got)
-    np.testing.assert_array_equal(_np(sent).view(np.uint32), np.asarray(canon))
+    np.testing.assert_array_equal(_np(got.send)[_np(got.slot)].view(np.uint32), np.asarray(canon))
 
     active = rng.random(300) < 0.6
     part = sh.route(torch.from_numpy(cur.view(np.int32)),
                     torch.from_numpy(active.astype(np.uint8)), k, n)
-    np.testing.assert_array_equal(_np(part.counts), np.bincount(owner[active], minlength=n))
+    np.testing.assert_array_equal(_np(part.counts), [np.bincount(owner[active], minlength=n)])
     assert (_np(part.slot)[~active] == -1).all()
-    sent, _, _, _ = sh.route_by_query(part)
-    np.testing.assert_array_equal(_np(sent).view(np.uint32)[active], np.asarray(canon)[active])
+    sent = _np(part.send)[_np(part.slot)[active]].view(np.uint32)
+    np.testing.assert_array_equal(sent, np.asarray(canon)[active])
+    np.testing.assert_array_equal(_np(part.slot)[active][np.argsort(owner[active], kind="stable")],
+                                  np.arange(active.sum()))
+
+
+# (shards, each asker's queries): uneven, one asker empty past one shard
+CARD_ROUTES = [(1, (300,)), (2, (37, 0)), (3, (100, 0, 257)), (4, (513, 20, 0, 64)),
+               (8, (40, 0, 300, 1, 77, 256, 0, 90))]
+
+
+@pytest.mark.parametrize("n,batches", CARD_ROUTES, ids=[f"n{n}" for n, _ in CARD_ROUTES])
+def test_card_route_twin_matches_jax(n, batches):
+    """The route of a device's askers' queries (one asker a shard, uneven,
+    some empty) packs owner t's block asker after asker, each asker's
+    queries to t in the order of JAX's _routed_exchange packing (mesh.py
+    :111-118: canonicalize_words, the owner, the argsort); the askers'
+    counts, the owners' offsets and every slot follow, and with active
+    flags only the active queries are sent."""
+    _, _, jpm = _jax()
+    import jax.numpy as jnp
+    from corticall_tpu.ops import kmer_jax as kj
+    k = 31
+    rng = np.random.default_rng(40 + n)
+    b = sum(batches)
+    cur = rng.integers(0, 1 << 32, (b, 2), dtype=np.uint64).astype(np.uint32)
+    cur[:, 0] &= np.uint32((1 << 30) - 1)
+    canon, flipped = kj.canonicalize_words(jnp.asarray(cur), k)
+    canon = np.asarray(canon)
+    owner = np.asarray(jpm.routing_hash(jnp.asarray(canon)) % jnp.uint32(n)).astype(np.int64)
+    starts = np.cumsum((0,) + batches)
+    packed = [np.asarray(jnp.argsort(jnp.asarray(owner[lo:hi]))) + lo
+              for lo, hi in zip(starts, starts[1:])]            # JAX's order, an asker
+    for active in (np.ones(b, bool), rng.random(b) < 0.6):
+        got = sh.route(torch.from_numpy(cur.view(np.int32)),
+                       torch.from_numpy(active.astype(np.uint8)), k, n, batches)
+        np.testing.assert_array_equal(_np(got.owner), owner)
+        np.testing.assert_array_equal(_np(got.flipped).astype(bool), np.asarray(flipped))
+        want = np.array([i for t in range(n) for order in packed for i in order
+                         if owner[i] == t and active[i]], dtype=np.int64)
+        total = len(want)
+        counts = [np.bincount(owner[lo:hi][active[lo:hi]], minlength=n)
+                  for lo, hi in zip(starts, starts[1:])]
+        np.testing.assert_array_equal(_np(got.counts), counts)
+        np.testing.assert_array_equal(_np(got.offsets),
+                                      np.r_[0, np.cumsum(np.sum(counts, axis=0))])
+        np.testing.assert_array_equal(_np(got.send)[:total].view(np.uint32), canon[want])
+        slot = np.full(b, -1)
+        slot[want] = np.arange(total)
+        np.testing.assert_array_equal(_np(got.slot), slot)
+        assert total == int(active.sum()) and (n == 1 or 0 in batches)
 
 
 def _jax_payload(jsg, jsl, s, colors, idx):
@@ -246,6 +299,14 @@ def _jax_payload(jsg, jsl, s, colors, idx):
     jj = jnp.arange(jwl.MAX_ADD)[None, :]
     src = jnp.minimum(off[:, None] + jj, lch.shape[0] - 1)
     return [np.asarray(x) for x in (edge, lch[src], llen[src], lfw[src], cnt)]
+
+
+def _answer_alone(queries, sg, s, colors, links=None):
+    """The answers of shard s alone to `queries` (numpy uint32 [R, W]),
+    through the wrapper: one owner, one block."""
+    q = torch.from_numpy(queries.view(np.int32))
+    return _np(sh.shard_answer(q, torch.tensor([0, len(q)], dtype=torch.int32), [sg.buckets[s]],
+                               [sg.edges[s]], colors, None if links is None else [links]))
 
 
 def test_shard_answer_twin_matches_jax():
@@ -271,8 +332,7 @@ def test_shard_answer_twin_matches_jax():
         idx = np.asarray(jck.lookup_payload(jsg.buckets[s], jnp.asarray(queries), w)).astype(
             np.int64) - 1
         edge, ch, ln, fw, cnt = _jax_payload(jsg, jsl, s, colors, jnp.asarray(idx, jnp.int32))
-        ans = _np(sh.shard_answer(torch.from_numpy(queries.view(np.int32)), sg.buckets[s],
-                                  sg.edges[s], colors, sl.csr(s)))
+        ans = _answer_alone(queries, sg, s, colors, sl.csr(s))
         assert (idx[:len(own)] == np.arange(len(own))).all()
         np.testing.assert_array_equal(ans[:, sh.ANS_REC], idx)
         np.testing.assert_array_equal(ans[:, sh.ANS_EDGE], edge)
@@ -283,9 +343,40 @@ def test_shard_answer_twin_matches_jax():
         np.testing.assert_array_equal(ans[:, sh.ANS_LEN:sh.ANS_FW][take], ln[take])
         np.testing.assert_array_equal(ans[:, sh.ANS_FW:][take].astype(bool), fw[take])
         assert not got_ch[~take].any() and not ans[:, sh.ANS_LEN:][np.tile(~take, 2)].any()
-        walk = _np(sh.shard_answer(torch.from_numpy(queries.view(np.int32)), sg.buckets[s],
-                                   sg.edges[s], colors))
+        walk = _answer_alone(queries, sg, s, colors)
         np.testing.assert_array_equal(walk, ans[:, :sh.WALK_ANSWER])
+
+
+def test_card_answer_twin_matches_shard_answer():
+    """The answers of a device's four owners at once, each from its block
+    of one received buffer (one block empty, every owner's own k-mers,
+    misses and others' k-mers), equal shard_answer_plain on each block row
+    for row, with and without the link rows; rows past the total stay
+    zero."""
+    g, links, _ = _trio()
+    pg, mesh, sg = _port(g, 4)
+    sl = tpm.ShardedLinks.from_graph(pg, [port_links(links)], sg)
+    rng = np.random.default_rng(8)
+    blocks = []
+    for s in range(4):
+        own = pg.kmers[sg.records[s]]
+        miss = own[:20].copy()
+        miss[:, -1] ^= np.uint32(4)
+        block = np.concatenate([own, miss, pg.kmers[rng.integers(0, pg.num_records, 30)]])
+        blocks.append(block[rng.permutation(len(block))][:0 if s == 2 else None])
+    offsets = np.r_[0, np.cumsum([len(b) for b in blocks])]
+    recv = np.concatenate(blocks + [np.zeros((5, blocks[0].shape[1]), np.uint32)])
+    q = torch.from_numpy(recv.view(np.int32))
+    for csr in (None, [sl.csr(t) for t in range(4)]):
+        got = _np(sh.shard_answer(q, torch.from_numpy(offsets.astype(np.int32)), sg.buckets,
+                                  sg.edges, [0, 2], csr))
+        assert got.shape == (len(recv), sh.WALK_ANSWER if csr is None else sh.LINK_ANSWER)
+        for t, (lo, hi) in enumerate(zip(offsets, offsets[1:])):
+            want = sh.shard_answer_plain(q[lo:hi], sg.buckets[t], sg.edges[t], [0, 2],
+                                         None if csr is None else csr[t])
+            np.testing.assert_array_equal(got[lo:hi], _np(want))
+        assert not got[offsets[-1]:].any() and (got[:offsets[-1], sh.ANS_REC] >= 0).sum() > 0
+        assert (got[:offsets[-1], sh.ANS_REC] == -1).sum() >= 60
 
 
 def _recording(monkeypatch, names):
@@ -386,8 +477,8 @@ def test_link_step_twin_matches_jax(monkeypatch):
     cks = _sorted_roi_strings(g)
     seeds = _words(cks + [jkm.revcomp(s) for s in cks], k)
     tpm.make_sharded_linked_walk_run(mesh, sg, sl, [0], k, 256)(seeds, np.ones(len(seeds), bool))
-    # one call a step for the two shards (one device), each shard's step a case
-    assert all(len(c[1][0]) == 2 for c in calls) and len(calls) >= 64
+    # one call a step for the two shards (one device, its walks one state)
+    assert all(len(c[1][0]) == 1 for c in calls) and len(calls) >= 64
     shard_steps = [(state, route, back, step, after)
                    for _, (states, routes, backs, _, step), _, (afters, *_) in calls
                    for state, route, back, after in zip(states, routes, backs, afters)]
@@ -589,6 +680,107 @@ def test_sharded_linked_walks_match_jax(n):
         assert int(junctions.sum()) > 0 and not overflow.any()
 
 
+def _counting(monkeypatch, module, name):
+    """Wrap module.name to count its calls: the counter (a list of one)."""
+    real, calls = getattr(module, name), [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return real(*args, **kw)
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("n", [2, 8])
+def test_lagged_end_test_matches_jax(n, monkeypatch):
+    """The walk loops stop END_TEST_LAG steps after the first step that
+    routed no walk, reading each step's total late; the steps run past it
+    change nothing: the walks' streams, cycle flags and steps, and the
+    linked walks' streams, overflow and junctions at lags 2 and 5 equal the
+    loop that tests every step (lag 0) and JAX's.  The seeds lie in the
+    genome's last 200 bases, so that every walk ends before the cap."""
+    _, _, jpm = _jax()
+    import jax.numpy as jnp
+    g, links, genome = _trio()
+    k, steps = g.kmer_size, 256
+    ends = np.linspace(len(genome) - 200, len(genome), 48).astype(int)
+    seeds = _words([genome[i - k:i] for i in ends], k)
+    active = np.ones(len(seeds), dtype=bool)
+    active[5::13] = False
+    mesh = _jmesh(n)
+    jsg = jpm.ShardedGraph.from_graph(g, n)
+    jsl = jpm.ShardedLinks.from_graph(g, [links], n, n_max=jsg.kmers.shape[1])
+    with mesh:
+        want = [np.asarray(x) for x in (
+            *jpm.make_sharded_walk_run(mesh, jsg, [0], k, steps)(
+                jnp.asarray(seeds), jnp.asarray(active)),
+            *jpm.make_sharded_linked_walk_run(mesh, jsg, jsl, [0], k, steps)(
+                jnp.asarray(seeds), jnp.asarray(active)))]
+    pg, tmesh, sg = _port(g, n)
+    sl = tpm.ShardedLinks.from_graph(pg, [port_links(links)], sg)
+    exchanges = {}
+    for lag in (0, 2, 5):
+        monkeypatch.setattr(tpm, "END_TEST_LAG", lag)
+        calls = _counting(monkeypatch, tpm, "routed_exchange")
+        got = [*tpm.make_sharded_walk_run(tmesh, sg, [0], k, steps)(seeds, active)]
+        walk_steps = calls[0]
+        got += tpm.make_sharded_linked_walk_run(tmesh, sg, sl, [0], k, steps)(seeds, active)
+        for a, w in zip(got, want):
+            np.testing.assert_array_equal(_np(a), w)
+        exchanges[lag] = (walk_steps, calls[0] - walk_steps)
+        monkeypatch.undo()
+    # both loops end well before their cap, each lag's extra steps run
+    for kind in range(2):
+        ends = [exchanges[lag][kind] for lag in (0, 2, 5)]
+        assert ends[0] + 5 < steps and ends == [ends[0], ends[0] + 2, ends[0] + 5], exchanges
+
+
+def test_exchange_across_devices_matches_jax(monkeypatch):
+    """The exchange between devices (one host read of each device's owner
+    offsets, each owner's block copied to its device, the answers copied
+    back), taken by four CPU shards held as if by two devices, shards 0, 2
+    and 1, 3: the walk and linked runs and the lookups equal the one-device
+    mesh's, and the runs JAX's."""
+    _, _, jpm = _jax()
+    import jax.numpy as jnp
+    g, links, _ = _trio()
+    k, n = g.kmer_size, 4
+    _, seeds = _both_ways_seeds(g, n)
+    pg = port_graph(g)
+    plinks = [port_links(links)]
+    ones = np.ones(len(seeds), bool)
+    mesh = _jmesh(n)
+    jsg = jpm.ShardedGraph.from_graph(g, n)
+    jsl = jpm.ShardedLinks.from_graph(g, [links], n, n_max=jsg.kmers.shape[1])
+    with mesh:
+        want = [np.asarray(x) for x in (
+            *jpm.make_sharded_walk_run(mesh, jsg, [0], k, 256)(jnp.asarray(seeds),
+                                                               jnp.ones(len(seeds), bool)),
+            *jpm.make_sharded_linked_walk_run(mesh, jsg, jsl, [0], k, 256)(
+                jnp.asarray(seeds), jnp.ones(len(seeds), bool)))]
+    out = []
+    for split in (False, True):
+        tmesh = tpm.ShardMesh(["cpu"] * n)
+        if split:
+            cpu = torch.device("cpu")
+            monkeypatch.setattr(tmesh, "groups", lambda: [(cpu, [0, 2]), (cpu, [1, 3])])
+        across = _counting(monkeypatch, tpm, "_exchange_across")
+        sg = tpm.ShardedGraph.from_graph(pg, tmesh)
+        sl = tpm.ShardedLinks.from_graph(pg, plinks, sg)
+        runs = [_np(x) for x in (
+            *tpm.make_sharded_walk_run(tmesh, sg, [0], k, 256)(seeds, ones),
+            *tpm.make_sharded_linked_walk_run(tmesh, sg, sl, [0], k, 256)(seeds, ones))]
+        for a, w in zip(runs, want):
+            np.testing.assert_array_equal(a, w)
+        out.append(runs + [_np(x) for x in (
+            *tpm.sharded_lookup_fn(tmesh, sg, [0, 1, 2])(pg.kmers[:400]),
+            *tpm.sharded_lookup_tree_fn(tmesh, sg, sl, [0])(pg.kmers[:400]))])
+        assert (across[0] > 0) == split
+        monkeypatch.undo()
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_sharded_lookup_tree_matches_the_link_csr():
     """sharded_lookup_tree_fn's payload equals the graph-wide link CSR's
     rows of each query's record (mesh.py:199, :278-292)."""
@@ -701,6 +893,16 @@ def _to(x, dev):
     return x
 
 
+def _same_route(got, want):
+    """Two routes bit for bit (the send buffers' routed rows)."""
+    total = int(want.offsets[-1])
+    for field, a, w in zip(sh.Route._fields, got, want):
+        a, w = _np(a), _np(w)
+        if field == "send":
+            a, w = a[:total], w[:total]
+        np.testing.assert_array_equal(a, w, err_msg=f"route {field}")
+
+
 def _replay_on_card(calls, dev):
     """Every recorded twin call again through its wrapper on the card (the
     kernel), against the twin's outputs and updated state."""
@@ -709,10 +911,10 @@ def _replay_on_card(calls, dev):
         card = _to(args, dev)
         got = getattr(sh, name)(*card)
         if name == "route":
-            for a, w in zip(sh.route_by_query(got), sh.route_by_query(out)):
-                np.testing.assert_array_equal(_np(a), _np(w))
+            _same_route(got, out)
         elif name == "shard_answer":
-            np.testing.assert_array_equal(_np(got), _np(out))
+            total = int(args[1][-1])
+            np.testing.assert_array_equal(_np(got)[:total], _np(out)[:total])
         else:
             pairs = (zip(card[0], after[0]) if name == "link_step"
                      else [(card[0], after[0])])
@@ -768,9 +970,11 @@ def test_link_kernels_match_twins(cuda, n, monkeypatch):
 
 def _uneven_link_steps(sizes=(37, 0, 70), steps=160):
     """The trio's linked walks (ROI seeds both ways) split over 3 CPU shards
-    of uneven sizes, one of them empty, each step routed and answered by the
-    mesh and stepped by one link_step call over the three shards; the calls
-    recorded as _recording records them."""
+    of uneven sizes, one of them empty, held as one device's state, each
+    step routed (the three shards as askers) and answered by the three
+    owners and stepped by one link_step call over the three shards (views
+    of the state and of the route); the calls recorded as _recording
+    records them."""
     g, links, _ = _trio()
     k = g.kmer_size
     pg, mesh, sg = _port(g, len(sizes))
@@ -778,20 +982,24 @@ def _uneven_link_steps(sizes=(37, 0, 70), steps=160):
     cks = _sorted_roi_strings(g)
     words = _words(cks + [jkm.revcomp(s) for s in cks], k)
     assert len(words) >= sum(sizes)
-    ends = np.cumsum(sizes)
-    states = [sh.LinkState.start(torch.from_numpy(words[e - n:e].view(np.int32)),
-                                 torch.ones(n, dtype=torch.uint8), steps)
-              for n, e in zip(sizes, ends)]
+    b = sum(sizes)
+    card = sh.LinkState.start(torch.from_numpy(words[:b].view(np.int32)),
+                              torch.ones(b, dtype=torch.uint8), steps)
+    cuts = list(zip(np.r_[0, np.cumsum(sizes)], np.cumsum(sizes)))
+    states = [sh.LinkState(**{f: v[:, lo:hi] if f == "stream" else v[lo:hi]
+                              for f, v in vars(card).items()}) for lo, hi in cuts]
     calls = []
     with pytest.MonkeyPatch.context() as mp:
         calls = _recording(mp, ["link_step"])
         for step in range(steps):
-            routes, back, counts = tpm.routed_exchange(
-                mesh, sg, [st.cur for st in states], [0], sl,
-                None if step == 0 else [st.active for st in states])
-            if not counts.sum():
+            r = sh.route(card.cur, None if step == 0 else card.active, k, len(sizes), sizes)
+            if not int(r.offsets[-1]):
                 break
-            sh.link_step(states, routes, back, k, step)
+            back = sh.shard_answer(r.send, r.offsets, sg.buckets, sg.edges, [0],
+                                   [sl.csr(t) for t in range(len(sizes))])
+            parts = [sh.Route(r.send, r.slot[lo:hi], r.owner[lo:hi], r.flipped[lo:hi],
+                              r.counts[i:i + 1], r.offsets) for i, (lo, hi) in enumerate(cuts)]
+            sh.link_step(states, parts, [back] * len(sizes), k, step)
     return calls, states
 
 
@@ -841,3 +1049,138 @@ def test_sharded_paths_on_one_card_match_the_cpu(cuda):
                    + [tpm.sharded_find_rois_kmers(mesh, sg, 0, [1, 2])])
     for a, b in zip(*out):
         np.testing.assert_array_equal(a, b)
+
+
+def _exchange_inputs(k, queries, shards, seed=5):
+    """An 8 kbp genome with a 100- and an 80-base repeat (junctions past
+    k = 63) and its links, over `shards` CPU shards, and `queries`
+    walk-oriented k-mers split over as many askers, unevenly, the second
+    empty: records in either orientation, half of them records with link
+    rows, a tenth random words; seven in ten active."""
+    from corticall_tpu_torch.ops import kmer as tk
+    from corticall_tpu_torch.ops import walk_links as twl
+    rng = np.random.default_rng(1)
+    core_seq = "".join(rng.choice(list("ACGT"), 8000))
+    genome = (core_seq[:3000] + core_seq[500:600] + core_seq[3000:6000]
+              + core_seq[4000:4080] + core_seq[6000:])
+    g = fixtures.build_graph({"kid": [genome]}, k)
+    links = jlk.build_links(g, {"kid": [genome]}, "kid")
+    pg, mesh, sg = _port(g, shards)
+    plinks = [port_links(links)]
+    sl = tpm.ShardedLinks.from_graph(pg, plinks, sg)
+    linked = np.nonzero(np.diff(twl.build_link_arrays(pg, plinks).offsets))[0]
+    rng = np.random.default_rng(seed)
+    rec = rng.integers(0, pg.num_records, queries)
+    rec[::2] = linked[rng.integers(0, len(linked), len(rec[::2]))]
+    words = torch.from_numpy(pg.kmers[rec].astype(np.int64))
+    flip = torch.from_numpy(rng.random(queries) < 0.5)
+    words = torch.where(flip[:, None], tk.revcomp_words(words, k), words)
+    miss = torch.from_numpy(rng.random(queries) < 0.1)
+    noise = torch.from_numpy(rng.integers(0, 1 << 32, words.shape, dtype=np.uint64).astype(np.int64))
+    noise[:, 0] &= tk.top_word_mask(k)
+    cur = tk.to_bits32(torch.where(miss[:, None], noise, words))
+    cuts = np.sort(rng.integers(0, queries, shards - 1))
+    cuts[0] = cuts[1]
+    batches = np.diff(np.r_[0, cuts, queries]).tolist()
+    active = torch.from_numpy((rng.random(queries) < 0.7).astype(np.uint8))
+    return sg, sl, cur, active, batches
+
+
+EXCHANGE_CASES = [(15, 2812, 4), (31, 65536, 4), (47, 2812, 4), (47, 65536, 4), (63, 2812, 4),
+                  (63, 65536, 4), (31, 2812, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,queries,shards", EXCHANGE_CASES,
+                         ids=[f"k{k}-q{q}-n{n}" for k, q, n in EXCHANGE_CASES])
+def test_exchange_kernels_match_twins(cuda, k, queries, shards):
+    """ctk_route and ctk_shard_answer against their twins, bit for bit, at
+    a linked step's size (2,812 queries), at 65,536 queries, at k = 15, 31,
+    47 and 63, and over 64 shards on one card: the route of every query and
+    of the active ones, the walk's and the linked answers of every owner."""
+    sg, sl, cur, active, batches = _exchange_inputs(k, queries, shards)
+    tables = [_to(x, cuda) for x in (sg.buckets, sg.edges)]
+    csr = [sl.csr(t) for t in range(shards)]
+    before = dict(sh.LAUNCHES)
+    for act in (None, active):
+        want = sh.route(cur, act, k, shards, batches)
+        got = sh.route(cur.to(cuda), None if act is None else act.to(cuda), k, shards, batches)
+        _same_route(got, want)
+        total = int(want.offsets[-1])
+        assert total == (queries if act is None else int(act.sum()))
+        for links in (None, csr):
+            want_ans = sh.shard_answer(want.send, want.offsets, sg.buckets, sg.edges, [0],
+                                       links)
+            got_ans = sh.shard_answer(got.send, got.offsets, *tables, [0],
+                                      None if links is None else _to(links, cuda))
+            np.testing.assert_array_equal(_np(got_ans)[:total], _np(want_ans)[:total])
+    torch.cuda.synchronize()
+    assert sh.LAUNCHES["route"] - before["route"] == 2
+    assert sh.LAUNCHES["shard_answer"] - before["shard_answer"] == 4
+
+
+@pytest.mark.cuda
+def test_mixed_mesh_takes_the_host_exchange(cuda, monkeypatch):
+    """A mesh of CPU and card shards (["cpu", card, "cpu", card]) takes
+    the exchange between devices, the card's route and answers by the
+    kernels: the walk and linked runs and the lookups equal the mesh of
+    CPU shards."""
+    g, links, _ = _trio()
+    k = g.kmer_size
+    pg = port_graph(g)
+    plinks = [port_links(links)]
+    cks = _sorted_roi_strings(g)
+    seeds = _words(cks[:len(cks) // 4 * 4], k)
+    ones = np.ones(len(seeds), bool)
+    out = []
+    for devices in (["cpu"] * 4, ["cpu", cuda, "cpu", cuda]):
+        mesh = tpm.ShardMesh(devices)
+        across = _counting(monkeypatch, tpm, "_exchange_across")
+        before = dict(sh.LAUNCHES)
+        sg = tpm.ShardedGraph.from_graph(pg, mesh)
+        sl = tpm.ShardedLinks.from_graph(pg, plinks, sg)
+        out.append([_np(x) for x in (
+            *tpm.make_sharded_walk_run(mesh, sg, [0], k, 256)(seeds, ones),
+            *tpm.make_sharded_linked_walk_run(mesh, sg, sl, [0], k, 256)(seeds, ones),
+            *tpm.sharded_lookup_fn(mesh, sg, [0, 1, 2])(pg.kmers[:400]))])
+        mixed = len(mesh.groups()) == 2
+        assert (across[0] > 0) == mixed
+        assert (sh.LAUNCHES["route"] > before["route"]) == mixed
+        assert (sh.LAUNCHES["shard_answer"] > before["shard_answer"]) == mixed
+        monkeypatch.undo()
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_one_card_step_is_three_launches(cuda, monkeypatch):
+    """Four shards on one card: every step of the walk and linked runs is
+    one ctk_route, one ctk_shard_answer and one walk or linked step launch,
+    with no exchange between devices and no torch.cat."""
+    g, links, _ = _trio()
+    k = g.kmer_size
+    pg = port_graph(g)
+    mesh = tpm.ShardMesh([cuda] * 4)
+    sg = tpm.ShardedGraph.from_graph(pg, mesh)
+    sl = tpm.ShardedLinks.from_graph(pg, [port_links(links)], sg)
+    cks = _sorted_roi_strings(g)
+    seeds = _words(cks[:len(cks) // 4 * 4], k)
+    ones = np.ones(len(seeds), bool)
+    steps = _counting(monkeypatch, tpm, "routed_exchange")
+    across = _counting(monkeypatch, tpm, "_exchange_across")
+    cats = _counting(monkeypatch, torch, "cat")
+    before = dict(sh.LAUNCHES)
+    walk = tpm.make_sharded_walk_run(mesh, sg, [0], k, 256)
+    linked = tpm.make_sharded_linked_walk_run(mesh, sg, sl, [0], k, 256)
+    states = [tpm._walk(mesh, sg, seeds, ones, [0], 256),
+              tpm._walk(mesh, sg, seeds, ones, [0], 256, links=sl)]
+    torch.cuda.synchronize()
+    launched = {name: sh.LAUNCHES[name] - before[name] for name in sh.LAUNCHES}
+    assert cats[0] == 0 and across[0] == 0 and steps[0] > 2
+    assert launched["route"] == launched["shard_answer"] == steps[0] == (
+        launched["shard_walk_step"] + launched["link_step"])
+    monkeypatch.undo()
+    assert len(states[0]) == len(states[1]) == 1
+    for got, run in zip(states, (walk, linked)):
+        want = run(seeds, ones)
+        np.testing.assert_array_equal(_np(got[0].stream), _np(want[0]))

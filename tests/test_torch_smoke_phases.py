@@ -449,7 +449,11 @@ def test_mesh_phase_rehearses_on_cpu(tmp_path):
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["shards"] == 4 and sum(out["shard_records"]) == out["records"]
     assert all(out["launches"].values()) and out["walk_launches"]["link_step"] == 0
-    assert out["walk_launches"]["shard_walk_step"] == 4 * out["exchange"]["steps"]
+    # a step on one device: one route, one answer, one walk or linked step
+    assert out["walk_launches"]["shard_walk_step"] == out["exchange"]["steps"]
+    assert out["launches"]["route"] == out["launches"]["shard_answer"] == (
+        out["launches"]["shard_walk_step"] + out["launches"]["link_step"])
+    assert out["link_exchange"]["steps"] == out["launches"]["link_step"]
     assert out["single_device_identical"] and out["linked_identical"] and out["vcf_identical"]
     assert out["skewed_queries"] == 300 and out["skewed_advanced"] == out["skewed_checked_live"]
     assert out["calls"] > 0 and out["partitions"] > 1 and out["junctions"] > 0
@@ -463,9 +467,12 @@ def test_mesh_phase_rehearses_on_cpu(tmp_path):
         assert (row["library_ms"] is not None) == (name == "route")
         assert out["checked_calls"][name] + out["link_checked_calls"][name] > 0
     assert out["kernels"]["link_step"]["step"] == 1
-    # one linked step launch a step over the four shards, all on one device
+    # one linked step launch a step over the four shards' walks, one state on one device
     link = out["kernels"]["link_step"]
-    assert link["shards"] == 4 and link["path_launches"] == out["launches"]["link_step"]
+    assert link["states"] == 1 and link["path_launches"] == out["launches"]["link_step"]
+    for name in ("route", "shard_answer"):
+        row, walk = out["kernels"][name], out["kernels"][name]["walk_step0"]
+        assert walk["max_abs_err"] == 0.0 and walk["queries"] > row["queries"] > 0
     most = link["most_needy"]
     assert most["needy_walks"] >= link["needy_walks"] and most["needy_walks"] > 0
     assert most["max_abs_err"] == 0.0 and most["bound_ms"] > 0

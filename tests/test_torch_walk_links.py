@@ -420,6 +420,68 @@ def test_links_gate_on_every_graph_sample():
     assert host == "ACTGA" + native and len(host) < len(hap)
 
 
+# (case, the k-mer of a link record, its choices): a second record beside it
+SAME_WORDS = [("cycle", "ATGCG", "CA"), ("repeat", "AAGGGCATGCC", "GC")]
+
+
+@pytest.mark.parametrize("name,kmer,choices", SAME_WORDS, ids=[c[0] for c in SAME_WORDS])
+def test_link_records_of_equal_words_and_other_lengths(name, kmer, choices):
+    """ROADMAP §3's same_list rider: beside a link record, a second one at
+    the same k-mer and orientation whose choices add a trailing A ("CA" and
+    "CAA", as "AC" and "ACA"): their choice words are equal and their
+    lengths differ, so store_add's same_list
+    (corticall_tpu/ops/walk_links.py:158) takes them for one junction list
+    where the host engine keeps two.  walk_links_forward, LinkedWalker and
+    the sharded linked walk (two CPU shards) equal the JAX walker bit for
+    bit, the pair's k-mer walked both ways.  Recorded: here the host engine
+    and LinksWalkerNative give the JAX walker's contigs too (the two records
+    agree on every junction the walks reach while both are in the store).
+    The JAX behaviour is kept."""
+    jnp, jwl = _jax()
+    from corticall_tpu.io.links import JunctionRecord
+    from corticall_tpu_torch.parallel import mesh as tpm
+    g, links, colour, seeds, steps = case(name)
+    records = links[0].records
+    jr = next(j for j in records[kmer] if j.choices == choices)
+    records[kmer] = records[kmer] + [JunctionRecord(jr.forward, len(choices) + 1, jr.coverages,
+                                                    choices + "A")]
+    seeds = list(seeds) + [kmer]
+    k = g.kmer_size
+    arrays, _ = _jax_walker_arrays(g, links, colour)
+    rec = g.find_record(kmer)
+    rows = np.arange(arrays[2][rec], arrays[2][rec + 1])
+    pair = rows[np.isin(arrays[4][rows], (len(choices), len(choices) + 1))]
+    assert len(pair) == 2 and (arrays[3][pair[0]] == arrays[3][pair[1]]).all()
+
+    words = _both_ways(seeds, k)
+    want = jwl.walk_links_forward(*(jnp.asarray(a) for a in arrays), jnp.asarray(words), k,
+                                  steps)
+    _equal_walks(twl.walk_links_forward(*arrays, words, k, steps, device="cpu"), want)
+    pg, plinks = _port(g, links)
+    want_contigs = jwl.LinkedWalker(g, [colour], links).assemble(seeds, steps)
+    got = twl.LinkedWalker(pg, [colour], plinks, device="cpu").assemble(seeds, steps)
+    assert got[0] == want_contigs[0]
+    for a, b in zip(got[1:], want_contigs[1:]):
+        np.testing.assert_array_equal(a, b)
+    mesh = tpm.ShardMesh(["cpu"] * 2)
+    sg = tpm.ShardedGraph.from_graph(pg, mesh)
+    sl = tpm.ShardedLinks.from_graph(pg, plinks, sg)
+    sharded = tpm.make_sharded_linked_walk_run(mesh, sg, sl, [colour], k, steps)(
+        words, np.ones(len(words), bool))
+    for a, b in zip(sharded, (want[0], want[1], want[3])):
+        np.testing.assert_array_equal(_numpy(a), _numpy(b))
+    assert int(np.asarray(want[3]).sum()) > 0 and not np.asarray(want[1]).any()
+
+    native = tnat.LinksWalkerNative(pg, [colour], plinks) if tnat.available() else None
+    for seed, contig in zip(seeds, want_contigs[0]):
+        assert kmer in contig or km.revcomp(kmer) in contig
+        assert _host_contig(pg, colour, seed, plinks, steps) == contig
+        if native is not None:
+            fwd, _ = native.walk([seed], steps)
+            back, _ = native.walk([km.revcomp(seed)], steps)
+            assert (km.revcomp(back[0]) if back[0] else "") + seed + fwd[0] == contig
+
+
 def test_linked_walker_from_jax_arrays():
     _, jwl = _jax()
     g, links, colour, seeds, steps = case("repeat")

@@ -51,18 +51,22 @@ Phases, one JSON line each (progress goes to stderr):
    against the banded twin;
 9. walk_table_vs_plain: on phase 6's graph, the walk table of colour 0
    (phase 6's placement with the edge byte as payload) and a DeviceGraph;
-   find_records of every record and as many mutated k-mers (ctk_ht_lookup)
-   and 262,144 walks of at most 256 steps (bench.py's BENCH_WALKS,
+   find_records of every record and as many mutated k-mers (ctk_ht_lookup
+   over the probe table DeviceGraph built, the launch timed between its own
+   events) and 262,144 walks of at most 256 steps (bench.py's BENCH_WALKS,
    BENCH_STEPS) through walk_forward_spec (ctk_spec_walk), launches
    counted; both kernels against their twins bit for bit, timed beside
-   their bounds, with the walk's steps/s;
+   their bounds, with the walk's steps/s; the probe table's build (ms,
+   bytes, against the host's build) and ctk_ht_lookup at 1, 2, 4 and 8
+   lanes a query over key and tag entries, each against the twin;
 10. build_device: build_graph_from_reads with use_device=True on each trio
    sample of phase 4 and count_kmers_device on phase 6's 21 Mbp genome,
    each against the native route (identical graphs and counts), launches
    counted, with the seconds of each route and the device route's parts
-   (host packing, transfer, windows, compaction, sort, reduce, merge); then
+   (host packing, transfer, windows, compaction, sort, reduce, merge), and
+   every ctk_segment_reduce launch of the path between its own events; then
    ctk_count_windows and ctk_segment_reduce against their twins on the
-   kid's first chunk;
+   kid's first chunk, and ctk_segment_reduce on the path's largest merge;
 11. link_walk_vs_plain: LinkedWalker (the linked device walker) on phase
    4's graph, ROIs and threaded links: the sorted ROI k-mers walked both
    ways at Partition's 2,000-step cap against the native linked walker
@@ -933,6 +937,12 @@ def sw_full_phase(dev, rng) -> dict:
             "banded_sw_pallas_err": banded_err}
 
 
+# the C entry points that phases 9 and 10 time at every launch of their paths
+LOOKUP_ENTRY = {"ht_lookup": "ctk_ht_lookup"}
+REDUCE_ENTRY = {"segment_reduce": "ctk_segment_reduce"}
+LOOKUP_ABLATION = (1, 2, 4, 8)               # lanes a query in phase 9's ablation
+
+
 def probed_slots(slots, queries, found, max_probe: int) -> torch.Tensor:
     """bool [M]: the slots that linear-probe lookups of `queries` (int32
     [B, W]) read, given their answers `found` (record index or -1): a
@@ -993,7 +1003,8 @@ def walk_table_phase(dev, ctx) -> dict:
     the path (launches counted) looks up every record and as many mutated
     k-mers through find_records and walks bench.py's 262,144 seeds through
     walk_forward_spec; then both kernels against their plain twins, timed
-    beside their bounds."""
+    beside their bounds, the probe table's build, and ctk_ht_lookup's
+    ablation of lanes a query and entry form."""
     from corticall_tpu_torch.device import DeviceGraph
 
     g, k, nb, entry = ctx["g"], JUMP_K, ctx["nb"], ctx["entry"]
@@ -1009,20 +1020,33 @@ def walk_table_phase(dev, ctx) -> dict:
     dg = DeviceGraph.from_arrays(k, g.kmers, g.coverages, g.edges, device=dev)
     torch.cuda.synchronize()
     graph_s = time.perf_counter() - t0
+    # the probe table, built once a graph (from_arrays): built again on its
+    # own, timed, and held against the host's build
+    table_ms, table = host_ms(lambda: ht.probe_table(dg.slots, dg.kmers))
+    same(table, dg.probe, "the probe table, built twice")
+    del table
+    same(dg.probe.cpu(), ht.probe_table(dg.slots.cpu(), dg.kmers.cpu()), "the probe table")
     miss = g.kmers.copy()
     miss[:, -1] ^= np.uint32(1)
     queries = tk.words_tensor(np.concatenate([g.kmers, miss]), dev)
     seeds = tk.words_tensor(ctx["seeds"], dev)
     del miss
 
-    # the path: the table's lookups and the walks, launches counted
+    # the path: the table's lookups (the launch between its own events) and
+    # the walks, launches counted
     ht.LAUNCHES["ht_lookup"] = ck.LAUNCHES["spec_walk"] = 0
+    timers, late, restore = entry_timers(entries=LOOKUP_ENTRY)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rec = dg.find_records(queries)
+    try:
+        rec = dg.find_records(queries)
+    finally:
+        restore()
     walked = ck.walk_forward_spec(buckets, seeds, k, SPEC_STEPS)
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
+    lookup_path = {"path_ms": round(sum(t() for t in timers["ht_lookup"]), 4),
+                   "late": late["ht_lookup"]}
     launches = {"ht_lookup": ht.LAUNCHES["ht_lookup"], "spec_walk": ck.LAUNCHES["spec_walk"]}
     if not all(launches.values()):
         raise AssertionError(f"a walk-table kernel never launched: {launches}")
@@ -1032,13 +1056,23 @@ def walk_table_phase(dev, ctx) -> dict:
     # ht_lookup against its twin; its bound: the queries and results, the
     # distinct slots the probes read and the distinct key rows they compared
     out = torch.empty_like(rec)
-    lookup_ms = event_ms(lambda: ht.lookup_kernel(dg.slots, dg.kmers, queries, dg.max_probe,
+    lookup_ms = event_ms(lambda: ht.lookup_kernel(dg.probe, dg.kmers, queries, dg.max_probe,
                                                   out), 3)
-    lookup_err = same(out, rec, "ht_lookup, launched twice")
+    lookup_err = same(out, rec, "ht_lookup, launched again")
     lookup_plain_ms, want = host_ms(lambda: ht.lookup_plain(dg.slots, dg.kmers, queries,
                                                             dg.max_probe))
     lookup_err = max(lookup_err, same(rec, want, "ht_lookup"))
-    del want
+    # the ablation: lanes a query and the entry form, each against the twin
+    ablation = []
+    tables = {"key": dg.probe, "tag": ht.probe_table(dg.slots, dg.kmers, "tag")}
+    for form, table in tables.items():
+        for group in LOOKUP_ABLATION:
+            ms = event_ms(lambda: ht.lookup_kernel(table, dg.kmers, queries, dg.max_probe, out,
+                                                   group), 3)
+            ablation.append({"form": form, "group": group, "ms": round(ms, 4),
+                             "table_bytes": nbytes(table),
+                             "err": same(out, want, f"ht_lookup, {form} entries, {group} lanes")})
+    del want, tables
     slots_read = probed_slots(dg.slots, queries, rec, dg.max_probe)
     rows_read = int((slots_read & (dg.slots >= 0)).sum())
     slots_read = int(slots_read.sum())
@@ -1066,7 +1100,10 @@ def walk_table_phase(dev, ctx) -> dict:
         "max_probe": dg.max_probe, "slots": dg.slots.numel(),
         "walk_table_scatter_s": round(scatter_s, 4), "device_graph_s": round(graph_s, 2),
         "path_s": round(path_s, 4), "launches": launches,
-        "lookup_ms": round(lookup_ms, 4), "lookup_plain_ms": round(lookup_plain_ms, 2),
+        "probe_table_ms": round(table_ms, 3), "probe_table_bytes": nbytes(dg.probe),
+        "probe_form": ht.PROBE_FORM, "lookup_group": ht.LOOKUP_GROUP,
+        "lookup_ms": round(lookup_ms, 4), "lookup_path": lookup_path,
+        "lookup_ablation": ablation, "lookup_plain_ms": round(lookup_plain_ms, 2),
         "lookup_bound": bound_fields(lookup_bound), "lookup_slots_read": slots_read,
         "lookup_key_rows_read": rows_read, "lookup_err": lookup_err,
         "lookups_per_s": round(queries.shape[0] / lookup_ms * 1e3),
@@ -1156,11 +1193,13 @@ def same_graph(got, want, what: str) -> None:
 
 
 def build_phase(dev, reads, genome) -> dict:
-    """Phase 10: the device graph build.  The path (launches counted):
-    build_graph_from_reads with use_device=True for each trio sample of
-    phase 4, and count_kmers_device on phase 6's genome, each against the
-    native route; then ctk_count_windows and ctk_segment_reduce against
-    their twins on the kid's first chunk."""
+    """Phase 10: the device graph build.  The path (launches counted, each
+    ctk_segment_reduce launch timed between its own events behind a short
+    spin: its path_ms): build_graph_from_reads with use_device=True for each
+    trio sample of phase 4, and count_kmers_device on phase 6's genome, each
+    against the native route; then ctk_count_windows and ctk_segment_reduce
+    against their twins on the kid's first chunk, and ctk_segment_reduce on
+    the path's largest merge (a trio sample's: the genome is one chunk)."""
     from corticall_tpu_torch import build as tbd
     from corticall_tpu_torch import native as nat
 
@@ -1168,32 +1207,61 @@ def build_phase(dev, reads, genome) -> dict:
     bdv.count_kmers_device([genome[:5000]], k, device=dev)     # first use of torch.sort
     for key in bdv.LAUNCHES:
         bdv.LAUNCHES[key] = 0
-    samples = {}
-    for s, rs in reads.items():
+    # every ctk_segment_reduce launch of the path between its own events,
+    # and a copy of the inputs of the path's largest merge
+    timers, late, restore = entry_timers(entries=REDUCE_ENTRY)
+    merge = {"rows": 0, "args": None}
+    real_merge, real_reduce = bdv.DeviceCounter._merge, bdv.reduce_kernel
+    merging = [False]
+
+    def merge_flagged(self, *a):
+        merging[0] = True
+        try:
+            return real_merge(self, *a)
+        finally:
+            merging[0] = False
+
+    def reduce_kept(keys, cov, masks, *out):
+        if merging[0] and keys.shape[0] > merge["rows"]:
+            merge.update(rows=keys.shape[0], args=(keys.clone(), cov.clone(), masks.clone()))
+        return real_reduce(keys, cov, masks, *out)
+
+    bdv.DeviceCounter._merge, bdv.reduce_kernel = merge_flagged, reduce_kept
+    try:
+        samples = {}
+        for s, rs in reads.items():
+            t0 = time.perf_counter()
+            native = tbd.build_graph_from_reads(rs, k, s, use_device=False)
+            native_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got, parts = timed_parts(lambda: tbd.build_graph_from_reads(
+                rs, k, s, use_device=True, device=dev))
+            device_s = time.perf_counter() - t0
+            same_graph(got, native, f"sample {s}")
+            samples[s] = {"reads": len(rs), "bases": sum(map(len, rs)),
+                          "records": got.num_records, "native_s": round(native_s, 3),
+                          "device_s": round(device_s, 3), "device_parts_s": parts}
+            log(f"build {s}: native {native_s:.2f} s, device {device_s:.2f} s {parts}")
         t0 = time.perf_counter()
-        native = tbd.build_graph_from_reads(rs, k, s, use_device=False)
+        want = nat.count_kmers_native([genome], k)
         native_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        got, parts = timed_parts(lambda: tbd.build_graph_from_reads(rs, k, s, use_device=True,
-                                                                    device=dev))
+        got, parts = timed_parts(lambda: bdv.count_kmers_device([genome], k, device=dev))
         device_s = time.perf_counter() - t0
-        same_graph(got, native, f"sample {s}")
-        samples[s] = {"reads": len(rs), "bases": sum(map(len, rs)), "records": got.num_records,
-                      "native_s": round(native_s, 3), "device_s": round(device_s, 3),
-                      "device_parts_s": parts}
-        log(f"build {s}: native {native_s:.2f} s, device {device_s:.2f} s {parts}")
-    t0 = time.perf_counter()
-    want = nat.count_kmers_native([genome], k)
-    native_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    got, parts = timed_parts(lambda: bdv.count_kmers_device([genome], k, device=dev))
-    device_s = time.perf_counter() - t0
+    finally:
+        bdv.DeviceCounter._merge, bdv.reduce_kernel = real_merge, real_reduce
+        restore()
     for name, a, b in zip(("kmers", "coverage", "in", "out"), got, want):
         if not np.array_equal(a, b):
             raise AssertionError(f"the genome's device count: {name} differ from the native count")
     launches = dict(bdv.LAUNCHES)
     if not all(launches.values()):
         raise AssertionError(f"a count kernel never launched: {launches}")
+    torch.cuda.synchronize()
+    reduce_path = {"launches": len(timers["segment_reduce"]),
+                   "path_ms": round(sum(t() for t in timers["segment_reduce"]), 4),
+                   "launch_ms": [round(t(), 4) for t in timers["segment_reduce"]],
+                   "late": late["segment_reduce"]}
     genome_row = {"bases": len(genome), "records": len(got[0]), "native_s": round(native_s, 3),
                   "device_s": round(device_s, 3), "device_parts_s": parts}
     log(f"count of the genome: native {native_s:.2f} s, device {device_s:.2f} s {parts}")
@@ -1233,9 +1301,24 @@ def build_phase(dev, reads, genome) -> dict:
              "reduce_bound": bound_fields(reduce_bound)}
     log(f"count kernels on a chunk: {chunk}")
     del st, vt, ot, sk, sm, cov, out, want
+
+    # ctk_segment_reduce on the path's largest merge (sorted as the merge sorts)
+    mk, mc, mm = merge["args"]
+    mout = (torch.empty_like(mk), torch.empty_like(mc), torch.empty_like(mm))
+    merge_ms = event_ms(lambda: bdv.reduce_kernel(mk, mc, mm, *mout, count), 3)
+    merge_plain_ms, want = host_ms(lambda: bdv.reduce_plain(mk, mc, mm))
+    nu = int(count.item())
+    merge_row = {"rows": int(mk.shape[0]), "unique": nu, "ms": round(merge_ms, 4),
+                 "plain_ms": round(merge_plain_ms, 2),
+                 "err": max(same(a[:nu], b, f"segment_reduce on a merge, {name}")
+                            for name, a, b in zip(("keys", "coverage", "masks"), mout, want)),
+                 "bound": bound_fields(bound_ms(nbytes(mk, mc, mm, count)
+                                                + sum(nbytes(x[:nu]) for x in mout)))}
+    log(f"segment_reduce on the largest merge: {merge_row}")
+    del mk, mc, mm, mout, want, merge
     torch.cuda.empty_cache()
     return {"k": k, "samples": samples, "genome": genome_row, "launches": launches,
-            "identical": True, "chunk": chunk}
+            "identical": True, "chunk": chunk, "reduce_path": reduce_path, "merge": merge_row}
 
 
 LINK_SEEDS = 262_144                         # BENCH_WALKS
@@ -1672,20 +1755,21 @@ def checked(fn, keep=lambda name, i, args: False, compare=lambda name, i: True):
     return out, errs, calls, kept
 
 
-def entry_timers(kernels=None):
-    """Each sharding kernel's C entry point (PATH_ENTRIES) in the library of
-    `kernels` (an ops._kernels module; this package's by default) replaced
-    by one that runs it queued behind a PATH_SPIN_CYCLES spin, between two
-    CUDA events, so that the wrapper's host work falls outside them; a call
-    whose launch was queued only after the device had passed its start
-    event (the host was late: the events then hold idle time too) is
-    counted as late.  Returns ({name: [a function giving a call's ms once
+def entry_timers(kernels=None, entries=None):
+    """Each C entry point of `entries` ({name: entry}; the sharding kernels'
+    PATH_ENTRIES by default) in the library of `kernels` (an ops._kernels
+    module; this package's by default) replaced by one that runs it queued
+    behind a PATH_SPIN_CYCLES spin, between two CUDA events, so that the
+    wrapper's host work falls outside them; a call whose launch was queued
+    only after the device had passed its start event (the host was late:
+    the events then hold idle time too) is counted as late.  Returns ({name: [a function giving a call's ms once
     the device has passed it]}, {name: late calls}, a function that puts
     the entry points back)."""
+    entries = PATH_ENTRIES if entries is None else entries
     lib = (kernels or _kernels).library()
-    timers = {name: [] for name in PATH_ENTRIES}
-    late = dict.fromkeys(PATH_ENTRIES, 0)
-    saved = {entry: getattr(lib, entry) for entry in PATH_ENTRIES.values()}
+    timers = {name: [] for name in entries}
+    late = dict.fromkeys(entries, 0)
+    saved = {entry: getattr(lib, entry) for entry in entries.values()}
 
     def timed(name, fn):
         def run(*args):
@@ -1700,7 +1784,7 @@ def entry_timers(kernels=None):
             return err
         return run
 
-    for name, entry in PATH_ENTRIES.items():
+    for name, entry in entries.items():
         setattr(lib, entry, timed(name, saved[entry]))
 
     def restore():
@@ -2413,7 +2497,8 @@ def main() -> int:
          "replaces": "corticall_tpu/ops/hashtable.py:131",
          "launches": wp["launches"]["ht_lookup"], "max_abs_err": wp["lookup_err"],
          "ms": wp["lookup_ms"], "plain_ms": wp["lookup_plain_ms"], **wp["lookup_bound"],
-         "library_ms": None},
+         "library_ms": None, "path_ms": wp["lookup_path"]["path_ms"],
+         "probe_table_ms": wp["probe_table_ms"]},
         {"name": "spec_walk", "route": "cuda",
          "source": "corticall_tpu_torch/csrc/walk_table.cu",
          "replaces": "corticall_tpu/ops/cuckoo.py:306",
@@ -2429,9 +2514,11 @@ def main() -> int:
         {"name": "segment_reduce", "route": "cuda",
          "source": "corticall_tpu_torch/csrc/count.cu",
          "replaces": "corticall_tpu/ops/build_device.py:139",
-         "launches": bp["launches"]["segment_reduce"], "max_abs_err": chunk["reduce_err"],
+         "launches": bp["launches"]["segment_reduce"],
+         "max_abs_err": max(chunk["reduce_err"], bp["merge"]["err"]),
          "ms": chunk["reduce_ms"], "plain_ms": chunk["reduce_plain_ms"],
-         **chunk["reduce_bound"], "library_ms": None},
+         **chunk["reduce_bound"], "library_ms": None, "path_ms": bp["reduce_path"]["path_ms"],
+         "merge_ms": bp["merge"]["ms"]},
         {"name": "link_walk", "route": "cuda",
          "source": "corticall_tpu_torch/csrc/walk_links.cu",
          "replaces": "corticall_tpu/ops/walk_links.py:199",

@@ -24,18 +24,26 @@
 //   bitmaps, shared by a warp's neighbouring windows through L1) and writes
 //   4 W + 1 bytes, a warp's keys and masks contiguous.  It is bound by its
 //   writes; nothing is staged.
-// - segment_reduce reads each sorted row once or twice (a head walks its own
-//   run; rows are mostly distinct, runs ~ coverage long) and writes the
-//   unique rows, compacted in order by a three-kernel scan: heads a block,
-//   one block's exclusive scan of those counts, then each head's run summed
-//   and written at its block's offset plus its rank in the block.
+// - segment_reduce must read each sorted row once (4 W bytes of key words,
+//   4 of coverage, 1 of masks: 17 at k = 47) and write each unique row once.
+//   One launch, one pass: persistent blocks take tiles of 2,048 rows in
+//   order, copy the next tile's keys (with the row either side), coverage
+//   and masks into shared memory with cp.async while they reduce the
+//   current one, find heads and tails there, reduce each thread's 8
+//   consecutive rows in registers and scan the threads' (coverage sum, mask
+//   OR) segmented by heads with warp shuffles, take the tile's output offset
+//   and the carry of a run begun in earlier tiles by decoupled look-back
+//   (Merrill & Garland's single-pass scan) over 64-bit status words tagged
+//   with the launch's epoch: no memset and no serial loop, a run of any
+//   length summed by the scans and its row written by the tile holding its
+//   last row (coverage and masks staged in shared memory and written out
+//   coalesced, key words straight from the striped rows).  The
+//   scratch (two counters, two status words a tile) stays on the card
+//   between launches (ops/build_device.reduce_scratch).
 
 #include "kmer.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;       // a reduce block: 8 warps
-constexpr int kScanThreads = 1024;  // the one block that scans the block counts
 
 __device__ __forceinline__ bool bit_at(const uint32_t* __restrict__ words, long long i) {
   return (__ldg(words + (i >> 5)) >> (i & 31)) & 1u;
@@ -109,93 +117,451 @@ count_windows_kernel(const uint32_t* __restrict__ stream, long long nwords,
   masks[i] = (uint8_t)((in_m << 4) | out_m);
 }
 
+// ---------------------------------------------------------------------------
+// segment_reduce: one pass over tiles of sorted rows
+// ---------------------------------------------------------------------------
+
+constexpr int kReduceThreads = 256;                        // 8 warps
+constexpr int kReduceItems = 8;                            // rows a thread
+constexpr int kTileRows = kReduceThreads * kReduceItems;   // 2,048
+constexpr int kReduceWarps = kReduceThreads / 32;
+constexpr int kTileSpans = kReduceItems * kReduceWarps;    // a warp's 32 rows of an item
+constexpr int kLaneSpans = kTileSpans / 32;                // warp 0 scans them, this many a lane
+static_assert(kTileSpans % 32 == 0, "warp 0 scans the tile's spans in whole lanes");
+static_assert(kReduceWarps <= 32, "warp 0 scans the warps' spans, one a lane");
+
+// A tile's status word: a 40-bit value, a 2-bit flag (0: not yet written in
+// this launch) and the launch's epoch above them, so that words left by an
+// earlier launch read as not written and no memset precedes a launch.
+constexpr int kFlagShift = 40, kEpochShift = 42;
+constexpr unsigned long long kAggregate = 1ull, kPrefix = 2ull;
+constexpr uint32_t kCut = 0x100u;  // an (OR | cut) word's bit: the span holds a head
+
+// A span of consecutive rows, reduced: its heads and tails (first and last
+// rows of runs), and the coverage sum and mask OR of its last open run (from
+// its last head, or all of it), with kCut set when it holds a head.  The
+// combination (older span first) is associative, and its sum and OR are
+// exact in any grouping: uint32 sums wrap as the twin's do.
+struct Span {
+  uint32_t heads, tails, sum, orc;
+};
+
+__device__ __forceinline__ Span combine(const Span& a, const Span& b) {
+  const bool cut = b.orc & kCut;
+  return {a.heads + b.heads, a.tails + b.tails, cut ? b.sum : a.sum + b.sum,
+          cut ? b.orc : (a.orc | b.orc)};
+}
+
+__device__ __forceinline__ Span shfl_span(const Span& s, int src) {
+  return {__shfl_sync(kFullMask, s.heads, src), __shfl_sync(kFullMask, s.tails, src),
+          __shfl_sync(kFullMask, s.sum, src), __shfl_sync(kFullMask, s.orc, src)};
+}
+
+__device__ __forceinline__ Span shfl_up_span(const Span& s, int d) {
+  return {__shfl_up_sync(kFullMask, s.heads, d), __shfl_up_sync(kFullMask, s.tails, d),
+          __shfl_up_sync(kFullMask, s.sum, d), __shfl_up_sync(kFullMask, s.orc, d)};
+}
+
+// A status word's flag and value travel in one 64-bit word, and a relaxed
+// gpu-scope 64-bit access is single-copy atomic, so a read is never torn;
+// nothing else is published through them, so no ordering is needed
+// (release / acquire cost ~8% on a 17.7M-row chunk: tools/table_probe.py).
+__device__ __forceinline__ void st_status(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.b64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long ld_status(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.b64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long status_word(unsigned long long epoch,
+                                                          unsigned long long flag,
+                                                          unsigned long long value) {
+  return epoch << kEpochShift | flag << kFlagShift | value;
+}
+
+// a status word of this launch's epoch, written (A or P); spins until it is
+__device__ __forceinline__ unsigned long long await_status(const unsigned long long* p,
+                                                           unsigned long long epoch) {
+  unsigned long long v = ld_status(p);
+  while (v >> kEpochShift != epoch || !(v >> kFlagShift & 3ull)) {
+    __nanosleep(32);
+    v = ld_status(p);
+  }
+  return v;
+}
+
+__device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
+#pragma unroll
+  for (int d = 16; d; d >>= 1) v += __shfl_xor_sync(kFullMask, v, d);
+  return v;
+}
+
+__device__ __forceinline__ uint32_t warp_or(uint32_t v) {
+#pragma unroll
+  for (int d = 16; d; d >>= 1) v |= __shfl_xor_sync(kFullMask, v, d);
+  return v;
+}
+
 template <int W>
-__device__ __forceinline__ bool same_row(const uint32_t* __restrict__ keys, int a, int b) {
+__device__ __forceinline__ bool same_words(const uint32_t* a, const uint32_t* b) {
   bool eq = true;
 #pragma unroll
-  for (int j = 0; j < W; ++j)
-    eq = eq && __ldg(keys + (size_t)a * W + j) == __ldg(keys + (size_t)b * W + j);
+  for (int j = 0; j < W; ++j) eq = eq && a[j] == b[j];
   return eq;
 }
 
-template <int W>
-__device__ __forceinline__ bool is_head(const uint32_t* __restrict__ keys, int i, int m) {
-  return i < m && (i == 0 || !same_row<W>(keys, i, i - 1));
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// heads (first rows of their runs) a block
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-count_heads_kernel(const uint32_t* __restrict__ keys, int m, int* __restrict__ block_count) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const int heads = __syncthreads_count(is_head<W>(keys, i, m));
-  if (threadIdx.x == 0) block_count[blockIdx.x] = heads;
+// cp.async: a copy from global into shared memory that bypasses registers
+// and completes in the background, in groups the block waits on
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
 }
 
-// one block: the block counts -> exclusive offsets, in place; their sum to *total
-__global__ void __launch_bounds__(kScanThreads)
-scan_counts_kernel(int* __restrict__ counts, int nblocks, int* __restrict__ total) {
-  __shared__ int sums[kScanThreads];
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_prior() {  // all groups but the newest
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+// A tile's inputs in shared memory: its key rows with the row either side
+// (global word x at keys[x - base], base the multiple of 4 at or below the
+// row before the tile's first word, so 16-byte pieces line up), its
+// coverage and its masks.  The output rows are staged over them in place.
+template <int W>
+struct __align__(16) TileBuf {
+  static constexpr int kKeyWords = ((kTileRows + 2) * W + 4 + 3) / 4 * 4;  // whole 16-byte pieces
+  uint32_t keys[kKeyWords];
+  uint32_t cov[kTileRows];
+  uint8_t masks[kTileRows];
+};
+
+// Issue (one commit group) the copies of tile `tile`'s inputs into b:
+// 16-byte pieces, and the words (the last tile's mask bytes) outside them.
+template <int W>
+__device__ __forceinline__ void prefetch_tile(TileBuf<W>& b, const uint32_t* __restrict__ keys,
+                                              const uint32_t* __restrict__ cov,
+                                              const uint8_t* __restrict__ masks, int m,
+                                              long long tile) {
   const int t = threadIdx.x;
-  const int per = (nblocks + kScanThreads - 1) / kScanThreads;
-  const int lo = min(t * per, nblocks), hi = min(lo + per, nblocks);
-  int own = 0;
-  for (int i = lo; i < hi; ++i) own += counts[i];
-  sums[t] = own;
-  __syncthreads();
-  for (int d = 1; d < kScanThreads; d <<= 1) {  // inclusive Hillis-Steele scan
-    const int add = t >= d ? sums[t - d] : 0;
-    __syncthreads();
-    sums[t] += add;
-    __syncthreads();
-  }
-  int run = sums[t] - own;
-  for (int i = lo; i < hi; ++i) {
-    const int c = counts[i];
-    counts[i] = run;
-    run += c;
-  }
-  if (t == kScanThreads - 1) *total = sums[t];
+  const long long start = tile * kTileRows;
+  const int rows = (int)min((long long)kTileRows, (long long)m - start);
+  const long long base = ((start - 1) * W) & ~3ll;
+  const long long lo = max(start - 1, 0ll) * W, hi = min(start + rows + 1, (long long)m) * W;
+  const long long a = min(hi, (lo + 3) & ~3ll), z = max(a, hi & ~3ll);
+  for (long long x = lo + t; x < a; x += kReduceThreads) cp_async4(&b.keys[x - base], keys + x);
+  for (long long x = z + t; x < hi; x += kReduceThreads) cp_async4(&b.keys[x - base], keys + x);
+  for (long long v = a / 4 + t; v < z / 4; v += kReduceThreads)
+    cp_async16(&b.keys[4 * v - base], keys + 4 * v);
+  for (int v = t; v < rows / 4; v += kReduceThreads)
+    cp_async16(&b.cov[4 * v], cov + start + 4 * v);
+  for (int x = rows / 4 * 4 + t; x < rows; x += kReduceThreads)
+    cp_async4(&b.cov[x], cov + start + x);
+  for (int v = t; v < rows / 16; v += kReduceThreads)
+    cp_async16(&b.masks[16 * v], masks + start + 16 * v);
+  for (int x = rows / 16 * 16 + t; x < rows; x += kReduceThreads)
+    b.masks[x] = __ldg(masks + start + x);
+  cp_async_commit();
 }
 
-// each head sums its run and writes one row at its block's offset plus its
-// rank among the block's heads
+// The block-wide state of a tile's reduction.
+struct TileShared {
+  // a row's head flag (it begins a run), and at kTileRows the flag of the
+  // row after the tile (1 past the last row); row i's tail flag is flag i + 1
+  __align__(16) uint8_t head[kTileRows + 16];
+  uint32_t tails[kTileSpans];  // tails of a warp's 32 rows of an item, then their prefix
+  Span span[kReduceWarps];     // a warp's 256 rows reduced, then their prefix
+  long long out;               // the output row of the tile's first run end
+  int ends;                    // the runs that end in the tile
+  uint32_t carry[2];           // the continued run's (sum, OR) from the tiles before
+};
+
+// One tile of kTileRows sorted rows, already in b.
+//  1. striped (row i * kReduceThreads + t is thread t's item i): each row's
+//     head flag from the key rows in shared memory; then its tail flag (the
+//     next row's head), balloted a warp and item;
+//  2. blocked (rows 8 t .. 8 t + 7 are thread t's): the rows' coverage,
+//     masks and flags as vectors, reduced in registers to the thread's span,
+//     a warp-shuffle scan of the spans, each warp's total into shared memory;
+//  3. warp 0 scans the warps' spans and the tail counts (exclusive prefixes
+//     within the tile) and publishes the tile's aggregate: its heads, and its
+//     trailing open run's (sum, OR) -- already the inclusive prefix (P) when
+//     the tile has a head; then looks back (32 tiles a step) until a P on
+//     each word: the heads before the tile (its output offset) and, when its
+//     first row is not a head, the carry of the run it continues; then
+//     publishes its P;
+//  4. blocked: each thread walks its rows from its prefix (plus the carry for
+//     a run begun before the tile) and stages each run end's (sum, OR) at its
+//     rank among the tile's tails, in place over the inputs already read;
+//     striped: each run end's key words go straight to their output row; the
+//     staged coverage and masks go out coalesced.
+// A run's row is written by the tile that holds its last row, at its head's
+// rank (the heads before it), so every output row is written once.
 template <int W>
-__global__ void __launch_bounds__(kThreads)
-reduce_runs_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ cov,
-                   const uint8_t* __restrict__ masks, int m,
-                   const int* __restrict__ block_offset, uint32_t* __restrict__ out_keys,
-                   uint32_t* __restrict__ out_cov, uint8_t* __restrict__ out_masks) {
-  __shared__ int warp_heads[kThreads / 32];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bool head = is_head<W>(keys, i, m);
-  const unsigned ballot = __ballot_sync(0xFFFFFFFFu, head);
-  if (lane == 0) warp_heads[warp] = __popc(ballot);
+__device__ __forceinline__ void reduce_tile(TileBuf<W>& b, TileShared& sh, long long tile, int m,
+                                            int ntiles, uint32_t* __restrict__ out_keys,
+                                            uint32_t* __restrict__ out_cov,
+                                            uint8_t* __restrict__ out_masks,
+                                            int* __restrict__ count,
+                                            unsigned long long* __restrict__ status,
+                                            unsigned long long epoch) {
+  static_assert(kReduceItems == 8, "a thread's rows are read as 8-row vectors");
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const long long start = tile * kTileRows;
+  const int rows = (int)min((long long)kTileRows, (long long)m - start);
+  const long long base = ((start - 1) * W) & ~3ll;
+
+  // 1. head flags, then tail ballots, striped
+#pragma unroll
+  for (int i = 0; i < kReduceItems; ++i) {
+    const int local = i * kReduceThreads + t;
+    const long long r = start + local;
+    bool head = local == rows;  // past the last row: the data's end
+    if (local < rows) {
+      const uint32_t* row = b.keys + (r * W - base);
+      head = r == 0 || !same_words<W>(row, row - W);
+    }
+    sh.head[local] = head;
+  }
+  if (t == 0 && rows == kTileRows) {
+    const long long r = start + kTileRows;  // the row after the tile
+    const uint32_t* row = b.keys + (r * W - base);
+    sh.head[kTileRows] = r == m || !same_words<W>(row, row - W);
+  }
   __syncthreads();
-  if (!head) return;
-  int pos = block_offset[blockIdx.x] + __popc(ballot & ((1u << lane) - 1u));
-  for (int x = 0; x < warp; ++x) pos += warp_heads[x];
-  uint32_t c = 0u, mk = 0u;
-  for (int j = i; j < m && (j == i || same_row<W>(keys, j, i)); ++j) {
-    c += __ldg(cov + j);
-    mk |= __ldg(masks + j);
+  unsigned tails[kReduceItems];
+#pragma unroll
+  for (int i = 0; i < kReduceItems; ++i) {
+    const int local = i * kReduceThreads + t;
+    tails[i] = __ballot_sync(kFullMask, local < rows && sh.head[local + 1]);
+    if (lane == 0) sh.tails[i * kReduceWarps + warp] = (uint32_t)__popc(tails[i]);
+  }
+
+  // 2. the thread's 8 rows, blocked
+  const int r0 = kReduceItems * t;
+  const uint4 c0 = reinterpret_cast<const uint4*>(b.cov + r0)[0];
+  const uint4 c1 = reinterpret_cast<const uint4*>(b.cov + r0)[1];
+  const uint2 mk2 = *reinterpret_cast<const uint2*>(b.masks + r0);
+  const uint2 hd2 = *reinterpret_cast<const uint2*>(sh.head + r0);
+  const uint32_t c[kReduceItems] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+  const unsigned long long mk = (unsigned long long)mk2.y << 32 | mk2.x;
+  const unsigned long long hd = (unsigned long long)hd2.y << 32 | hd2.x;
+  const unsigned long long tl = hd >> 8 | (unsigned long long)sh.head[r0 + kReduceItems] << 56;
+  const int valid = max(0, min(kReduceItems, rows - r0));
+  Span own = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int u = 0; u < kReduceItems; ++u) {
+    if (u < valid) {
+      const bool h = hd >> (8 * u) & 1ull;
+      const uint32_t mu = (uint32_t)(mk >> (8 * u)) & 0xFFu;
+      own = combine(own, Span{h, (uint32_t)(tl >> (8 * u) & 1ull), c[u], mu | (h ? kCut : 0u)});
+    }
+  }
+  Span inc = own;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const Span p = shfl_up_span(inc, d);
+    if (lane >= d) inc = combine(p, inc);
+  }
+  Span before_lane = shfl_up_span(inc, 1);
+  if (lane == 0) before_lane = Span{0u, 0u, 0u, 0u};
+  if (lane == 31) sh.span[warp] = inc;
+  __syncthreads();
+
+  // 3. the tile's prefixes, then its prefix among the tiles by look-back
+  if (warp == 0) {
+    Span ws = lane < kReduceWarps ? sh.span[lane] : Span{0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const Span p = shfl_up_span(ws, d);
+      if (lane >= d) ws = combine(p, ws);
+    }
+    Span exc = shfl_up_span(ws, 1);
+    if (lane == 0) exc = Span{0u, 0u, 0u, 0u};
+    if (lane < kReduceWarps) sh.span[lane] = exc;
+    const Span total = shfl_span(ws, 31);
+    // the tail counts: lane holds kLaneSpans consecutive ones
+    uint32_t tc[kLaneSpans], tsum = 0u;
+#pragma unroll
+    for (int u = 0; u < kLaneSpans; ++u) {
+      tc[u] = sh.tails[kLaneSpans * lane + u];
+      tsum += tc[u];
+    }
+    uint32_t tinc = tsum;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t p = __shfl_up_sync(kFullMask, tinc, d);
+      if (lane >= d) tinc += p;
+    }
+    uint32_t texc = tinc - tsum;
+#pragma unroll
+    for (int u = 0; u < kLaneSpans; ++u) {
+      sh.tails[kLaneSpans * lane + u] = texc;
+      texc += tc[u];
+    }
+    const bool lead = !sh.head[0];  // the tile continues a run
+    const bool cut = total.orc & kCut;
+    unsigned long long* own_status = status + 2 * tile;  // heads word, carry word
+    if (lane == 0) {
+      st_status(own_status, status_word(epoch, tile ? kAggregate : kPrefix, total.heads));
+      st_status(own_status + 1,
+                status_word(epoch, tile == 0 || cut ? kPrefix : kAggregate,
+                            (unsigned long long)(total.orc & 0xFFu) << 32 | total.sum));
+    }
+    uint32_t before = 0u, csum = 0u, cor = 0u;
+    bool hdone = tile == 0, cdone = tile == 0 || !lead;
+    for (long long j0 = tile - 1; !(hdone && cdone); j0 -= 32) {
+      const long long j = j0 - lane;  // lane 0 the nearest tile
+      unsigned long long hw = 0ull, cw = 0ull;
+      if (j >= 0 && !hdone) hw = await_status(status + 2 * j, epoch);
+      if (j >= 0 && !cdone) cw = await_status(status + 2 * j + 1, epoch);
+      if (!hdone) {
+        const unsigned pm = __ballot_sync(kFullMask, j < 0 || (hw >> kFlagShift & 3ull) == kPrefix);
+        const int stop = pm ? __ffs(pm) - 1 : 31;
+        before += warp_sum(lane <= stop ? (uint32_t)hw : 0u);
+        hdone = pm != 0u;
+      }
+      if (!cdone) {
+        const unsigned pm = __ballot_sync(kFullMask, j < 0 || (cw >> kFlagShift & 3ull) == kPrefix);
+        const int stop = pm ? __ffs(pm) - 1 : 31;
+        csum += warp_sum(lane <= stop ? (uint32_t)cw : 0u);
+        cor |= warp_or(lane <= stop ? (uint32_t)(cw >> 32) & 0xFFu : 0u);
+        cdone = pm != 0u;
+      }
+    }
+    if (lane == 0) {
+      if (tile) st_status(own_status, status_word(epoch, kPrefix, before + total.heads));
+      if (tile && !cut)
+        st_status(own_status + 1,
+                  status_word(epoch, kPrefix,
+                              (unsigned long long)((cor | total.orc) & 0xFFu) << 32 |
+                                  (csum + total.sum)));
+      if (tile == ntiles - 1) *count = (int)(before + total.heads);
+      sh.carry[0] = csum;
+      sh.carry[1] = cor;
+      sh.out = (long long)before - (lead ? 1 : 0);
+      sh.ends = (int)total.tails;
+    }
+  }
+  __syncthreads();
+
+  // 4. run ends: (sum, OR) staged blocked, keys written striped
+  const long long out0 = sh.out;
+  const Span pre = combine(sh.span[warp], before_lane);  // the tile's rows before mine
+  uint32_t s = pre.sum, o = pre.orc;
+  if (!(o & kCut)) {  // a run begun before the tile
+    s += sh.carry[0];
+    o |= sh.carry[1];
+  }
+  int at = (int)pre.tails;
+#pragma unroll
+  for (int u = 0; u < kReduceItems; ++u) {
+    if (u < valid) {
+      if (hd >> (8 * u) & 1ull) s = o = 0u;
+      s += c[u];
+      o |= (uint32_t)(mk >> (8 * u)) & 0xFFu;
+      if (tl >> (8 * u) & 1ull) {
+        b.cov[at] = s;
+        b.masks[at] = (uint8_t)o;
+        ++at;
+      }
+    }
   }
 #pragma unroll
-  for (int x = 0; x < W; ++x) out_keys[(size_t)pos * W + x] = __ldg(keys + (size_t)i * W + x);
-  out_cov[pos] = c;
-  out_masks[pos] = (uint8_t)mk;
+  for (int i = 0; i < kReduceItems; ++i) {
+    if (tails[i] >> lane & 1u) {
+      const long long r = start + i * kReduceThreads + t;
+      const uint32_t* row = b.keys + (r * W - base);
+      const long long dst =
+          (out0 + sh.tails[i * kReduceWarps + warp] + __popc(tails[i] & ((1u << lane) - 1u))) * W;
+#pragma unroll
+      for (int j = 0; j < W; ++j) out_keys[dst + j] = row[j];
+    }
+  }
+  __syncthreads();
+  const int ends = sh.ends;
+  for (int x = t; x < ends; x += kReduceThreads) {
+    out_cov[out0 + x] = b.cov[x];
+    out_masks[out0 + x] = b.masks[x];
+  }
+  __syncthreads();  // b is refilled next
+}
+
+// A persistent block: tiles taken in order from an atomic counter, each
+// tile's inputs copied (cp.async) while the block reduces the tile before
+// it, so a tile waits only on running tiles and the loads overlap the scans
+// and the look-back.  The last block to finish puts the two counters back
+// to 0 for the next launch.
+template <int W>
+__global__ void __launch_bounds__(kReduceThreads, W < 4 ? 3 : 2)  // as many as shared memory holds
+segment_reduce_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ cov,
+                      const uint8_t* __restrict__ masks, int m, int ntiles,
+                      uint32_t* __restrict__ out_keys, uint32_t* __restrict__ out_cov,
+                      uint8_t* __restrict__ out_masks, int* __restrict__ count,
+                      unsigned* __restrict__ counters, unsigned long long* __restrict__ status,
+                      unsigned long long epoch) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  TileBuf<W>* buf = reinterpret_cast<TileBuf<W>*>(smem);
+  __shared__ TileShared sh;
+  __shared__ int s_next;
+
+  if (threadIdx.x == 0) s_next = (int)atomicAdd(counters, 1u);
+  __syncthreads();
+  int tile = s_next, cur = 0;
+  if (tile < ntiles) prefetch_tile<W>(buf[0], keys, cov, masks, m, tile);
+  while (tile < ntiles) {
+    __syncthreads();  // every thread has read s_next
+    if (threadIdx.x == 0) s_next = (int)atomicAdd(counters, 1u);
+    __syncthreads();
+    const int next = s_next;
+    if (next < ntiles)
+      prefetch_tile<W>(buf[cur ^ 1], keys, cov, masks, m, next);
+    else
+      cp_async_commit();  // an empty group: the wait below counts groups
+    cp_async_wait_prior();
+    __syncthreads();
+    reduce_tile<W>(buf[cur], sh, tile, m, ntiles, out_keys, out_cov, out_masks, count, status,
+                   epoch);
+    tile = next;
+    cur ^= 1;
+  }
+  if (threadIdx.x == 0 && atomicAdd(counters + 1, 1u) == gridDim.x - 1) {
+    counters[0] = 0u;  // every block has taken its last tile
+    counters[1] = 0u;
+  }
 }
 
 template <int W>
-void launch_reduce(const uint32_t* keys, const uint32_t* cov, const uint8_t* masks, int m,
-                   uint32_t* out_keys, uint32_t* out_cov, uint8_t* out_masks, int* count,
-                   int* scratch, cudaStream_t stream) {
-  const int blocks = (m + kThreads - 1) / kThreads;
-  count_heads_kernel<W><<<blocks, kThreads, 0, stream>>>(keys, m, scratch);
-  scan_counts_kernel<<<1, kScanThreads, 0, stream>>>(scratch, blocks, count);
-  reduce_runs_kernel<W><<<blocks, kThreads, 0, stream>>>(keys, cov, masks, m, scratch, out_keys,
-                                                          out_cov, out_masks);
+int launch_reduce(const uint32_t* ky, const uint32_t* cv, const uint8_t* mk, int m, int ntiles,
+                  uint32_t* oky, uint32_t* ocv, uint8_t* omk, int* cnt, unsigned* counters,
+                  unsigned long long* status, unsigned long long epoch, cudaStream_t st) {
+  const int smem = (int)(2 * sizeof(TileBuf<W>));
+  cudaError_t err = cudaFuncSetAttribute(segment_reduce_kernel<W>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, segment_reduce_kernel<W>,
+                                                        kReduceThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = max(1, min(ntiles, sms * per_sm));
+  segment_reduce_kernel<W><<<blocks, kReduceThreads, smem, st>>>(
+      ky, cv, mk, m, ntiles, oky, ocv, omk, cnt, counters, status, epoch);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -222,12 +588,20 @@ extern "C" int ctk_count_windows(const void* stream, long long nwords, const voi
   return (int)cudaGetLastError();
 }
 
-// keys: [m][w] sorted rows, cov: m, masks: m; out_*: room for m rows; count:
-// one int out (the unique rows); scratch: one int a block of 256 rows
+// keys: [m][w] sorted rows, cov: m, masks: m, each 16-byte aligned; out_*:
+// room for m rows; count: one int out (the unique rows); scratch: 16-byte
+// aligned, two uint32 counters (zero at rest) in its first 8 bytes, then from
+// byte 16 two status words (uint64) a tile for `tiles` tiles; epoch: 1 ..
+// 2^22 - 1, not used by an earlier launch on words still holding it.
 extern "C" int ctk_segment_reduce(const void* keys, const void* cov, const void* masks, int m,
                                   int w, void* out_keys, void* out_cov, void* out_masks,
-                                  void* count, void* scratch, cudaStream_t st) {
-  if (m <= 0 || w < 1 || w > 4) return (int)cudaErrorInvalidValue;
+                                  void* count, void* scratch, int tiles, unsigned epoch,
+                                  cudaStream_t st) {
+  const long long ntiles = ((long long)m + kTileRows - 1) / kTileRows;
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  if (m <= 0 || w < 1 || w > 4 || tiles < ntiles || epoch == 0u || epoch >= (1u << 22) ||
+      !aligned(scratch) || !aligned(keys) || !aligned(cov) || !aligned(masks))
+    return (int)cudaErrorInvalidValue;
   const uint32_t* ky = static_cast<const uint32_t*>(keys);
   const uint32_t* cv = static_cast<const uint32_t*>(cov);
   const uint8_t* mk = static_cast<const uint8_t*>(masks);
@@ -235,12 +609,13 @@ extern "C" int ctk_segment_reduce(const void* keys, const void* cov, const void*
   uint32_t* ocv = static_cast<uint32_t*>(out_cov);
   uint8_t* omk = static_cast<uint8_t*>(out_masks);
   int* cnt = static_cast<int*>(count);
-  int* sc = static_cast<int*>(scratch);
+  unsigned* counters = static_cast<unsigned*>(scratch);
+  unsigned long long* status = static_cast<unsigned long long*>(scratch) + 2;
+  const int nt = (int)ntiles;
   switch (w) {
-    case 1: launch_reduce<1>(ky, cv, mk, m, oky, ocv, omk, cnt, sc, st); break;
-    case 2: launch_reduce<2>(ky, cv, mk, m, oky, ocv, omk, cnt, sc, st); break;
-    case 3: launch_reduce<3>(ky, cv, mk, m, oky, ocv, omk, cnt, sc, st); break;
-    default: launch_reduce<4>(ky, cv, mk, m, oky, ocv, omk, cnt, sc, st); break;
+    case 1: return launch_reduce<1>(ky, cv, mk, m, nt, oky, ocv, omk, cnt, counters, status, epoch, st);
+    case 2: return launch_reduce<2>(ky, cv, mk, m, nt, oky, ocv, omk, cnt, counters, status, epoch, st);
+    case 3: return launch_reduce<3>(ky, cv, mk, m, nt, oky, ocv, omk, cnt, counters, status, epoch, st);
+    default: return launch_reduce<4>(ky, cv, mk, m, nt, oky, ocv, omk, cnt, counters, status, epoch, st);
   }
-  return (int)cudaGetLastError();
 }

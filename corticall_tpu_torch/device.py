@@ -9,7 +9,8 @@ falls back silently.
 `DeviceGraph`: counterpart of corticall_tpu/device.py::DeviceGraph (:21-88),
 a graph's records as tensors on a device (k-mer words and coverages as uint32
 bit patterns in int32 tensors, edge bytes as uint8) plus the open-addressing
-slot table of ops/hashtable.py for `find_records`, and the walk tables of
+slot table of ops/hashtable.py and its interleaved probe table for
+`find_records` (built once, beside the slots), and the walk tables of
 ops/cuckoo.py, built once a colour set.  `warmup_async` (a TPU compiler
 warm-up) is not ported.  The ops modules import `resolve` from here, so
 DeviceGraph imports them inside its methods.
@@ -46,6 +47,7 @@ class DeviceGraph:
     edges: torch.Tensor      # uint8 [N, C]
     slots: torch.Tensor      # int32 [M] hash slots -> record index
     max_probe: int
+    probe: torch.Tensor      # int32 [M, E] the slots' probe table (hashtable.probe_table)
     sample_names: tuple = ()
     _walk_tables: dict = field(default_factory=dict, repr=False, compare=False)
 
@@ -71,17 +73,17 @@ class DeviceGraph:
         from .ops import kmer as tk
         device = resolve(device)
         table = ht.build(kmers)
-        return cls(kmer_size, coverages.shape[1], tk.words_tensor(kmers, device),
-                   tk.words_tensor(coverages, device),
+        keys = tk.words_tensor(kmers, device)
+        slots = torch.from_numpy(table.slots).to(device)
+        return cls(kmer_size, coverages.shape[1], keys, tk.words_tensor(coverages, device),
                    torch.from_numpy(np.ascontiguousarray(edges, dtype=np.uint8)).to(device),
-                   torch.from_numpy(table.slots).to(device), table.max_probe,
-                   tuple(sample_names))
+                   slots, table.max_probe, ht.probe_table(slots, keys), tuple(sample_names))
 
     def find_records(self, canon_queries: torch.Tensor) -> torch.Tensor:
         """int32 [B, W] canonical k-mers -> int32 [B] record indices (-1
-        miss), through `ctk_ht_lookup` on the card."""
+        miss), through `ctk_ht_lookup` over the probe table on the card."""
         from .ops import hashtable as ht
-        return ht.lookup(self.slots, self.kmers, canon_queries, self.max_probe)
+        return ht.lookup(self.slots, self.kmers, canon_queries, self.max_probe, self.probe)
 
     def combined_edges(self, colors) -> torch.Tensor:
         """OR of the colours' edge bytes -> uint8 [N] (union-over-colours

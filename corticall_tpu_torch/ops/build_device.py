@@ -18,7 +18,10 @@ On the device:
   the order of the host's `words_to_bytes_be` keys);
 - `segment_reduce`: each run of equal keys becomes one row, coverage summed
   as uint32 (wrapping, as XLA's segment_sum does) and masks ORed
-  (`ctk_segment_reduce` on the card, `reduce_plain` on the CPU);
+  (`ctk_segment_reduce` on the card: one pass over tiles of 2,048 rows with
+  decoupled look-back, its scratch kept on the card between launches,
+  `reduce_scratch`; `reduce_plain` on the CPU; `reduce_tiles_plain` is the
+  kernel's tile decomposition and look-back step for step);
 - chunks merge into an on-device accumulator by concatenate, sort, reduce.
 
 Only the final table crosses back to the host; it equals build.count_kmers
@@ -45,6 +48,12 @@ CHUNK_BASES = 1 << 25        # stream bases a chunk holds, separators included
 
 # kernel launches (plain integers; chip_smoke.py resets and reads them)
 LAUNCHES = {"count_windows": 0, "segment_reduce": 0}
+
+REDUCE_TILE_ROWS = 2048      # ctk_segment_reduce's rows a tile (csrc/count.cu kTileRows)
+EPOCH_LIMIT = 1 << 22        # its status words' epoch field holds 1 .. EPOCH_LIMIT - 1
+
+# per device: [int64 scratch, the last launch's epoch] (reduce_scratch)
+_REDUCE_SCRATCH: dict = {}
 
 
 def pack_stream(codes: np.ndarray) -> np.ndarray:
@@ -235,21 +244,123 @@ def segment_reduce(keys: torch.Tensor, cov: torch.Tensor, masks: torch.Tensor):
         return keys, cov, masks
     out = (torch.empty_like(keys), torch.empty_like(cov), torch.empty_like(masks))
     count = torch.empty(1, dtype=torch.int32, device=keys.device)
-    reduce_kernel(keys.contiguous(), cov.contiguous(), masks.contiguous(), *out, count)
+    reduce_kernel(*(aligned(x.contiguous()) for x in (keys, cov, masks)), *out, count)
     n = int(count.item())
     return tuple(x[:n] for x in out)
 
 
+def reduce_tiles_plain(keys: torch.Tensor, cov: torch.Tensor, masks: torch.Tensor,
+                       tile_rows: int = REDUCE_TILE_ROWS, order=None):
+    """ctk_segment_reduce's algorithm step for step on sorted rows, with
+    reduce_plain's results.  Each tile finds its heads (first rows of runs,
+    read against the row before the tile) and tails (last rows, against the
+    row after) and publishes its aggregate: its heads, and the (sum, OR) of
+    its trailing open run -- as A, or as P (an inclusive prefix) for tile
+    0's words and for the carry of a tile that holds a head.  Then the tiles,
+    in `order` (default: tile order), look back through A words to the
+    nearest P for the heads before them and the carry of the run they
+    continue, and publish P.  A tail's run value is its rows in the tile,
+    plus the carry when the run began in an earlier tile; a tile writes its
+    tails from row (heads before it) - (1 if it continues a run), in order
+    (asserted here)."""
+    m, w = keys.shape
+    if m == 0:
+        return keys, cov, masks
+    u, c, mk = tk.from_bits32(keys), tk.from_bits32(cov).tolist(), masks.tolist()
+    diff = (u[1:] != u[:-1]).any(dim=1).tolist()
+    head, tail = [True] + diff, diff + [True]
+    spans = [range(t, min(m, t + tile_rows)) for t in range(0, m, tile_rows)]
+
+    def run(lo: int, hi: int) -> tuple:
+        """The (sum, OR) of rows [lo, hi), the sum wrapping as uint32."""
+        o = 0
+        for x in mk[lo:hi]:
+            o |= x
+        return sum(c[lo:hi]) & tk.M32, o
+
+    heads_st, carry_st = [], []               # [flag, value] a tile
+    for t, rows in enumerate(spans):
+        hs = [r for r in rows if head[r]]
+        heads_st.append(["P" if t == 0 else "A", len(hs)])
+        carry_st.append(["P" if t == 0 or hs else "A", run(hs[-1] if hs else rows.start,
+                                                            rows.stop)])
+
+    def look_back(status, t, add):
+        acc, j = None, t - 1
+        while True:
+            acc = status[j][1] if acc is None else add(acc, status[j][1])
+            if status[j][0] == "P":
+                return acc
+            j -= 1
+
+    before, carry = [0] * len(spans), [(0, 0)] * len(spans)
+    for t in (range(len(spans)) if order is None else order):
+        if t == 0:
+            continue
+        before[t] = look_back(heads_st, t, lambda a, b: a + b)
+        carry[t] = look_back(carry_st, t, lambda a, b: ((a[0] + b[0]) & tk.M32, a[1] | b[1]))
+        heads_st[t] = ["P", before[t] + heads_st[t][1]]
+        if carry_st[t][0] == "A":
+            carry_st[t] = ["P", ((carry[t][0] + carry_st[t][1][0]) & tk.M32,
+                                 carry[t][1] | carry_st[t][1][1])]
+
+    rows_out, sums, ors = [], [], []
+    for t, rows in enumerate(spans):
+        # the tile's first output row: (heads before it) - (1 if it continues a run)
+        assert len(rows_out) == before[t] - (not head[rows.start])
+        s0, o0 = carry[t]                     # the run open at the tile's start
+        for r in rows:
+            if head[r]:
+                s0, o0 = 0, 0
+            s0, o0 = (s0 + c[r]) & tk.M32, o0 | mk[r]
+            if tail[r]:
+                rows_out.append(r)
+                sums.append(s0)
+                ors.append(o0)
+    assert len(rows_out) == heads_st[-1][1]
+    dev = keys.device
+    return (keys[torch.tensor(rows_out, dtype=torch.int64, device=dev)],
+            tk.to_bits32(torch.tensor(sums, dtype=torch.int64, device=dev)),
+            torch.tensor(ors, dtype=torch.uint8, device=dev))
+
+
+def reduce_scratch(device: torch.device, m: int):
+    """ctk_segment_reduce's scratch on `device`, kept between launches: two
+    uint32 counters (back at 0 after every launch) and two status words a
+    tile, grown (zeroed) to m rows' tiles; and the epoch of the next launch,
+    which makes words of earlier launches read as unwritten.  When the epochs
+    run out the statuses are zeroed and the count starts again.  Launches on
+    one device share it, so they must be ordered on one stream."""
+    tiles = -(-m // REDUCE_TILE_ROWS)
+    entry = _REDUCE_SCRATCH.get(device)
+    if entry is None or entry[0].numel() < 2 + 2 * tiles:
+        have = 0 if entry is None else (entry[0].numel() - 2) // 2
+        entry = [torch.zeros(2 + 2 * max(tiles, 2 * have), dtype=torch.int64, device=device), 0]
+        _REDUCE_SCRATCH[device] = entry
+    entry[1] += 1
+    if entry[1] == EPOCH_LIMIT:
+        entry[0].zero_()
+        entry[1] = 1
+    return entry[0], (entry[0].numel() - 2) // 2, entry[1]
+
+
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy of it that starts on a 16-byte boundary (ctk_segment_reduce
+    copies its inputs in 16-byte pieces)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def reduce_kernel(keys, cov, masks, out_keys, out_cov, out_masks, count) -> None:
-    """One `ctk_segment_reduce` launch (three kernels on the stream) on
-    checked, contiguous card tensors: the unique rows into the first `count`
-    rows of the outputs (room for m rows each)."""
+    """One `ctk_segment_reduce` launch on checked, contiguous card tensors
+    that start on 16-byte boundaries: the unique rows into the first `count`
+    rows of the outputs (room for m rows each), its scratch the device's
+    (`reduce_scratch`)."""
     m = keys.shape[0]
-    scratch = torch.empty(-(-m // 256), dtype=torch.int32, device=keys.device)
+    scratch, tiles, epoch = reduce_scratch(keys.device, m)
     err = _kernels.library().ctk_segment_reduce(
         keys.data_ptr(), cov.data_ptr(), masks.data_ptr(), m, keys.shape[1],
         out_keys.data_ptr(), out_cov.data_ptr(), out_masks.data_ptr(), count.data_ptr(),
-        scratch.data_ptr(), _kernels.stream(keys.device))
+        scratch.data_ptr(), tiles, epoch, _kernels.stream(keys.device))
     _kernels.check(err, "segment_reduce")
     LAUNCHES["segment_reduce"] += 1
 

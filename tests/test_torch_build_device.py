@@ -185,6 +185,83 @@ def test_reduce_twin_matches_jax_sort_reduce():
     np.testing.assert_array_equal(got[2].numpy(), (np.asarray(ui)[:nu] << 4) | np.asarray(uo)[:nu])
 
 
+def _run_rows(runs, w, rng, big_cov=False):
+    """Sorted rows made of runs of the given lengths (distinct keys in
+    increasing unsigned order, sign bits set in some words), coverage near
+    2^32 when `big_cov`, random masks."""
+    keys = np.sort(rng.choice(2 ** 32, size=(len(runs), w), replace=False).astype(np.uint32),
+                   axis=0)
+    keys[:, 0] = np.sort(rng.choice(2 ** 32, size=len(runs), replace=False)).astype(np.uint32)
+    rows = np.repeat(keys, runs, axis=0)
+    m = len(rows)
+    lo = 2 ** 32 - 2 ** 20 if big_cov else 0
+    hi = 2 ** 32 if big_cov else 50
+    cov = rng.integers(lo, hi, size=m, dtype=np.uint64).astype(np.uint32)
+    return rows, cov, rng.integers(0, 256, m).astype(np.uint8)
+
+
+TILE = 8
+REDUCE_CASES = {
+    "crosses-one-boundary": [3, 7, 2, 1, 5],          # the 7 spans rows 3-9 across row 8
+    "longer-than-tiles": [2, 41, 1, 30, 4],           # runs of 5 and 4 tiles
+    "one-key": [77],
+    "distinct": [1] * 37,
+    "one-row": [1],
+    "ragged": [1, 2, 3, 4, 5, 6, 7, 9, 10, 11, 1],    # 59 rows: not a multiple of 8
+    "wraps": [13, 1, 26, 2],                          # sums past 2^32
+}
+
+
+@pytest.mark.parametrize("case", sorted(REDUCE_CASES))
+def test_reduce_tiles_model_matches_twin_and_jax(case):
+    """ctk_segment_reduce's tile decomposition (reduce_tiles_plain at 8-row
+    tiles: heads and tails, aggregates, look-back in tile order, reversed
+    and shuffled) equals reduce_plain and the JAX package's _sort_reduce:
+    keys, uint32 coverage sums that wrap, ORed masks, the unique count."""
+    import jax.numpy as jnp
+    jbdv = _jax_bdv()
+    rng = np.random.default_rng(len(case))
+    w = 3
+    keys, cov, masks = _run_rows(REDUCE_CASES[case], w, rng, big_cov=case == "wraps")
+    if case == "wraps":
+        assert (cov.astype(np.uint64).sum() >> 32) > 0
+    kt, ct, mt = (torch.from_numpy(keys.view(np.int32)), torch.from_numpy(cov.view(np.int32)),
+                  torch.from_numpy(masks))
+    want = tbdv.reduce_plain(kt, ct, mt)
+    uk, uc, ui, uo, nu = jbdv._sort_reduce(jnp.asarray(keys), jnp.asarray(cov),
+                                           jnp.asarray(masks >> 4, dtype=jnp.uint32),
+                                           jnp.asarray(masks & 15, dtype=jnp.uint32), w)
+    nu = int(nu)
+    assert nu == len(REDUCE_CASES[case]) == want[0].shape[0]
+    np.testing.assert_array_equal(want[0].numpy().view(np.uint32), np.asarray(uk)[:nu])
+    np.testing.assert_array_equal(want[1].numpy().view(np.uint32), np.asarray(uc)[:nu])
+    np.testing.assert_array_equal(want[2].numpy(), (np.asarray(ui)[:nu] << 4) | np.asarray(uo)[:nu])
+    tiles = -(-len(keys) // TILE)
+    for order in (None, list(reversed(range(tiles))), rng.permutation(tiles).tolist()):
+        got = tbdv.reduce_tiles_plain(kt, ct, mt, TILE, order)
+        for name, a, b in zip(("keys", "coverage", "masks"), got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (name, order)
+
+
+def test_reduce_scratch_grows_and_wraps_its_epochs(monkeypatch):
+    """The look-back scratch stays between launches: a new epoch each, a
+    zeroed, larger buffer when more tiles are needed, and the statuses
+    zeroed when the epochs run out."""
+    monkeypatch.setattr(tbdv, "_REDUCE_SCRATCH", {})
+    cpu = torch.device("cpu")
+    scratch, tiles, epoch = tbdv.reduce_scratch(cpu, 5000)
+    assert tiles == 3 and scratch.numel() == 8 and epoch == 1 and not scratch.any()
+    again, tiles, epoch = tbdv.reduce_scratch(cpu, 100)
+    assert again is scratch and tiles == 3 and epoch == 2
+    scratch.fill_(7)
+    grown, tiles, epoch = tbdv.reduce_scratch(cpu, 20000)
+    assert tiles == 10 and grown.numel() == 22 and epoch == 1 and not grown.any()
+    tbdv._REDUCE_SCRATCH[cpu][1] = tbdv.EPOCH_LIMIT - 1
+    grown.fill_(7)
+    same, _, epoch = tbdv.reduce_scratch(cpu, 100)
+    assert same is grown and epoch == 1 and not same.any()
+
+
 def test_build_graph_from_reads_device_matches_jax():
     reads = _short_reads(seed=23, n=8000, count=400, length=120)
     want = bd.build_graph_from_reads(reads, 31, "s", use_device=False)
@@ -316,31 +393,71 @@ def test_windows_kernel_matches_twin_on_card(cuda, k):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("k,rows", [(21, 1), (31, 257), (47, 30000), (63, 5000)])
-def test_reduce_kernel_matches_twin_on_card(cuda, k, rows):
-    """Runs of equal sorted rows, coverage sums that wrap, masks ORed; the
-    unique rows written in order into poison-filled buffers."""
-    rng = np.random.default_rng(rows)
+def _sorted_rows_for_card(rng, k, rows, shape):
+    """Rows for the reduce kernel (uint32 keys [m, W], coverage, masks):
+    "random" draws rows from rows // 5 keys; "one-run" puts a run of 100,000
+    rows of one key among 20,000 others; "merge" is a merge's input, every
+    key twice (an accumulator row and a chunk's) with coverage near 2^32 and
+    a few keys once; "big" draws 2^20 + 7 rows."""
     w = tk.words(k)
-    distinct = rng.integers(0, 2 ** 32, size=(max(rows // 5, 1), w), dtype=np.uint64)
-    keys = distinct[rng.integers(0, len(distinct), rows)].astype(np.uint32)
+    if shape == "one-run":
+        others = rng.integers(0, 2 ** 32, size=(20000, w), dtype=np.uint64)
+        keys = np.concatenate([others, np.repeat(others[:1] ^ np.uint64(0x55), 100000, axis=0)])
+    elif shape == "merge":
+        distinct = rng.integers(0, 2 ** 32, size=(rows, w), dtype=np.uint64)
+        keys = np.concatenate([distinct, distinct[: rows - rows // 10]])
+    else:
+        rows = (1 << 20) + 7 if shape == "big" else rows
+        distinct = rng.integers(0, 2 ** 32, size=(max(rows // 5, 1), w), dtype=np.uint64)
+        keys = distinct[rng.integers(0, len(distinct), rows)]
+    m = len(keys)
+    lo = 2 ** 31 if shape == "merge" else 0
+    cov = rng.integers(lo, 2 ** 32, m, dtype=np.uint64).astype(np.uint32)
+    return keys.astype(np.uint32), cov, rng.integers(0, 256, m).astype(np.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,rows,shape", [(21, 1, "random"), (31, 257, "random"),
+                                          (47, 30000, "random"), (63, 5000, "random"),
+                                          (47, 0, "one-run"), (31, 0, "one-run"),
+                                          (47, 400000, "merge"), (63, 100000, "merge"),
+                                          (47, 0, "big"), (21, 0, "big")])
+def test_reduce_kernel_matches_twin_on_card(cuda, k, rows, shape):
+    """Runs of equal sorted rows, coverage sums that wrap, masks ORed; the
+    unique rows written in order into poison-filled buffers, by two launches
+    back to back (the second reads the look-back words the first left)."""
+    rng = np.random.default_rng(rows + k)
+    keys, cov, masks = _sorted_rows_for_card(rng, k, rows, shape)
     kd = torch.from_numpy(keys.view(np.int32)).to(cuda)
-    cov = torch.from_numpy(rng.integers(0, 2 ** 32, rows, dtype=np.uint64).astype(np.uint32)
-                           .view(np.int32)).to(cuda)
-    masks = torch.from_numpy(rng.integers(0, 256, rows).astype(np.uint8)).to(cuda)
+    cov = torch.from_numpy(cov.view(np.int32)).to(cuda)
+    masks = torch.from_numpy(masks).to(cuda)
     order = tbdv.sort_order(kd)
     kd, cov, masks = kd[order], cov[order], masks[order]
-    out = (torch.full_like(kd, 0x5A5A5A5A), torch.full_like(cov, 0x5A5A5A5A),
-           torch.full_like(masks, 0x5A))
-    count = torch.full((1,), -7, dtype=torch.int32, device=cuda)
-    tbdv.reduce_kernel(kd, cov, masks, *out, count)
+    runs = []
+    for _ in range(2):
+        out = (torch.full_like(kd, 0x5A5A5A5A), torch.full_like(cov, 0x5A5A5A5A),
+               torch.full_like(masks, 0x5A))
+        count = torch.full((1,), -7, dtype=torch.int32, device=cuda)
+        before = tbdv.LAUNCHES["segment_reduce"]
+        tbdv.reduce_kernel(kd, cov, masks, *out, count)
+        assert tbdv.LAUNCHES["segment_reduce"] == before + 1
+        runs.append((out, count))
+    torch.cuda.synchronize()
     want = tbdv.reduce_plain(kd, cov, masks)
-    n = int(count.item())
-    assert n == want[0].shape[0]
-    for a, b in zip(out, want):
-        assert torch.equal(a[:n], b)
-    assert (out[0][n:] == 0x5A5A5A5A).all()
+    for out, count in runs:
+        n = int(count.item())
+        assert n == want[0].shape[0]
+        for a, b in zip(out, want):
+            assert torch.equal(a[:n], b)
+        assert (out[0][n:] == 0x5A5A5A5A).all() and (out[1][n:] == 0x5A5A5A5A).all()
+        assert (out[2][n:] == 0x5A).all()
+    got = tbdv.segment_reduce(kd, cov, masks)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if kd.shape[0] > 1:              # views one row in: copied to 16-byte boundaries
+        got = tbdv.segment_reduce(kd[1:], cov[1:], masks[1:])
+        for a, b in zip(got, tbdv.reduce_plain(kd[1:], cov[1:], masks[1:])):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -78,6 +78,8 @@ def scalar_reads(g, bench, seed_strs) -> dict:
 
 def rehearse() -> dict:
     """Phases 9 and 10 at a tiny size on the CPU; returns their fields."""
+    import time
+
     import numpy as np
     import torch
 
@@ -88,8 +90,8 @@ def rehearse() -> dict:
     from corticall_tpu_torch.ops import build_device as bdv, cuckoo as ck, hashtable as ht
     from corticall_tpu_torch.ops import jump as tj, kmer as tk
 
-    def lookup_kernel(slots, keys, queries, max_probe, out):
-        out.copy_(ht.lookup_plain(slots, keys, queries, max_probe))
+    def lookup_kernel(table, keys, queries, max_probe, out, group=ht.LOOKUP_GROUP):
+        out.copy_(ht.lookup_rounds_plain(table, keys, queries, max_probe, group))
         ht.LAUNCHES["ht_lookup"] += 1
 
     def spec_walk_kernel(buckets, seeds, k, num_steps, *out):
@@ -105,16 +107,17 @@ def rehearse() -> dict:
 
     def reduce_kernel(keys, cov, masks, *out_count):
         *out, count = out_count
-        want = bdv.reduce_plain(keys, cov, masks)
+        want = bdv.reduce_tiles_plain(keys, cov, masks)
         n = want[0].shape[0]
         for o, w in zip(out, want):
             o[:n] = w
         count.fill_(n)
         bdv.LAUNCHES["segment_reduce"] += 1
 
-    def lookup(slots, keys, queries, max_probe):
+    def lookup(slots, keys, queries, max_probe, table=None):
         out = torch.empty(queries.shape[0], dtype=torch.int32)
-        ht.lookup_kernel(slots, keys, queries, max_probe, out)
+        ht.lookup_kernel(ht.probe_table(slots, keys) if table is None else table, keys, queries,
+                         max_probe, out)
         return out
 
     def walk_forward_spec(buckets, seeds, k, num_steps):
@@ -136,7 +139,28 @@ def rehearse() -> dict:
         bdv.reduce_kernel(keys, cov, masks, *out, count)
         return tuple(x[:int(count)] for x in out)
 
+    def entry_timers(kernels=None, entries=None):
+        # the fakes launch nothing: each launch helper's call on the host clock
+        helpers = {"ht_lookup": (ht, "lookup_kernel"), "segment_reduce": (bdv, "reduce_kernel")}
+        timers = {name: [] for name in entries}
+        saved = {name: getattr(*helpers[name]) for name in entries}
+
+        def timed(name, fn):
+            def run(*args, **kw):
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                dt = (time.perf_counter() - t0) * 1e3
+                timers[name].append(lambda: dt)
+                return out
+            return run
+
+        for name, fn in saved.items():
+            setattr(*helpers[name], timed(name, fn))
+        return (timers, dict.fromkeys(entries, 0),
+                lambda: [setattr(*helpers[name], fn) for name, fn in saved.items()])
+
     fake_timers(cs, torch)
+    cs.entry_timers = entry_timers
     cs.SPEC_STEPS = 64
     ht.lookup_kernel, ht.lookup = lookup_kernel, lookup
     ck.spec_walk_kernel, ck.walk_forward_spec = spec_walk_kernel, walk_forward_spec
@@ -340,7 +364,16 @@ def test_walk_table_and_build_phases_rehearse_on_cpu(tmp_path):
         "slots": walk["lookup_slots_read"], "key_rows": walk["lookup_key_rows_read"],
         "bucket_rows": walk["bucket_rows_read"], "iterations": walk["active_iterations"]}
     assert walk["lookup_err"] == walk["spec_err"] == 0.0
+    assert [(a["form"], a["group"], a["err"]) for a in walk["lookup_ablation"]] == [
+        (form, group, 0.0) for form in ("key", "tag") for group in (1, 2, 4, 8)]
+    from corticall_tpu_torch.ops.hashtable import entry_words
+    assert walk["probe_table_bytes"] == 4 * entry_words(3, walk["probe_form"]) * walk["slots"]
+    assert walk["lookup_path"]["path_ms"] > 0
     assert build["chunk"]["windows_err"] == build["chunk"]["reduce_err"] == 0.0
+    assert build["merge"]["err"] == 0.0 and build["merge"]["unique"] <= build["merge"]["rows"]
+    path = build["reduce_path"]
+    assert path["launches"] == build["launches"]["segment_reduce"] == len(path["launch_ms"])
+    assert path["path_ms"] > 0
     for key in ("lookup_bound", "spec_bound"):
         assert walk[key]["bound_by"] == "bytes" and walk[key]["bound_ms"] > 0
     assert build["identical"] and set(build["samples"]) == {"kid", "mom", "dad"}

@@ -298,7 +298,7 @@ def test_walk_spec_wrapper_validates():
 def test_device_graph_matches_jax():
     """find_records (hits, misses), combined_edges, combined_coverage (uint32
     sums that wrap) and walk_buckets of each colour set."""
-    jnp, jdev, _, _ = _jax()
+    jnp, jdev, _, jht = _jax()
     g = fixtures.build_graph({
         "mom": ["AGTTCTGATCTGGGCTATATGCTAGGCTTAACG" * 3],
         "dad": ["AGTTCGAATCTGGGCTATATGCTTTGACCAGTA" * 3],
@@ -310,6 +310,11 @@ def test_device_graph_matches_jax():
     assert (got.num_records, got.num_colors, got.max_probe, got.sample_names) == \
         (want.num_records, want.num_colors, want.max_probe, want.sample_names)
     np.testing.assert_array_equal(got.slots.numpy(), np.asarray(want.slots))
+    w = g.kmers.shape[1]
+    assert torch.equal(got.probe, tht.probe_table(got.slots, got.kmers))
+    np.testing.assert_array_equal(
+        tht.probe_table(got.slots, got.kmers, "key").numpy().view(np.uint32)[:, :w + 1],
+        jht.build(g.kmers).build_entries(g.kmers))
     miss = g.kmers.copy()
     miss[:, -1] ^= np.uint32(1)
     q = np.concatenate([g.kmers, miss])
@@ -378,22 +383,36 @@ def test_device_graph_needs_a_device_unless_asked_for_the_cpu(monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [5, 31, 47, 63])
 def test_lookup_kernel_matches_twin_on_card(cuda, k):
-    """Hits and misses (and a probe budget that runs out) launched into a
-    poison-filled buffer."""
+    """Hits and misses on a load-0.9 table (and a probe budget that runs
+    out) over the key and tag probe tables at 1, 2, 4 and 8 lanes a query,
+    each launched twice back to back into poison-filled buffers; the table
+    built on the card equals the host's."""
     kmers = _unique_kmers(k, 20000, k)
     table = tht.build(kmers, load_factor=0.9)
+    assert table.max_probe > 32 or k == 5          # k = 5: 512 k-mers, a 1,024-slot table
     missing = kmers.copy()
     missing[:, -1] ^= np.uint32(2)
     q = tj.words_tensor(np.concatenate([kmers, missing]), cuda)
     slots, kd = torch.from_numpy(table.slots).to(cuda), tj.words_tensor(kmers, cuda)
-    for probes in (table.max_probe, 2):
-        out = torch.full((q.shape[0] + 40,), 0x5A5A5A5A, dtype=torch.int32, device=cuda)
-        before = tht.LAUNCHES["ht_lookup"]
-        tht.lookup_kernel(slots, kd, q, probes, out[:q.shape[0]])
-        torch.cuda.synchronize()
-        assert tht.LAUNCHES["ht_lookup"] == before + 1
-        assert torch.equal(out[:q.shape[0]], tht.lookup_plain(slots, kd, q, probes))
-        assert (out[q.shape[0]:] == 0x5A5A5A5A).all()
+    b = q.shape[0]
+    for form in ("key", "tag"):
+        probe = tht.probe_table(slots, kd, form)
+        assert torch.equal(probe.cpu(), tht.probe_table(slots.cpu(), kd.cpu(), form))
+        for probes in (table.max_probe, 2, 13):
+            want = tht.lookup_plain(slots, kd, q, probes)
+            for group in tht.GROUPS:
+                outs = [torch.full((b + 40,), 0x5A5A5A5A, dtype=torch.int32, device=cuda)
+                        for _ in range(2)]
+                before = tht.LAUNCHES["ht_lookup"]
+                for out in outs:
+                    tht.lookup_kernel(probe, kd, q, probes, out[:b], group)
+                torch.cuda.synchronize()
+                assert tht.LAUNCHES["ht_lookup"] == before + 2
+                for out in outs:
+                    assert torch.equal(out[:b], want), (form, probes, group)
+                    assert (out[b:] == 0x5A5A5A5A).all()
+    assert torch.equal(tht.lookup(slots, kd, q, table.max_probe),
+                       tht.lookup_plain(slots, kd, q, table.max_probe))
 
 
 @pytest.mark.cuda

@@ -56,9 +56,14 @@ Phases, one JSON line each (progress goes to stderr):
    events) and 262,144 walks of at most 256 steps (bench.py's BENCH_WALKS,
    BENCH_STEPS) through walk_forward_spec (ctk_spec_walk), launches
    counted; both kernels against their twins bit for bit, timed beside
-   their bounds, with the walk's steps/s; the probe table's build (ms,
-   bytes, against the host's build) and ctk_ht_lookup at 1, 2, 4 and 8
-   lanes a query over key and tag entries, each against the twin;
+   their bounds, with the walk's steps/s and bucket rows/s beside the
+   lookup's random sectors/s, the rows its second probes read, and the walk
+   kernel's registers, spills, resident lanes and waves; the probe table's
+   build (ms, bytes, against the host's build), ctk_ht_lookup at 1, 2, 4
+   and 8 lanes a query over key and tag entries, and ctk_spec_walk on each
+   of its two paths (the table's rows as vectors, and a copy of the table
+   off their alignment, read a word at a time), each launch into buffers
+   filled with poison and held against the twin;
 10. build_device: build_graph_from_reads with use_device=True on each trio
    sample of phase 4 and count_kmers_device on phase 6's 21 Mbp genome,
    each against the native route (identical graphs and counts), launches
@@ -943,31 +948,67 @@ REDUCE_ENTRY = {"segment_reduce": "ctk_segment_reduce"}
 LOOKUP_ABLATION = (1, 2, 4, 8)               # lanes a query in phase 9's ablation
 
 
-def probed_slots(slots, queries, found, max_probe: int) -> torch.Tensor:
-    """bool [M]: the slots that linear-probe lookups of `queries` (int32
-    [B, W]) read, given their answers `found` (record index or -1): a
-    query probes from its hash to the slot holding its record or the first
-    empty slot, at most max_probe slots."""
+def probed_slots(slots, queries, found, max_probe: int):
+    """(bool [M]: the slots that linear-probe lookups of `queries` (int32
+    [B, W]) read, int64 [B]: the slots each query probes), given their
+    answers `found` (record index or -1): a query probes from its hash to
+    the slot holding its record or the first empty slot, at most max_probe
+    slots."""
     m = slots.shape[0]
     h = tk.hash_words(tk.from_bits32(queries)) & (m - 1)
     read = torch.zeros(m, dtype=torch.bool, device=slots.device)
+    probes = torch.zeros(h.shape[0], dtype=torch.int64, device=slots.device)
     live = torch.arange(h.shape[0], device=slots.device)
     for p in range(max_probe):
         if not live.numel():
             break
         slot = (h[live] + p) & (m - 1)
         read[slot] = True
+        probes[live] += 1
         held = slots[slot]
         live = live[(held >= 0) & (held != found[live])]
-    return read
+    return read, probes
 
 
-def spec_reads(buckets, seeds, k: int, bases) -> tuple[torch.Tensor, int]:
+def lookup_sectors(queries, probes, m: int, group: int, entry_bytes: int) -> int:
+    """The 32-byte sectors ctk_ht_lookup's key entries cost the queries at
+    `group` lanes a query: a query's rounds are its probes, from its home
+    slot's offset within an aligned round of `group` entries, in rounds of
+    `group`; a round reads group * entry_bytes aligned bytes (a sector at
+    least).  A model of the kernel's reads replayed on the host, not a
+    count from the card's memory counters."""
+    skip = (tk.hash_words(tk.from_bits32(queries)) & (m - 1)) % group
+    rounds = torch.div(skip + probes + group - 1, group, rounding_mode="floor")
+    return int(rounds.sum()) * max(1, group * entry_bytes // 32)
+
+
+def word_path_table(buckets: torch.Tensor) -> torch.Tensor:
+    """A copy of a walk table 4 bytes off its rows' vector alignment, which
+    ctk_spec_walk reads a word at a time (the path of every table whose
+    rows are not 2-entry vectors)."""
+    flat = torch.empty(buckets.numel() + 1, dtype=buckets.dtype, device=buckets.device)
+    table = flat[1:].view(buckets.shape)
+    table.copy_(buckets)
+    return table
+
+
+def poison(bufs):
+    """ctk_spec_walk's output buffers (bases, cycled, steps) filled with
+    values no launch writes (0x5A, 7, -9), so that a byte it leaves
+    unwritten shows; returns them."""
+    bases, cycled, steps = bufs
+    bases.fill_(0x5A)
+    cycled.view(torch.uint8).fill_(7)
+    steps.fill_(-9)
+    return bufs
+
+
+def spec_reads(buckets, seeds, k: int, bases) -> tuple[torch.Tensor, int, int]:
     """(bool [NB]: the bucket rows walk_forward_spec's active lanes read,
-    and the count of active lane iterations), replayed from the bases the
-    walk emitted: a lane reads its k-mer's h1 bucket, or h2 on the
-    iteration after a miss there; each emitted base moves it on, and a -1
-    that is not such a miss ends it."""
+    the count of active lane iterations, and of those that read a second
+    bucket), replayed from the bases the walk emitted: a lane reads its
+    k-mer's h1 bucket, or h2 on the iteration after a miss there; each
+    emitted base moves it on, and a -1 that is not such a miss ends it."""
     nb, _, e = buckets.shape
     w = e - 1
     table = tk.from_bits32(buckets)
@@ -975,7 +1016,7 @@ def spec_reads(buckets, seeds, k: int, bases) -> tuple[torch.Tensor, int]:
     probe = torch.zeros(cur.shape[0], dtype=torch.bool, device=cur.device)
     active = torch.ones_like(probe)
     read = torch.zeros(nb, dtype=torch.bool, device=cur.device)
-    iterations = 0
+    iterations = second = 0
     for row in bases:
         lanes = active.nonzero().squeeze(1)
         if not lanes.numel():
@@ -986,6 +1027,7 @@ def spec_reads(buckets, seeds, k: int, bases) -> tuple[torch.Tensor, int]:
         idx = torch.where(lane_probe, tk.mix32(h ^ tj.GOLDEN), h) & (nb - 1)
         read[idx] = True
         iterations += lanes.numel()
+        second += int(lane_probe.sum())
         ent = table[idx]
         held = ((ent[..., w] >= 1 << 31) & (ent[..., :w] == canon[:, None, :]).all(-1)).any(-1)
         base = row[lanes].to(torch.int64)
@@ -994,7 +1036,7 @@ def spec_reads(buckets, seeds, k: int, bases) -> tuple[torch.Tensor, int]:
         stall = ~held & ~lane_probe
         probe[lanes] = stall
         active[lanes] = moved | stall
-    return read, iterations
+    return read, iterations, second
 
 
 def walk_table_phase(dev, ctx) -> dict:
@@ -1073,14 +1115,18 @@ def walk_table_phase(dev, ctx) -> dict:
                              "table_bytes": nbytes(table),
                              "err": same(out, want, f"ht_lookup, {form} entries, {group} lanes")})
     del want, tables
-    slots_read = probed_slots(dg.slots, queries, rec, dg.max_probe)
+    slots_read, probes = probed_slots(dg.slots, queries, rec, dg.max_probe)
+    sectors = lookup_sectors(queries, probes, dg.slots.shape[0], ht.LOOKUP_GROUP,
+                             4 * ht.entry_words(queries.shape[1], ht.PROBE_FORM))
+    del probes
     rows_read = int((slots_read & (dg.slots >= 0)).sum())
     slots_read = int(slots_read.sum())
     lookup_bound = bound_ms(nbytes(queries, rec) + slots_read * 4
                             + rows_read * dg.kmers.shape[1] * 4)
 
     # ctk_spec_walk against its twin; its bound: seeds and outputs and the
-    # distinct bucket rows the active lanes read
+    # distinct bucket rows the active lanes read; then each of its paths,
+    # into poisoned buffers, with what each launch keeps resident
     bufs = tuple(torch.empty_like(x) for x in walked)
     spec_ms = event_ms(lambda: ck.spec_walk_kernel(buckets, seeds, k, SPEC_STEPS, *bufs), 3)
     spec_plain_ms, want = host_ms(lambda: ck.spec_walk_plain(buckets, seeds, k, SPEC_STEPS))
@@ -1088,8 +1134,16 @@ def walk_table_phase(dev, ctx) -> dict:
     for name, a, b, c in zip(("bases", "cycled", "steps"), walked, bufs, want):
         spec_err = max(spec_err, same(a, c, f"spec_walk {name}"),
                        same(b, c, f"spec_walk {name}, launched again"))
+    spec_paths = []
+    for table in (buckets, word_path_table(buckets)):
+        info = ck.kernel_info(table, seeds.shape[0])
+        poison(bufs)
+        ms = event_ms(lambda: ck.spec_walk_kernel(table, seeds, k, SPEC_STEPS, *bufs), 3)
+        err = max(same(b, c, f"spec_walk {name}, {info['path']} path")
+                  for name, b, c in zip(("bases", "cycled", "steps"), bufs, want))
+        spec_paths.append({"ms": round(ms, 4), "err": err, **info})
     del want
-    rows_visited, active_iterations = spec_reads(buckets, seeds, k, walked[0])
+    rows_visited, active_iterations, second_probes = spec_reads(buckets, seeds, k, walked[0])
     rows_visited = int(rows_visited.sum())
     row_bytes = buckets.shape[1] * buckets.shape[2] * 4
     spec_bound = bound_ms(nbytes(seeds, *walked) + rows_visited * row_bytes)
@@ -1107,12 +1161,16 @@ def walk_table_phase(dev, ctx) -> dict:
         "lookup_bound": bound_fields(lookup_bound), "lookup_slots_read": slots_read,
         "lookup_key_rows_read": rows_read, "lookup_err": lookup_err,
         "lookups_per_s": round(queries.shape[0] / lookup_ms * 1e3),
+        "lookup_sectors": sectors, "lookup_sectors_per_s": round(sectors / lookup_ms * 1e3),
         "seeds": seeds.shape[0], "max_steps": SPEC_STEPS, "iterations": ck.spec_iters(SPEC_STEPS),
         "steps": steps_total, "active_iterations": active_iterations,
         "cycled": int(walked[1].sum()), "bucket_rows_read": rows_visited,
         "spec_ms": round(spec_ms, 4), "spec_plain_ms": round(spec_plain_ms, 2),
         "spec_bound": bound_fields(spec_bound), "spec_err": spec_err,
-        "spec_steps_per_s": round(steps_total / spec_ms * 1e3)}
+        "spec_steps_per_s": round(steps_total / spec_ms * 1e3),
+        "spec_rows_per_s": round(active_iterations / spec_ms * 1e3),
+        "second_probe_rows": second_probes, "spec_kernel": spec_paths[0],
+        "spec_paths": spec_paths}
     del dg, buckets, queries, seeds, rec, walked, bufs, out
     torch.cuda.empty_cache()
     return result
@@ -2504,7 +2562,8 @@ def main() -> int:
          "replaces": "corticall_tpu/ops/cuckoo.py:306",
          "launches": wp["launches"]["spec_walk"], "max_abs_err": wp["spec_err"],
          "ms": wp["spec_ms"], "plain_ms": wp["spec_plain_ms"], **wp["spec_bound"],
-         "library_ms": None},
+         "library_ms": None, "path": wp["spec_kernel"]["path"],
+         "rows_per_s": wp["spec_rows_per_s"]},
         {"name": "count_windows", "route": "cuda",
          "source": "corticall_tpu_torch/csrc/count.cu",
          "replaces": "corticall_tpu/ops/build_device.py:73",

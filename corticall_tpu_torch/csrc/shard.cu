@@ -57,6 +57,20 @@
 // blocks spread a linked step's few thousand queries over as many SMs.
 //
 // ctk_shard_walk_step is a thread a walk, its answer row read by its slot.
+// A step moves a few words a walk (~18.6 MB at 262,144 walks), so what
+// bounds it is the chain of round trips to memory before a thread can write:
+// the first form read a walk's slot only after its active flag, its answer
+// only after the slot, and its anchor, power and lam only after the answer.
+// Here a thread reads its active flag and slot at entry, then for a live walk
+// the answer row by the slot together with the walk's route flag, words,
+// anchor, power, lam and steps: two round trips, and an ended walk costs its
+// flag and slot.  (The answer read as one 8-byte vector bought nothing at
+// k = 47: tools/link_probe.py --ablate.  Reading the state at entry for
+// every walk, live or not, was no faster at 262,144 live walks and slower on
+// walks that end early: PERF.md, Findings.)  Only what the step changes is
+// written: the words, steps and lam of a walk that advances, the anchor and
+// power where it teleports, the cycle flag where it finds one, the active
+// flag where the walk stops.
 
 #include <algorithm>
 
@@ -422,42 +436,53 @@ shard_walk_step_kernel(uint32_t* __restrict__ cur, int batch, int k, uint8_t* __
                        int8_t* __restrict__ row) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= batch) return;
+  // the flag and the slot at once; then, for a live walk, the answer row by
+  // the slot (the one read that waits) together with the walk's own state
+  const bool live = active[i] != 0;
+  const int s = __ldg(slot + i);
   int8_t e = -1;
-  if (active[i]) {  // an active walk is always routed
-    const int* a = back + (size_t)slot[i] * a_cols;
+  if (live) {  // an active walk is always routed
+    const int* a = back + (size_t)s * a_cols;
     const int rec = __ldg(a + kAnsRec);
     const uint32_t edge = (uint32_t)__ldg(a + kAnsEdge);
-    const uint32_t next_mask = (flipped[i] ? edge >> 4 : edge) & 0xFu;
-    const uint32_t base = lowest_set_base(next_mask);
-    uint32_t c[W], nxt[W];
+    const bool flip = __ldg(flipped + i) != 0;
+    uint32_t c[W], anchor[W] = {};
 #pragma unroll
     for (int j = 0; j < W; ++j) c[j] = cur[(size_t)i * W + j];
+    int pw = 0, lm = 0;
+    if (cycle_check) {
+#pragma unroll
+      for (int j = 0; j < W; ++j) anchor[j] = saved[(size_t)i * W + j];
+      pw = power[i];
+      lm = lam[i];
+    }
+    const int st = steps[i];
+    const uint32_t next_mask = (flip ? edge >> 4 : edge) & 0xFu;
+    const uint32_t base = lowest_set_base(next_mask);
+    uint32_t nxt[W];
     shift_append<W>(c, base, k, nxt);
     const bool single = __popc(next_mask) == 1 && rec >= 0;
-    bool is_cycle = false;
-    if (cycle_check && single) {
-      is_cycle = true;
+    bool is_cycle = cycle_check && single;
 #pragma unroll
-      for (int j = 0; j < W; ++j) is_cycle = is_cycle && saved[(size_t)i * W + j] == nxt[j];
-    }
+    for (int j = 0; j < W; ++j) is_cycle = is_cycle && anchor[j] == nxt[j];
     const bool advance = single && !is_cycle;
     if (advance) {
 #pragma unroll
       for (int j = 0; j < W; ++j) cur[(size_t)i * W + j] = nxt[j];
-      steps[i] += 1;
+      steps[i] = st + 1;
       e = (int8_t)base;
     }
     if (cycle_check) {
-      const bool teleport = advance && power[i] == lam[i];
+      const bool teleport = advance && pw == lm;
       if (teleport) {
 #pragma unroll
         for (int j = 0; j < W; ++j) saved[(size_t)i * W + j] = nxt[j];
-        power[i] *= 2;
+        power[i] = pw * 2;
       }
-      if (advance) lam[i] = teleport ? 1 : lam[i] + 1;
+      if (advance) lam[i] = teleport ? 1 : lm + 1;
       if (is_cycle) cycled[i] = 1;
     }
-    active[i] = advance;
+    if (!advance) active[i] = 0;
   }
   row[i] = e;
 }

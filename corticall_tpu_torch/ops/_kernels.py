@@ -47,6 +47,7 @@ _SIGNATURES = {
     "ctk_segment_reduce": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _U, _P),
     "ctk_ht_lookup": (_P, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P),
     "ctk_spec_walk": (_P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P),
+    "ctk_spec_walk_info": (_P, _I, _I, _P),
     "ctk_link_walk": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P,
                       _P, _P),
     "ctk_link_step": (_P, _I, _I, _I, _I, _P),

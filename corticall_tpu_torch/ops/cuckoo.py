@@ -184,7 +184,9 @@ def walk_forward_spec(buckets: torch.Tensor, seeds: torch.Tensor, k: int, num_st
 
 def spec_walk_kernel(buckets, seeds, k: int, num_steps: int, bases, cycled, steps) -> None:
     """One `ctk_spec_walk` launch on checked, contiguous card tensors:
-    bases int8 [T, B] (every byte written), cycled bool [B], steps int32 [B]."""
+    bases int8 [T, B] (every byte written), cycled bool [B], steps int32 [B].
+    A table of 2-entry rows aligned for their vectors is read a row as
+    vectors, any other a word at a time."""
     nb, bs, _ = buckets.shape
     err = _kernels.library().ctk_spec_walk(
         buckets.data_ptr(), nb, bs, seeds.shape[1], k, seeds.data_ptr(), seeds.shape[0],
@@ -192,3 +194,23 @@ def spec_walk_kernel(buckets, seeds, k: int, num_steps: int, bases, cycled, step
         _kernels.stream(seeds.device))
     _kernels.check(err, "spec_walk")
     LAUNCHES["spec_walk"] += 1
+
+
+def kernel_info(buckets, batch: int) -> dict:
+    """How a `ctk_spec_walk` launch of `batch` walks over the card table
+    `buckets` runs on its card: the path its rows take ("vector" or
+    "words"), threads a block, registers and local (spilled) bytes a thread,
+    blocks resident an SM, walks a thread, the lanes the card holds at once
+    and the waves the batch takes."""
+    import ctypes
+
+    out = (ctypes.c_int * 7)()
+    _, bs, e = buckets.shape
+    with torch.cuda.device(buckets.device):
+        err = _kernels.library().ctk_spec_walk_info(buckets.data_ptr(), bs, e - 1, out)
+    _kernels.check(err, "spec_walk_info")
+    threads, regs, blocks, local, walks, sms, vec = out
+    resident = threads * blocks * sms * walks
+    return {"path": "vector" if vec else "words", "threads": threads, "registers": regs,
+            "local_bytes": local, "blocks_per_sm": blocks, "walks_per_thread": walks,
+            "resident_lanes": resident, "waves": -(-batch // resident) if resident else None}

@@ -22,7 +22,12 @@ the same card and inputs (CUDA events, the mean of REPS launches):
 - the single-successor walk of the bulk seeds over the same shards,
   WALK_STEPS steps (make_sharded_walk_run, phase 12's shape on this
   graph), on the host clock: a first run (`walk_first_ms`) and a second
-  (`walk_ms`);
+  (`walk_ms`); then again with each launch of its kernels timed on its own
+  (`walk_path`: each kernel's launches and path_ms), and ctk_shard_walk_step
+  alone at the run's first step, every walk live, queued behind a spin
+  (`walk_step_ms`), its state against the twin's, and the same launch over
+  its first FLOOR_WALKS walks only (`walk_step_floor_ms`: what a launch
+  costs with almost no work, the floor of this way of timing);
 - ctk_link_step over the four shards' walks at that run's step with the
   most needy walks (chip_smoke.needy_walks), each run queued behind a spin
   (chip_smoke.queued_ms): this checkout's one launch over the card's
@@ -35,7 +40,10 @@ parent commit unpacked with `git archive`), loaded beside this one under
 another name, on the same inputs: the two in turns, other, this, this,
 other.  --ablate also times this checkout's csrc/walk_links.cu with the walk
 kernel capped at 12 blocks an SM (40 registers a thread, 48 warps an SM,
-spilling), rebuilt into the git-ignored build/probe/.  --inputs-only builds the inputs (on
+spilling), and ctk_shard_walk_step of its csrc/shard.cu with a walk's
+answer read as one 8-byte vector (ANSWER_VECTOR; the sharded walk's answer
+rows are 2 aligned words), in turns with this one at the walk's first
+step; each rebuilt into the git-ignored build/probe/.  --inputs-only builds the inputs (on
 --device, the card by default), prints their sizes as one JSON line and
 stops.
 
@@ -63,9 +71,17 @@ STEPS = 2000                                  # Partition's max_walk, chip_smoke
 WALK_STEPS = 256                              # the sharded walk's steps (chip_smoke's SPEC_STEPS)
 SHARDS = 4
 REPS = 5
+FLOOR_WALKS = 256                             # one block of ctk_shard_walk_step
 # the walk kernel's register cap, taken from 8 blocks an SM (64 registers) to 12 (40)
 REGISTER_CAP = ("__launch_bounds__(128, 8)\nlink_walk_kernel",
                 "__launch_bounds__(128, 12)\nlink_walk_kernel")
+# the walk step's answer read as one 8-byte vector, not two words
+ANSWER_VECTOR = ("    const int* a = back + (size_t)s * a_cols;\n"
+                 "    const int rec = __ldg(a + kAnsRec);\n"
+                 "    const uint32_t edge = (uint32_t)__ldg(a + kAnsEdge);\n",
+                 "    const int2 a = __ldg(reinterpret_cast<const int2*>(back) + s);\n"
+                 "    const int rec = a.x;\n"
+                 "    const uint32_t edge = (uint32_t)a.y;\n")
 
 
 def load_package(repo: str):
@@ -137,34 +153,35 @@ class Version:
             self.call(self.sh.link_step, states, routes, backs, k, step)
 
 
-def ablated_version(this: Version) -> Version:
-    """This checkout's walk_links.cu with the walk kernel capped at 12
-    blocks an SM (REGISTER_CAP), built with its own nvcc into build/probe/
-    and loaded with this checkout's argtypes."""
+def ablated_version(this: Version, source: str, edit, entries, name: str) -> Version:
+    """This checkout's wrappers over csrc/`source` with one `edit` (its text,
+    the replacement), built with its own nvcc into build/probe/ and its
+    `entries` loaded with this checkout's argtypes."""
     kern = this.wl._kernels
     out_dir = os.path.join(HERE, "build", "probe")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(kern.CSRC_DIR, "walk_links.cu")) as f:
+    with open(os.path.join(kern.CSRC_DIR, source)) as f:
         src = f.read()
-    if REGISTER_CAP[0] not in src:
-        raise RuntimeError(f"walk_links.cu no longer has {REGISTER_CAP[0]!r}")
-    src_path = os.path.join(out_dir, "walk_links_cap.cu")
+    if src.count(edit[0]) != 1:
+        raise RuntimeError(f"{source} no longer has {edit[0]!r} once")
+    stem = os.path.splitext(source)[0] + "_ablate"
+    src_path = os.path.join(out_dir, stem + ".cu")
     with open(src_path, "w") as f:
-        f.write(src.replace(REGISTER_CAP[0], REGISTER_CAP[1]))
-    path = os.path.join(out_dir, "walk_links_cap.so")
+        f.write(src.replace(*edit))
+    path = os.path.join(out_dir, stem + ".so")
     cmd = [kern._nvcc(), *kern.NVCC_FLAGS, "-I", kern.CSRC_DIR, "-shared", "-o", path, src_path,
            os.path.join(kern.CSRC_DIR, "sw_banded.cu")]            # ctk_error_string
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(path)
-    for name in ("ctk_link_walk", "ctk_link_step", "ctk_link_kernel_info"):
-        fn = getattr(lib, name)
-        fn.argtypes = list(kern._SIGNATURES[name])
+    for entry in entries:
+        fn = getattr(lib, entry)
+        fn.argtypes = list(kern._SIGNATURES[entry])
         fn.restype = ctypes.c_int
     lib.ctk_error_string.argtypes = [ctypes.c_int]
     lib.ctk_error_string.restype = ctypes.c_char_p
-    return Version("register cap: 12 blocks an SM", (this.wl, this.sh, this.pm), lib)
+    return Version(name, (this.wl, this.sh, this.pm), lib)
 
 
 def make_inputs(cs, mbp: float, bulk: int, dev) -> dict:
@@ -229,6 +246,89 @@ def sharded_walk(v: Version, mesh_args, inputs):
         seeds, torch.ones(seeds.shape[0], dtype=torch.bool, device=seeds.device))
 
 
+def clone(x):
+    """A copy of a sharding wrapper's argument: tensors, walk states,
+    routes and lists of them."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: clone(getattr(x, f.name)) for f in dataclasses.fields(x)})
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(clone(t) for t in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(clone(t) for t in x)
+    return x
+
+
+def first_walk_step(v: Version, mesh_args, inputs):
+    """A copy of the inputs of the first shard_walk_step call of the bulk
+    seeds' sharded walk, by v's modules."""
+    real, kept = v.sh.shard_walk_step, []
+
+    def keep(*args):
+        if not kept:
+            kept.append(clone(args))
+        return real(*args)
+
+    v.sh.shard_walk_step = keep
+    try:
+        sharded_walk(v, mesh_args, inputs)
+    finally:
+        v.sh.shard_walk_step = real
+    return kept[0]
+
+
+def head_walks(args, n: int):
+    """A shard_walk_step call's arguments cut to its first n walks (views of
+    the state and route; the answers whole)."""
+    state, route, *rest = args
+    state = dataclasses.replace(state, **{
+        f.name: getattr(state, f.name)[:, :n] if f.name == "stream"
+        else getattr(state, f.name)[:n] for f in dataclasses.fields(state)})
+    return (state, route._replace(slot=route.slot[:n], owner=route.owner[:n],
+                                  flipped=route.flipped[:n]), *rest)
+
+
+def timed_path(cs, v: Version, fn) -> dict:
+    """fn() with each launch of the four sharding kernels of v's library
+    timed on its own (chip_smoke.entry_timers): each launched kernel's
+    launches, late launches and path_ms."""
+    import torch
+    timers, late, restore = cs.entry_timers(v.wl._kernels)
+    gc.disable()
+    try:
+        fn()
+    finally:
+        gc.enable()
+        restore()
+    torch.cuda.synchronize()
+    return {name: {"launches": len(ts), "late": late[name],
+                   "path_ms": round(sum(t() for t in ts), 4)}
+            for name, ts in timers.items() if ts}
+
+
+def time_walk_step(cs, v: Version, args) -> dict:
+    """ctk_shard_walk_step of v's library alone on a copy of a captured
+    call's `args`, queued behind a spin (`walk_step_ms`), and over its first
+    FLOOR_WALKS walks only (`walk_step_floor_ms`); its state held against
+    the twin's."""
+    def step(*a):
+        v.call(v.sh.shard_walk_step, *a)
+
+    copies = iter([clone(args) for _ in range(REPS + 2)])
+    row = {"walk_step_ms": round(cs.queued_ms(lambda: step(*next(copies)), REPS), 5)}
+    got, twin = next(copies), clone(args)
+    step(*got)
+    v.sh.shard_walk_step_plain(*twin)
+    row["walk_step_walks"] = int(got[0].cur.shape[0])
+    heads = iter([head_walks(clone(args), FLOOR_WALKS) for _ in range(REPS + 1)])
+    row["walk_step_floor_ms"] = round(cs.queued_ms(lambda: step(*next(heads)), REPS), 5)
+    for f in ("cur", "active", "saved", "power", "lam", "cycled", "steps", "stream"):
+        cs.same(getattr(got[0], f), getattr(twin[0], f), f"{v.name}: shard_walk_step {f}")
+    return row
+
+
 def time_version(cs, v: Version, inputs, want, captured, mesh_args, turn) -> dict:
     """One version's times, and the host seconds of its sharded linked
     walks (`links_s`); raises where its outputs differ from `want`."""
@@ -262,17 +362,9 @@ def time_version(cs, v: Version, inputs, want, captured, mesh_args, turn) -> dic
             cs.same(a, b, f"{v.name}: the sharded walk's {what}")
     if v.lib is None:
         # the same walks, each launch of the four sharding kernels timed on its own
-        timers, late, restore = cs.entry_timers(v.wl._kernels)
-        gc.disable()
-        try:
-            linked_walks(v, mesh_args, inputs)
-        finally:
-            gc.enable()
-            restore()
-        torch.cuda.synchronize()
-        row["links_path"] = {name: {"launches": len(ts), "late": late[name],
-                                    "path_ms": round(sum(t() for t in ts), 4)}
-                             for name, ts in timers.items()}
+        row["links_path"] = timed_path(cs, v, lambda: linked_walks(v, mesh_args, inputs))
+        row["walk_path"] = timed_path(cs, v, lambda: sharded_walk(v, mesh_args, inputs))
+        row.update(time_walk_step(cs, v, first_walk_step(v, mesh_args, inputs)))
     copies = iter([v.states(captured) for _ in range(REPS + 2)])
     row["link_step_ms"] = round(cs.queued_ms(lambda: v.step(*next(copies)), REPS), 5)
     states = next(copies)
@@ -311,7 +403,11 @@ def main() -> int:
                         load_package(os.path.abspath(args.repo)))
         order = [other, this, this, other]
     if args.ablate:
-        order += [ablated_version(this)]
+        order += [ablated_version(this, "walk_links.cu", REGISTER_CAP,
+                                  ("ctk_link_walk", "ctk_link_step", "ctk_link_kernel_info"),
+                                  "register cap: 12 blocks an SM")]
+        vector = ablated_version(this, "shard.cu", ANSWER_VECTOR, ("ctk_shard_walk_step",),
+                                 "walk step: the answer as one vector")
     inputs = make_inputs(cs, args.mbp, args.bulk, dev)
     k = inputs["k"]
     want = {name: this.walk(inputs["tables"], inputs[name], k) for name in ("bulk", "roi")}
@@ -340,6 +436,11 @@ def main() -> int:
         print(json.dumps(time_version(cs, v, inputs, want, most["args"], mesh_args, turn)),
               flush=True)
         torch.cuda.empty_cache()
+    if args.ablate:
+        first = first_walk_step(this, mesh_args, inputs)
+        for turn, v in enumerate((this, vector, vector, this)):
+            print(json.dumps({"kernel": "shard_walk_step", "version": v.name, "turn": turn,
+                              **time_walk_step(cs, v, first)}), flush=True)
     print(cs.nvidia_smi(), flush=True)
     return 0
 

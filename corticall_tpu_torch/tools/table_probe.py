@@ -1,8 +1,12 @@
 #!/usr/bin/env python3
-"""Times of ctk_segment_reduce (csrc/count.cu) and ctk_ht_lookup
-(csrc/walk_table.cu) on one GPU, at chip_smoke.py's phase 9 and 10 sizes.
+"""Times of ctk_segment_reduce (csrc/count.cu), ctk_ht_lookup and
+ctk_spec_walk (csrc/walk_table.cu) on one GPU, at chip_smoke.py's phase 9
+and 10 sizes.
 
     python3 corticall_tpu_torch/tools/table_probe.py [--repo DIR] [--ablate]
+    python3 corticall_tpu_torch/tools/table_probe.py --spec [--repo DIR]
+    python3 corticall_tpu_torch/tools/table_probe.py --spec --inputs-only \
+        --device cpu --spec-bases 20000 --spec-seeds 256
 
 Inputs, made from a seed: for the reduction, sorted k = 47 rows shaped as
 phase 10's first chunk (17,714,008 rows drawn uniformly from 3,546,522 keys,
@@ -19,6 +23,24 @@ tag entries.  --repo DIR times another checkout's `reduce_kernel` and
 `lookup_kernel` wrappers (for example the parent unpacked with `git
 archive`; a checkout whose lookup takes the slot table gets it) in turns
 with this one: other, this, this, other.
+
+--spec times the speculative walk alone, on phase 9's inputs: bench.py's
+graph (demo.build_bench_graph(47, 21,000,000), ~2 min on the host), its walk
+table (the jump table's placement with colour 0's edge byte as payload) and
+262,144 seeds of 256 steps (phase 6's); this checkout's walk_forward_spec
+launch and another checkout's in turns with --repo, then this checkout's
+two paths (the rows as vectors, and a copy of the table off their
+alignment, read a word at a time: chip_smoke.word_path_table), each with
+its registers, spills, resident lanes and waves; each beside the bucket
+rows a second and the rows the second probes read (chip_smoke.spec_reads),
+every output against the twin.  --inputs-only builds the inputs (on
+--device, the card by default), prints their sizes as one JSON line and
+stops.  --spec --ablate also times csrc/walk_table.cu rebuilt with one
+choice changed at a time (SPEC_ABLATIONS): the 32-register cap lifted; two
+walks a thread at 64 registers; the warp-cooperative tail (a warp iterates
+until its last walk ends); the card's L2 fetch granularity set to 32 bytes
+ahead of each launch (a hint to fetch a row's one sector, not 64 bytes; it
+stays set for the rest of the process, so it runs last).
 
 --ablate: csrc/count.cu rebuilt with one choice changed at a time (status
 words stored with release and loaded with acquire semantics; each tile's
@@ -47,7 +69,20 @@ K = 47
 CHUNK_ROWS, CHUNK_KEYS = 17_714_008, 3_546_522          # phase 10's first chunk
 MERGE_KEYS, MERGE_TWICE = 4_480_202, 967_538           # its largest merge
 RECORDS = 21_003_902                                    # phase 9's graph
+SPEC_BASES, SPEC_SEEDS = 21_000_000, 262_144            # phase 6's genome and seeds
 REPS = 5
+
+# spec walk variant -> [(text of csrc/walk_table.cu, its replacement)]
+SPEC_ABLATIONS = {
+    "uncapped": [("constexpr int kSpecMinBlocks = 16;", "constexpr int kSpecMinBlocks = 1;")],
+    "pair": [("constexpr int kSpecWalks = 1;", "constexpr int kSpecWalks = 2;"),
+             ("constexpr int kSpecMinBlocks = 16;", "constexpr int kSpecMinBlocks = 8;")],
+    "warp_tail": [("    if (!live) break;\n", "    if (!__any_sync(kFullMask, live)) break;\n")],
+    "L2 fetch granularity 32 bytes": [(
+        "  const SpecKernel fn = spec_kernel_for(buckets, bs, w);\n",
+        "  cudaDeviceSetLimit(cudaLimitMaxL2FetchGranularity, 32);\n"
+        "  const SpecKernel fn = spec_kernel_for(buckets, bs, w);\n")],
+}
 
 # variant -> ([(text of csrc/count.cu, its replacement)], tile rows)
 ABLATIONS = {
@@ -66,8 +101,8 @@ ABLATIONS = {
 
 
 def load_ops(repo: str):
-    """(build_device, hashtable) of `repo`'s corticall_tpu_torch; another
-    checkout's package is loaded as `other_corticall_tpu_torch`."""
+    """(build_device, hashtable, cuckoo) of `repo`'s corticall_tpu_torch;
+    another checkout's package is loaded as `other_corticall_tpu_torch`."""
     if os.path.abspath(repo) == HERE:
         name = "corticall_tpu_torch"
     else:
@@ -78,8 +113,8 @@ def load_ops(repo: str):
         pkg = importlib.util.module_from_spec(spec)
         sys.modules[name] = pkg
         spec.loader.exec_module(pkg)
-    return (importlib.import_module(f"{name}.ops.build_device"),
-            importlib.import_module(f"{name}.ops.hashtable"))
+    return tuple(importlib.import_module(f"{name}.ops.{m}")
+                 for m in ("build_device", "hashtable", "cuckoo"))
 
 
 def words(gen, n: int, dev):
@@ -194,6 +229,115 @@ def time_lookup(cs, ht, case, order: str, form=None, group=None) -> dict:
     return {**row, "queries": queries.shape[0], "order": order, "ms": round(ms, 4)}
 
 
+def spec_case(dev, n_bases: int, n_seeds: int) -> dict:
+    """Phase 9's walk: the bench graph's walk table on `dev` and phase 6's
+    seeds (genome windows at the positions rng 11 draws)."""
+    import time
+    import numpy as np
+    from corticall_tpu_torch import kmer as km
+    from corticall_tpu_torch.demo import build_bench_graph
+    from corticall_tpu_torch.ops import jump as tj, kmer as tk
+    t0 = time.perf_counter()
+    g, genome = build_bench_graph(K, n_bases)
+    graph_s = time.perf_counter() - t0
+    nb, bucket_of, pos_of = tj.place(g.kmers)
+    buckets, _ = tj.scatter_buckets(g.kmers, nb, bucket_of * 2 + pos_of, dev,
+                                    payload=np.ascontiguousarray(g.edges[:, 0]))
+    starts = np.random.default_rng(11).integers(0, len(genome) - K, size=n_seeds)
+    seeds = km.pack_codes(km.strings_to_codes([genome[i:i + K] for i in starts]), K)
+    return {"buckets": buckets, "seeds": tk.words_tensor(seeds, dev),
+            "sizes": {"records": g.num_records, "buckets": nb, "seeds": n_seeds,
+                      "graph_s": round(graph_s, 1), "device": str(dev)}}
+
+
+def time_spec(cs, ck, case, want, version: str, buckets=None) -> dict:
+    """One ctk_spec_walk launch's time (a checkout's wrapper, over `buckets`
+    or the case's table), its outputs, launched into poisoned buffers,
+    against the twin's `want`."""
+    import torch
+    buckets = case["buckets"] if buckets is None else buckets
+    bufs = cs.poison(tuple(torch.empty_like(x) for x in want))
+    ms = cs.event_ms(lambda: ck.spec_walk_kernel(buckets, case["seeds"], K, cs.SPEC_STEPS, *bufs),
+                     REPS)
+    for name, a, b in zip(("bases", "cycled", "steps"), bufs, want):
+        cs.same(a, b, f"{version} spec_walk {name}")
+    return {"ms": round(ms, 4), "rows_per_s": round(case["rows"] / ms * 1e3)}
+
+
+def spec_libraries() -> dict:
+    """{variant: a library of csrc/walk_table.cu so changed (SPEC_ABLATIONS),
+    with this checkout's argtypes}, built into build/probe/."""
+    from corticall_tpu_torch.ops import _kernels
+    out_dir = os.path.join(HERE, "build", "probe")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(_kernels.CSRC_DIR, "walk_table.cu")) as f:
+        original = f.read()
+    procs, libs = [], []
+    for index, edits in enumerate(SPEC_ABLATIONS.values()):
+        src = original
+        for old, new in edits:
+            if src.count(old) != 1:
+                raise RuntimeError(f"walk_table.cu no longer has {old!r} once")
+            src = src.replace(old, new)
+        path = os.path.join(out_dir, f"walk_table_ablate{index}.cu")
+        with open(path, "w") as f:
+            f.write(src)
+        libs.append(os.path.join(out_dir, f"walk_table_ablate{index}.so"))
+        procs.append(subprocess.Popen([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-I",
+                                       _kernels.CSRC_DIR, "-shared", "-o", libs[-1], path,
+                                       os.path.join(_kernels.CSRC_DIR, "sw_banded.cu")]))
+    if any(p.wait() for p in procs):
+        raise RuntimeError("nvcc failed")
+    out = {}
+    for name, path in zip(SPEC_ABLATIONS, libs):
+        lib = ctypes.CDLL(path)
+        for entry in ("ctk_spec_walk", "ctk_spec_walk_info"):
+            fn = getattr(lib, entry)
+            fn.argtypes = list(_kernels._SIGNATURES[entry])
+            fn.restype = ctypes.c_int
+        lib.ctk_error_string.argtypes = [ctypes.c_int]
+        lib.ctk_error_string.restype = ctypes.c_char_p
+        out[name] = lib
+    return out
+
+
+def spec_main(cs, order, ck, dev, ablate: bool = False) -> None:
+    """--spec: the walk of each checkout in `order`, in turns, then each
+    path of this checkout's (its cuckoo module `ck`), then with --ablate
+    each SPEC_ABLATIONS library through this checkout's wrapper."""
+    import torch
+    case = spec_case(dev, SPEC_BASES, SPEC_SEEDS)
+    want = ck.spec_walk_plain(case["buckets"], case["seeds"], K, cs.SPEC_STEPS)
+    rows, iterations, second = cs.spec_reads(case["buckets"], case["seeds"], K, want[0])
+    case["rows"] = iterations
+    bound = cs.bound_fields(cs.bound_ms(cs.nbytes(case["seeds"], *want) + int(rows.sum())
+                                        * case["buckets"][0].numel() * 4))
+    print(json.dumps({"spec_case": {**case["sizes"], "steps": int(want[2].sum()),
+                                    "row_reads": iterations, "second_probe_rows": second,
+                                    "distinct_rows": int(rows.sum()), **bound}}), flush=True)
+    for turn, (name, _, _, version) in enumerate(order):
+        print(json.dumps({"kernel": "spec_walk", "version": name, "turn": turn,
+                          **time_spec(cs, version, case, want, name)}), flush=True)
+    for table in (case["buckets"], cs.word_path_table(case["buckets"])):
+        info = ck.kernel_info(table, SPEC_SEEDS)
+        print(json.dumps({"kernel": "spec_walk", "version": ".", "variant": info["path"],
+                          **time_spec(cs, ck, case, want, f"{info['path']} path", table),
+                          **info}), flush=True)
+    if ablate:
+        kern = ck._kernels
+        for variant, lib in spec_libraries().items():
+            saved, kern._lib = kern._lib, lib
+            try:
+                row = {**time_spec(cs, ck, case, want, variant),
+                       **ck.kernel_info(case["buckets"], SPEC_SEEDS)}
+            finally:
+                kern._lib = saved
+            print(json.dumps({"kernel": "spec_walk", "version": ".", "variant": variant,
+                              **row}), flush=True)
+    del case, want
+    torch.cuda.empty_cache()
+
+
 def ablated_libraries() -> dict:
     """{variant: (ctk_segment_reduce of csrc/count.cu so changed, tile rows)}."""
     from corticall_tpu_torch.ops import _kernels
@@ -243,13 +387,22 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", help="another checkout whose kernels are timed in turns")
     ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--spec", action="store_true", help="time the speculative walk alone")
+    ap.add_argument("--spec-bases", type=int, default=SPEC_BASES)
+    ap.add_argument("--spec-seeds", type=int, default=SPEC_SEEDS)
+    ap.add_argument("--device", help="where --inputs-only builds (default: the card)")
+    ap.add_argument("--inputs-only", action="store_true")
     args = ap.parse_args()
 
     import torch
 
     import chip_smoke as cs
-    from corticall_tpu_torch.device import require_cuda
+    from corticall_tpu_torch.device import require_cuda, resolve
 
+    if args.inputs_only:
+        case = spec_case(resolve(args.device), args.spec_bases, args.spec_seeds)
+        print(json.dumps({"inputs": case["sizes"]}), flush=True)
+        return 0
     dev = require_cuda()
     this = (".", *load_ops(HERE))
     order = [this, this]
@@ -257,9 +410,13 @@ def main() -> int:
         other = (os.path.relpath(os.path.abspath(args.repo), HERE),
                  *load_ops(os.path.abspath(args.repo)))
         order = [other, this, this, other]
+    if args.spec:
+        spec_main(cs, order, this[3], dev, args.ablate)
+        print(cs.nvidia_smi(), flush=True)
+        return 0
 
     cases = reduce_cases(dev)
-    for turn, (name, bdv, _) in enumerate(order):
+    for turn, (name, bdv, _, _) in enumerate(order):
         for what, case in cases.items():
             row = time_reduce(cs, bdv.reduce_kernel, case, f"{name} segment_reduce, {what}")
             print(json.dumps({"kernel": "segment_reduce", "version": name, "turn": turn,
@@ -282,7 +439,7 @@ def main() -> int:
                                       "max_probe": case["max_probe"],
                                       "host_build_s": case["host_build_s"]}}), flush=True)
     for queries in case["queries"]:
-        for turn, (name, _, ht) in enumerate(order):
+        for turn, (name, _, ht, _) in enumerate(order):
             print(json.dumps({"kernel": "ht_lookup", "version": name, "turn": turn,
                               **time_lookup(cs, ht, case, queries)}), flush=True)
         ht = this[2]

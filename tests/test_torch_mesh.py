@@ -418,12 +418,62 @@ def _cyclic_graph(k=17, seed=6):
     return fixtures.build_graph({"a": [unit * 4, line], "b": [line[:300]]}, k)
 
 
+def _jax_walk_step(state, route, back, k, cycle_check=True):
+    """mesh.py's walk step in jax.numpy on a state and its returned answers:
+    Brent's cycle test (:419-438) when `cycle_check`, else the plain
+    advance (:568-583).  The fields it sets, and is_cycle."""
+    import jax.numpy as jnp
+    from corticall_tpu.ops import kmer_jax as kj
+    live = state.active.numpy().astype(bool)
+    ans = np.zeros((len(live), 2), np.int64)
+    ans[live] = back.numpy()[route.slot.numpy()[live]][:, :2]
+    idx, e = jnp.asarray(ans[:, 0], jnp.int32), jnp.asarray(ans[:, 1], jnp.uint32)
+    cur = jnp.asarray(state.cur.numpy().view(np.uint32))
+    flipped = jnp.asarray(route.flipped.numpy().astype(bool))
+    saved = jnp.asarray(state.saved.numpy().view(np.uint32))
+    power, lam = jnp.asarray(state.power.numpy()), jnp.asarray(state.lam.numpy())
+    active = jnp.asarray(live)
+    next_mask = jnp.where(flipped, e >> 4, e & 0xF)
+    base = kj.lowest_set_base(next_mask)
+    nxt = kj.shift_append(cur, base.astype(jnp.uint32), k)
+    single = (kj.popcount4(next_mask) == 1) & (idx >= 0)
+    if cycle_check:
+        is_cycle = jnp.all(nxt == saved, axis=-1) & single & active
+    else:
+        is_cycle = jnp.zeros_like(active)
+    advance = active & single & ~is_cycle
+    want = {"stream": jnp.where(advance, base, -1).astype(jnp.int8),
+            "cur": jnp.where(advance[:, None], nxt, cur), "active": advance,
+            "is_cycle": is_cycle}
+    if cycle_check:
+        teleport = (power == lam) & advance
+        want.update(saved=jnp.where(teleport[:, None], nxt, saved),
+                    power=jnp.where(teleport, power * 2, power),
+                    lam=jnp.where(advance, jnp.where(teleport, 0, lam) + 1, lam))
+    return want
+
+
+def _assert_walk_step(state, after, step, want):
+    """A stepped state (`after`, from `state`) against _jax_walk_step's."""
+    np.testing.assert_array_equal(after.stream[step].numpy(), np.asarray(want["stream"]))
+    for name in ("saved", "cur"):
+        np.testing.assert_array_equal(getattr(after, name).numpy().view(np.uint32),
+                                      np.asarray(want.get(name, state.saved.numpy().view(
+                                          np.uint32))))
+    for name in ("power", "lam", "active"):
+        np.testing.assert_array_equal(getattr(after, name).numpy(),
+                                      np.asarray(want.get(name, getattr(state, name).numpy()))
+                                      .astype(np.int64))
+    np.testing.assert_array_equal(after.cycled.numpy() - state.cycled.numpy(),
+                                  np.asarray(want["is_cycle"] & (state.cycled.numpy() == 0)))
+    np.testing.assert_array_equal(after.steps.numpy() - state.steps.numpy(),
+                                  np.asarray(want["active"]).astype(np.int64))
+
+
 def test_walk_step_twin_matches_jax(monkeypatch):
     """Each step of a sharded walk run (mesh.py:419-438, Brent's cycle
     test included) against the JAX step on the same state and returned edge
     bytes."""
-    import jax.numpy as jnp
-    from corticall_tpu.ops import kmer_jax as kj
     g = _cyclic_graph()
     k = g.kmer_size
     pg, mesh, sg = _port(g, 2)
@@ -432,36 +482,77 @@ def test_walk_step_twin_matches_jax(monkeypatch):
     _, cycled, _ = tpm.make_sharded_walk_run(mesh, sg, [0], k, 160)(seeds, np.ones(64, bool))
     assert len(calls) >= 2 * 30 and cycled.any() and not cycled.all()
     for _, (state, route, back, _, step, _), _, (after, *_) in calls:
-        live = state.active.numpy().astype(bool)
-        ans = np.zeros((len(live), 2), np.int64)
-        ans[live] = back.numpy()[route.slot.numpy()[live]]
-        idx, e = jnp.asarray(ans[:, 0], jnp.int32), jnp.asarray(ans[:, 1], jnp.uint32)
-        cur = jnp.asarray(state.cur.numpy().view(np.uint32))
-        flipped = jnp.asarray(route.flipped.numpy().astype(bool))
-        saved = jnp.asarray(state.saved.numpy().view(np.uint32))
-        power, lam = jnp.asarray(state.power.numpy()), jnp.asarray(state.lam.numpy())
-        active = jnp.asarray(live)
-        next_mask = jnp.where(flipped, e >> 4, e & 0xF)
-        base = kj.lowest_set_base(next_mask)
-        nxt = kj.shift_append(cur, base.astype(jnp.uint32), k)
-        single = (kj.popcount4(next_mask) == 1) & (idx >= 0)
-        is_cycle = jnp.all(nxt == saved, axis=-1) & single & active
-        advance = active & single & ~is_cycle
-        teleport = (power == lam) & advance
-        want = {"stream": jnp.where(advance, base, -1).astype(jnp.int8),
-                "saved": jnp.where(teleport[:, None], nxt, saved),
-                "power": jnp.where(teleport, power * 2, power),
-                "lam": jnp.where(advance, jnp.where(teleport, 0, lam) + 1, lam),
-                "cur": jnp.where(advance[:, None], nxt, cur), "active": advance}
-        np.testing.assert_array_equal(after.stream[step].numpy(), np.asarray(want["stream"]))
-        for name in ("saved", "cur"):
-            np.testing.assert_array_equal(getattr(after, name).numpy().view(np.uint32),
-                                          np.asarray(want[name]))
-        for name in ("power", "lam", "active"):
-            np.testing.assert_array_equal(getattr(after, name).numpy(),
-                                          np.asarray(want[name]).astype(np.int64))
-        np.testing.assert_array_equal(after.cycled.numpy() - state.cycled.numpy(),
-                                      np.asarray(is_cycle & (state.cycled.numpy() == 0)))
+        _assert_walk_step(state, after, step, _jax_walk_step(state, route, back, k))
+
+
+def _walk_step_case(k, b, seed, answer_cols=sh.WALK_ANSWER):
+    """One walk step's inputs made to reach every branch of it, walks of
+    each kind side by side in every warp: inactive walks (three in ten,
+    their slots -1), live walks whose record is missing, whose successor is
+    not single, that advance, that close a cycle (their anchor set to the
+    k-mer they reach), that teleport (power == lam) and that were cycled
+    before; the answers at their slots in a random order, `answer_cols`
+    columns.  (state, route, back, step)."""
+    from corticall_tpu_torch.ops import kmer as tk
+    rng = np.random.default_rng(seed)
+    w = tk.words(k)
+    cur = rng.integers(0, 1 << 32, size=(b, w), dtype=np.uint64)
+    cur[:, 0] &= (1 << (2 * k - 32 * (w - 1))) - 1
+    active = rng.random(b) < 0.7
+    live = np.flatnonzero(active)
+    slot = np.full(b, -1, np.int32)
+    slot[live] = rng.permutation(len(live))
+    flipped = rng.random(b) < 0.5
+    base = rng.integers(0, 4, size=b)
+    nibble = np.where(rng.random(b) < 0.8, 1 << base, rng.integers(0, 16, size=b))
+    other = rng.integers(0, 16, size=b)
+    edge = np.where(flipped, nibble << 4 | other, other << 4 | nibble)
+    rec = np.where(rng.random(b) < 0.1, -1, rng.integers(0, 1 << 20, size=b))
+    back = rng.integers(-5, 1 << 20, size=(len(live), answer_cols)).astype(np.int32)
+    back[slot[live], 0] = rec[live]
+    back[slot[live], 1] = edge[live]
+    words = torch.from_numpy(cur.astype(np.int64))
+    nxt = tk.shift_append(words, torch.from_numpy(base.astype(np.int64)), k).numpy()
+    saved = rng.integers(0, 1 << 32, size=(b, w), dtype=np.uint64)
+    closes = rng.random(b) < 0.2
+    saved[closes] = nxt[closes]
+    power = rng.integers(1, 9, size=b)
+    lam = np.where(rng.random(b) < 0.4, power, rng.integers(0, 9, size=b))
+    i32 = lambda x: torch.from_numpy(np.asarray(x, dtype=np.uint64).astype(np.uint32)
+                                     .view(np.int32))
+    state = sh.WalkState(
+        i32(cur), torch.from_numpy(active.astype(np.uint8)), i32(saved),
+        torch.from_numpy(power.astype(np.int32)), torch.from_numpy(lam.astype(np.int32)),
+        torch.from_numpy((rng.random(b) < 0.1).astype(np.uint8)),
+        torch.from_numpy(rng.integers(0, 200, size=b).astype(np.int32)),
+        torch.from_numpy(rng.integers(-1, 4, size=(4, b)).astype(np.int8)))
+    route = sh.Route(torch.zeros((len(live), w), dtype=torch.int32), torch.from_numpy(slot),
+                     torch.zeros(b, dtype=torch.int32),
+                     torch.from_numpy(flipped.astype(np.uint8)),
+                     torch.tensor([[len(live)]], dtype=torch.int32),
+                     torch.tensor([0, len(live)], dtype=torch.int32))
+    return state, route, torch.from_numpy(back), 2
+
+
+def _clone_state(state):
+    return sh.WalkState(*(v.clone() for v in vars(state).values()))
+
+
+@pytest.mark.parametrize("k,cycle_check", [(17, True), (47, True), (63, False)])
+def test_walk_step_twin_on_every_branch_matches_jax(k, cycle_check):
+    """The twin's step on _walk_step_case's walks (every branch in each
+    warp) against the JAX step, with and without the cycle test."""
+    state, route, back, step = _walk_step_case(k, 300, k)
+    after = _clone_state(state)
+    sh.shard_walk_step_plain(after, route, back, k, step, cycle_check)
+    want = _jax_walk_step(state, route, back, k, cycle_check)
+    _assert_walk_step(state, after, step, want)
+    live = state.active.numpy().astype(bool)
+    advanced = np.asarray(want["active"])
+    assert (~live[:32]).any() and (live[:32] & ~advanced[:32]).any() and advanced[:32].any()
+    assert bool(np.asarray(want["is_cycle"]).any()) == cycle_check
+    if cycle_check:
+        assert (np.asarray(want["power"]) != state.power.numpy()).any()
 
 
 def test_link_step_twin_matches_jax(monkeypatch):
@@ -966,6 +1057,29 @@ def test_link_kernels_match_twins(cuda, n, monkeypatch):
     monkeypatch.undo()
     assert {c[0] for c in calls} == {"route", "shard_answer", "link_step"}
     _replay_on_card(calls, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [17, 47, 63])
+@pytest.mark.parametrize("cycle_check", [True, False])
+def test_walk_step_kernel_on_every_branch_on_card(cuda, k, cycle_check):
+    """ctk_shard_walk_step on _walk_step_case's walks (inactive, ending,
+    advancing, cycling and teleporting walks in each warp; 300 walks, two
+    blocks, the second partly idle) against the twin, field for field and
+    the whole stream, with 2-column answers (the walk's) and 3-column ones
+    (a wider row read by its first two columns)."""
+    for cols in (sh.WALK_ANSWER, sh.WALK_ANSWER + 1):
+        state, route, back, step = _walk_step_case(k, 300, k + cols, cols)
+        want = _clone_state(state)
+        sh.shard_walk_step_plain(want, route, back, k, step, cycle_check)
+        card = _to(_clone_state(state), cuda)
+        before = sh.LAUNCHES["shard_walk_step"]
+        sh.shard_walk_step(card, _to(route, cuda), back.to(cuda), k, step, cycle_check)
+        torch.cuda.synchronize()
+        assert sh.LAUNCHES["shard_walk_step"] == before + 1
+        for field, value in vars(want).items():
+            np.testing.assert_array_equal(_np(getattr(card, field)), _np(value),
+                                          err_msg=f"{field}, {cols} answer columns")
 
 
 def _uneven_link_steps(sizes=(37, 0, 70), steps=160):

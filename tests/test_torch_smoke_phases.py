@@ -38,14 +38,20 @@ def scalar_reads(g, bench, seed_strs) -> dict:
     miss = g.kmers.copy()
     miss[:, -1] ^= np.uint32(1)
     queries = np.concatenate([g.kmers, miss])
-    slots_read = set()
+    slots_read, sectors = set(), 0
     for q, h in zip(queries, np_hash_words(queries)):
+        # the kernel's rounds: LOOKUP_GROUP slots aligned on the group, one
+        # 32-byte sector a round of two 16-byte entries
+        first = int(h) & (m - 1)
+        rounds = set()
         for p in range(dg.max_probe):
             slot = (int(h) + p) & (m - 1)
             slots_read.add(slot)
+            rounds.add((first - first % 2 + p + first % 2) // 2)
             r = slots[slot]
             if r < 0 or (g.kmers[r] == q).all():
                 break
+        sectors += len(rounds)
     key_rows = sum(1 for slot in slots_read if slots[slot] >= 0)
 
     edges = np.ascontiguousarray(g.edges[:, 0])
@@ -54,7 +60,7 @@ def scalar_reads(g, bench, seed_strs) -> dict:
                                64)[0].numpy()
     table = buckets.numpy().view(np.uint32)
     mask = np.uint32(table.shape[0] - 1)
-    rows_read, iterations = set(), 0
+    rows_read, iterations, second = set(), 0, 0
     for lane, s in enumerate(seed_strs):
         probe = False
         for t in range(bases.shape[0]):
@@ -64,6 +70,7 @@ def scalar_reads(g, bench, seed_strs) -> dict:
             idx = int((np_h2(h) if probe else h)[0] & mask)
             rows_read.add(idx)
             iterations += 1
+            second += probe
             held = any(e[-1] >> 31 and (e[:-1] == words[0]).all() for e in table[idx])
             b = int(bases[t, lane])
             if b >= 0:
@@ -73,7 +80,7 @@ def scalar_reads(g, bench, seed_strs) -> dict:
             else:
                 break
     return {"slots": len(slots_read), "key_rows": key_rows, "bucket_rows": len(rows_read),
-            "iterations": iterations}
+            "iterations": iterations, "second_probes": second, "sectors": sectors}
 
 
 def rehearse() -> dict:
@@ -98,6 +105,14 @@ def rehearse() -> dict:
         for o, w in zip(out, ck.spec_walk_plain(buckets, seeds, k, num_steps)):
             o.copy_(w)
         ck.LAUNCHES["spec_walk"] += 1
+
+    def kernel_info(buckets, batch):
+        # what ctk_spec_walk_info reports, for a card of 132 SMs
+        align = 16 if (buckets.shape[2] - 1) % 2 else 8
+        vec = buckets.shape[1] == 2 and buckets.data_ptr() % align == 0
+        return {"path": "vector" if vec else "words", "threads": 128, "registers": 32,
+                "local_bytes": 0, "blocks_per_sm": 16, "walks_per_thread": 1,
+                "resident_lanes": 128 * 16 * 132, "waves": 1}
 
     def windows_kernel(stream, valid, own, k, n, keys, masks):
         want = bdv.windows_plain(stream, valid, own, k, n)
@@ -164,6 +179,7 @@ def rehearse() -> dict:
     cs.SPEC_STEPS = 64
     ht.lookup_kernel, ht.lookup = lookup_kernel, lookup
     ck.spec_walk_kernel, ck.walk_forward_spec = spec_walk_kernel, walk_forward_spec
+    ck.kernel_info = kernel_info
     bdv.windows_kernel, bdv.extract_windows = windows_kernel, extract_windows
     bdv.reduce_kernel, bdv.segment_reduce = reduce_kernel, segment_reduce
     small = 1 << 14                             # chunks small enough to merge
@@ -362,8 +378,15 @@ def test_walk_table_and_build_phases_rehearse_on_cpu(tmp_path):
     assert walk["steps"] > 0 and walk["iterations"] == 64 + 16 + 32
     assert walk["scalar_reads"] == {
         "slots": walk["lookup_slots_read"], "key_rows": walk["lookup_key_rows_read"],
-        "bucket_rows": walk["bucket_rows_read"], "iterations": walk["active_iterations"]}
+        "bucket_rows": walk["bucket_rows_read"], "iterations": walk["active_iterations"],
+        "second_probes": walk["second_probe_rows"], "sectors": walk["lookup_sectors"]}
+    assert 0 < walk["second_probe_rows"] < walk["active_iterations"]
     assert walk["lookup_err"] == walk["spec_err"] == 0.0
+    assert walk["spec_rows_per_s"] > 0 and walk["lookup_sectors_per_s"] > 0
+    assert walk["spec_kernel"] == walk["spec_paths"][0]
+    assert [(p["path"], p["err"]) for p in walk["spec_paths"]] == [("vector", 0.0),
+                                                                  ("words", 0.0)]
+    assert all(p["ms"] > 0 and p["waves"] == 1 for p in walk["spec_paths"])
     assert [(a["form"], a["group"], a["err"]) for a in walk["lookup_ablation"]] == [
         (form, group, 0.0) for form in ("key", "tag") for group in (1, 2, 4, 8)]
     from corticall_tpu_torch.ops.hashtable import entry_words
@@ -527,3 +550,18 @@ def test_link_probe_builds_its_inputs_on_cpu(tmp_path):
     assert sizes["bulk_walks"] == 256 and sizes["device"] == "cpu"
     assert sizes["roi_walks"] == 2 * sizes["roi_kmers"] > 0
     assert sizes["records"] > sizes["roi_kmers"] and sizes["link_pool_rows"] > 0
+
+
+def test_table_probe_builds_its_spec_inputs_on_cpu(tmp_path):
+    """corticall_tpu_torch/tools/table_probe.py parses its arguments and
+    builds the speculative walk's inputs (a 20 kbp bench graph's walk table
+    and 256 seeds) on the CPU with --spec --inputs-only."""
+    probe = os.path.join(os.path.dirname(TESTS), "corticall_tpu_torch", "tools",
+                         "table_probe.py")
+    proc = subprocess.run([sys.executable, probe, "--spec", "--inputs-only", "--device", "cpu",
+                           "--spec-bases", "20000", "--spec-seeds", "256"], capture_output=True,
+                          text=True, timeout=300, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    sizes = json.loads(proc.stdout.strip().splitlines()[-1])["inputs"]
+    assert sizes["seeds"] == 256 and sizes["device"] == "cpu"
+    assert sizes["records"] > 19000 and sizes["buckets"] >= sizes["records"] // 2

@@ -273,6 +273,25 @@ def test_walk_spec_long_k_matches_host_walker():
                 == wnp.replay_walk(s, nb[:, i], bool(nc[i]), 300))
 
 
+@pytest.mark.parametrize("bs,load", [(1, 0.25), (4, 0.5)])
+def test_walk_spec_any_bucket_size_matches_jax(bs, load):
+    """Tables of 1- and 4-entry buckets (the kernel's word-at-a-time path):
+    the twin's walks equal the JAX package's over the same table."""
+    jnp, _, jck, _ = _jax()
+    k = 31
+    g, genome, rng = _graph(40 + bs, 8000, k)
+    pt = tck.build_cuckoo(g.kmers, g.edges[:, 0], load_factor=load, bucket_size=bs,
+                          device="cpu")
+    jt = jck.build_cuckoo(g.kmers, g.edges[:, 0], load_factor=load, bucket_size=bs)
+    np.testing.assert_array_equal(_jax_buckets(pt), jt.buckets)
+    seeds = _pack([genome[i:i + k] for i in rng.integers(0, 8000 - k, size=64)] + ["A" * k], k)
+    got = tck.walk_forward_spec(pt.buckets, _bits(seeds), k, 150)
+    want = jck.walk_forward_spec(jnp.asarray(jt.buckets), jnp.asarray(seeds), k, 150)
+    for name, a, b in zip(("bases", "cycled", "steps"), got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
+    assert int(got[2].max()) == 150 and int(got[2].min()) == 0
+
+
 def test_walk_spec_wrapper_validates():
     g, genome, _ = _graph(4, 3000, 21)
     pt = tck.build_walk_table(g.kmers, g.edges[:, 0], device="cpu")
@@ -444,6 +463,92 @@ def test_spec_walk_kernel_matches_twin_on_card(cuda, k, cap, bs):
     assert torch.equal(bases[:t], want[0]) and (bases[t:] == 0x5A).all()
     assert torch.equal(cycled.view(torch.uint8), want[1].to(torch.uint8))
     assert torch.equal(steps, want[2])
+
+
+def _launch_poisoned(buckets, seeds, k, cap):
+    """One ctk_spec_walk launch into poison-filled buffers, one row wider
+    than the walk: (bases [T, B], cycled, steps), the poison past them
+    untouched."""
+    b, t, dev = seeds.shape[0], tck.spec_iters(cap), seeds.device
+    bases = torch.full((t + 1, b), 0x5A, dtype=torch.int8, device=dev)
+    cycled = torch.full((b + 8,), 7, dtype=torch.uint8, device=dev)
+    steps = torch.full((b + 8,), -9, dtype=torch.int32, device=dev)
+    before = tck.LAUNCHES["spec_walk"]
+    tck.spec_walk_kernel(buckets, seeds, k, cap, bases[:t], cycled[:b].view(torch.bool),
+                         steps[:b])
+    torch.cuda.synchronize()
+    assert tck.LAUNCHES["spec_walk"] == before + 1
+    assert (bases[t:] == 0x5A).all() and (cycled[b:] == 7).all() and (steps[b:] == -9).all()
+    return bases[:t], cycled[:b].view(torch.bool), steps[:b]
+
+
+def _word_path_table(buckets):
+    """A copy of the table 4 bytes off its rows' vector alignment, which
+    ctk_spec_walk reads a word at a time."""
+    flat = torch.empty(buckets.numel() + 1, dtype=buckets.dtype, device=buckets.device)
+    table = flat[1:].view(buckets.shape)
+    table.copy_(buckets)
+    return table
+
+
+def _assert_paths_match_twin(buckets, seeds, k, cap):
+    """ctk_spec_walk on each path the table can take (2-entry rows: as
+    vectors, and a copy off their alignment a word at a time; other bucket
+    sizes: a word at a time) against the twin, bit for bit; returns the
+    twin's (bases, cycled, steps)."""
+    want = tck.spec_walk_plain(buckets, seeds, k, cap)
+    tables = {"words": buckets}
+    if buckets.shape[1] == 2:
+        tables = {"vector": buckets, "words": _word_path_table(buckets)}
+    for path, table in tables.items():
+        got = _launch_poisoned(table, seeds, k, cap)
+        for name, a, w in zip(("bases", "cycled", "steps"), got, want):
+            assert torch.equal(a, w), (path, name)
+        info = tck.kernel_info(table, seeds.shape[0])
+        assert info["registers"] > 0 and info["resident_lanes"] > 0 and info["waves"] >= 1
+        assert info["path"] == path and info["walks_per_thread"] == 1
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,bs", [(15, 2), (31, 2), (47, 2), (63, 2), (31, 1), (47, 4)])
+def test_spec_walk_paths_match_twin_on_card(cuda, k, bs):
+    """Each path on a two-colour graph with junctions: 2-entry rows at
+    every vector width (16, 24, 32 and 40 bytes) and a word at a time, 1-
+    and 4-entry buckets (a word at a time); 341 walks (not a multiple of
+    the block), walks that end at different iterations and a missing seed
+    that ends at its second probe."""
+    rng = np.random.default_rng(k * 7 + bs)
+    genome = "".join(rng.choice(list("ACGT"), 8000))
+    child = list(genome)
+    for pos in rng.integers(31, 8000 - 31, size=30):
+        child[pos] = "ACGT"[("ACGT".index(child[pos]) + 1) % 4]
+    g = fixtures.build_graph({"s": [genome], "c": ["".join(child)]}, k)
+    ct = tck.build_cuckoo(g.kmers, g.edges[:, 0] | g.edges[:, 1], load_factor=0.25 if bs == 1
+                          else 0.5, bucket_size=bs, primary_bias=bs == 2, device=cuda)
+    strs = [genome[i:i + k] for i in rng.integers(0, 8000 - k, size=300)] + ["A" * k]
+    strs += [km.revcomp(s) for s in strs[:40]]
+    seeds = tj.words_tensor(_pack(strs, k), cuda)
+    assert seeds.shape[0] == 341 and seeds.shape[0] % 128
+    _, _, steps = _assert_paths_match_twin(ct.buckets, seeds, k, 400)
+    assert len(set(steps.tolist())) > 2 and int(steps.min()) == 0
+
+
+@pytest.mark.cuda
+def test_spec_walk_paths_find_cycles_on_card(cuda):
+    """Brent's anchor on each path: walks on a 600-base circle (k = 21)
+    cycle after more than a lap, beside walks that run off a line."""
+    k = 21
+    rng = np.random.default_rng(3)
+    genome = "".join(rng.choice(list("ACGT"), 600))
+    line = "".join(rng.choice(list("ACGT"), 900))
+    g = fixtures.build_graph({"s": [genome + genome[:k], line]}, k)
+    ct = tck.build_walk_table(g.kmers, g.edges[:, 0], device=cuda)
+    strs = [genome[i:i + k] for i in range(0, 600 - k, 7)] + [line[i:i + k] for i in
+                                                              range(0, 900 - k, 11)]
+    seeds = tj.words_tensor(_pack(strs, k), cuda)
+    _, cycled, steps = _assert_paths_match_twin(ct.buckets, seeds, k, 3000)
+    assert cycled.any() and not cycled.all() and (steps[cycled] > 600).all()
 
 
 @pytest.mark.cuda

@@ -68,10 +68,14 @@ Phases, one JSON line each (progress goes to stderr):
    sample of phase 4 and count_kmers_device on phase 6's 21 Mbp genome,
    each against the native route (identical graphs and counts), launches
    counted, with the seconds of each route and the device route's parts
-   (host packing, transfer, windows, compaction, sort, reduce, merge), and
-   every ctk_segment_reduce launch of the path between its own events; then
-   ctk_count_windows and ctk_segment_reduce against their twins on the
-   kid's first chunk, and ctk_segment_reduce on the path's largest merge;
+   (encode, transfer, windows, sort, reduce, merge, the counter's own host
+   work, and for a sample the invariant fence and the graph; a sample's
+   parts within 5% of its seconds), and every ctk_count_windows and
+   ctk_segment_reduce launch of the path between its own events; then
+   ctk_count_windows against its twin on the kid's first chunk's bytes
+   (into poisoned buffers: no row past its count), with its registers,
+   spills and shared memory, ctk_segment_reduce on the chunk's sorted rows,
+   and ctk_segment_reduce on the path's largest merge;
 11. link_walk_vs_plain: LinkedWalker (the linked device walker) on phase
    4's graph, ROIs and threaded links: the sorted ROI k-mers walked both
    ways at Partition's 2,000-step cap against the native linked walker
@@ -944,7 +948,7 @@ def sw_full_phase(dev, rng) -> dict:
 
 # the C entry points that phases 9 and 10 time at every launch of their paths
 LOOKUP_ENTRY = {"ht_lookup": "ctk_ht_lookup"}
-REDUCE_ENTRY = {"segment_reduce": "ctk_segment_reduce"}
+COUNT_ENTRY = {"count_windows": "ctk_count_windows", "segment_reduce": "ctk_segment_reduce"}
 LOOKUP_ABLATION = (1, 2, 4, 8)               # lanes a query in phase 9's ablation
 
 
@@ -1177,36 +1181,60 @@ def walk_table_phase(dev, ctx) -> dict:
 
 
 # the device count's parts, timed by wrapping the module functions it calls
-COUNT_PARTS = {"pack_piece": "pack", "words_tensor": "transfer", "extract_windows": "windows",
-               "live_windows": "compact", "sort_order": "sort", "segment_reduce": "reduce"}
+# (ops/build_device.py; in corticall_tpu_torch/build.py the fence and, in
+# its graph module, the graph)
+COUNT_PARTS = {"encode": "encode", "upload": "transfer", "count_windows": "windows",
+               "sort_order": "sort", "segment_reduce": "reduce"}
+FENCE_PARTS = ("expected_kmer_instances", "_verify_count_invariants")
+GRAPH_PARTS = ("rev4", "from_arrays")
 
 
-def timed_parts(fn):
-    """fn() with the device count's parts (host packing, the transfer, the
-    windows, their compaction, the sorts and the reductions of the chunks,
-    and the accumulator merges: concatenation, sort and reduction) timed on
-    the host clock, each ended by a synchronize.  Returns (fn's result,
-    {part: seconds}); raises if a part never ran, as when DeviceCounter no
-    longer calls a wrapped name."""
-    parts = {name: 0.0 for name in (*COUNT_PARTS.values(), "merge")}
+def timed_parts(fn, graph: bool = True):
+    """fn() with the device route's parts timed on the host clock, each ended
+    by a synchronize: encode (joining the reads, their bytes), transfer,
+    windows (the count kernel's launch and its count read), the sorts and
+    the reductions of the chunks, the accumulator merges (concatenation,
+    sort and reduction), finish (the table's copy back to numpy and its
+    filter), counter (the rest of count_kmers_device: the counter's loop
+    over the reads), and with
+    `graph` (a build_graph_from_reads call) fence (expected_kmer_instances
+    and _verify_count_invariants) and graph (the edge bytes and
+    from_arrays).  A part's seconds exclude the parts it calls.  Returns
+    (fn's result, {part: seconds}); raises if a part never ran, as when
+    DeviceCounter no longer calls a wrapped name."""
+    from corticall_tpu_torch import build as tbd
+
+    sites = [(bdv, name, part) for name, part in COUNT_PARTS.items()]
+    sites.append((bdv, "count_kmers_device", "counter"))
+    if graph:
+        sites += [(tbd, name, "fence") for name in FENCE_PARTS]
+        sites += [(tbd.gr, name, "graph") for name in GRAPH_PARTS]
+    parts = {part: 0.0 for *_, part in sites}
+    parts["merge"] = parts["finish"] = 0.0
     calls = dict.fromkeys(parts, 0)
-    originals = {name: getattr(bdv, name) for name in COUNT_PARTS}
-    merge = bdv.DeviceCounter._merge
-    depth = [0]
+    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
+    merge, finish = bdv.DeviceCounter._merge, bdv.DeviceCounter.finish
+    depth, inner = [0], []          # merges entered; the enclosing parts' nested seconds
 
-    def clocked(part, f, *a):
+    def clocked(part, f, *a, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = f(*a)
-        torch.cuda.synchronize()
-        parts[part] += time.perf_counter() - t0
+        inner.append(0.0)
+        try:
+            out = f(*a, **kw)
+            torch.cuda.synchronize()
+        finally:
+            nested = inner.pop()
+        dt = time.perf_counter() - t0
+        parts[part] += dt - nested
+        if inner:
+            inner[-1] += dt
         calls[part] += 1
         return out
 
-    def wrap(name):
-        def run(*a):
-            f = originals[name]
-            return f(*a) if depth[0] else clocked(COUNT_PARTS[name], f, *a)
+    def wrap(f, part):
+        def run(*a, **kw):
+            return f(*a, **kw) if depth[0] else clocked(part, f, *a, **kw)
         return run
 
     def merge_timed(self, *a):
@@ -1216,19 +1244,28 @@ def timed_parts(fn):
         finally:
             depth[0] -= 1
 
-    for name in COUNT_PARTS:
-        setattr(bdv, name, wrap(name))
-    bdv.DeviceCounter._merge = merge_timed
+    def finish_timed(self):
+        return clocked("finish", finish, self)
+
+    for (mod, name, f), (*_, part) in zip(originals, sites):
+        setattr(mod, name, wrap(f, part))
+    bdv.DeviceCounter._merge, bdv.DeviceCounter.finish = merge_timed, finish_timed
     try:
         out = fn()
     finally:
-        for name, f in originals.items():
-            setattr(bdv, name, f)
-        bdv.DeviceCounter._merge = merge
+        for mod, name, f in originals:
+            setattr(mod, name, f)
+        bdv.DeviceCounter._merge, bdv.DeviceCounter.finish = merge, finish
     idle = [part for part, c in calls.items() if not c]
     if idle:
-        raise AssertionError(f"timed_parts: the device count never ran {idle}")
+        raise AssertionError(f"timed_parts: the device route never ran {idle}")
     return out, {key: round(v, 4) for key, v in parts.items()}
+
+
+def parts_share(parts: dict, seconds: float) -> float:
+    """The parts' sum over the route's seconds; phase 10 holds it within 5%
+    of 1 for a sample, so that the parts account for the route."""
+    return round(sum(parts.values()) / seconds, 4)
 
 
 def first_chunk(reads, k: int) -> str:
@@ -1252,12 +1289,15 @@ def same_graph(got, want, what: str) -> None:
 
 def build_phase(dev, reads, genome) -> dict:
     """Phase 10: the device graph build.  The path (launches counted, each
-    ctk_segment_reduce launch timed between its own events behind a short
-    spin: its path_ms): build_graph_from_reads with use_device=True for each
-    trio sample of phase 4, and count_kmers_device on phase 6's genome, each
-    against the native route; then ctk_count_windows and ctk_segment_reduce
-    against their twins on the kid's first chunk, and ctk_segment_reduce on
-    the path's largest merge (a trio sample's: the genome is one chunk)."""
+    ctk_count_windows and ctk_segment_reduce launch timed between its own
+    events behind a short spin: their path_ms): build_graph_from_reads with
+    use_device=True for each trio sample of phase 4, and count_kmers_device
+    on phase 6's genome, each against the native route, the device route's
+    parts timed (timed_parts; a sample's within 5% of its seconds); then
+    ctk_count_windows against its twin on the kid's first chunk's bytes,
+    into poisoned buffers, ctk_segment_reduce on the chunk's sorted rows,
+    and ctk_segment_reduce on the path's largest merge (a trio sample's:
+    the genome is one chunk)."""
     from corticall_tpu_torch import build as tbd
     from corticall_tpu_torch import native as nat
 
@@ -1265,9 +1305,9 @@ def build_phase(dev, reads, genome) -> dict:
     bdv.count_kmers_device([genome[:5000]], k, device=dev)     # first use of torch.sort
     for key in bdv.LAUNCHES:
         bdv.LAUNCHES[key] = 0
-    # every ctk_segment_reduce launch of the path between its own events,
-    # and a copy of the inputs of the path's largest merge
-    timers, late, restore = entry_timers(entries=REDUCE_ENTRY)
+    # every count kernel launch of the path between its own events, and a
+    # copy of the inputs of the path's largest merge
+    timers, late, restore = entry_timers(entries=COUNT_ENTRY)
     merge = {"rows": 0, "args": None}
     real_merge, real_reduce = bdv.DeviceCounter._merge, bdv.reduce_kernel
     merging = [False]
@@ -1296,15 +1336,21 @@ def build_phase(dev, reads, genome) -> dict:
                 rs, k, s, use_device=True, device=dev))
             device_s = time.perf_counter() - t0
             same_graph(got, native, f"sample {s}")
+            share = parts_share(parts, device_s)
+            if abs(share - 1) > 0.05:
+                raise AssertionError(f"sample {s}: the device route's parts sum to {share} of "
+                                     f"its {device_s:.3f} s {parts}")
             samples[s] = {"reads": len(rs), "bases": sum(map(len, rs)),
                           "records": got.num_records, "native_s": round(native_s, 3),
-                          "device_s": round(device_s, 3), "device_parts_s": parts}
+                          "device_s": round(device_s, 3), "device_parts_s": parts,
+                          "parts_share": share}
             log(f"build {s}: native {native_s:.2f} s, device {device_s:.2f} s {parts}")
         t0 = time.perf_counter()
         want = nat.count_kmers_native([genome], k)
         native_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        got, parts = timed_parts(lambda: bdv.count_kmers_device([genome], k, device=dev))
+        got, parts = timed_parts(lambda: bdv.count_kmers_device([genome], k, device=dev),
+                                 graph=False)
         device_s = time.perf_counter() - t0
     finally:
         bdv.DeviceCounter._merge, bdv.reduce_kernel = real_merge, real_reduce
@@ -1316,49 +1362,61 @@ def build_phase(dev, reads, genome) -> dict:
     if not all(launches.values()):
         raise AssertionError(f"a count kernel never launched: {launches}")
     torch.cuda.synchronize()
-    reduce_path = {"launches": len(timers["segment_reduce"]),
-                   "path_ms": round(sum(t() for t in timers["segment_reduce"]), 4),
-                   "launch_ms": [round(t(), 4) for t in timers["segment_reduce"]],
-                   "late": late["segment_reduce"]}
+    paths = {name: {"launches": len(timers[name]),
+                    "path_ms": round(sum(t() for t in timers[name]), 4),
+                    "launch_ms": [round(t(), 4) for t in timers[name]], "late": late[name]}
+             for name in COUNT_ENTRY}
+    if paths["count_windows"]["launches"] != launches["count_windows"]:
+        raise AssertionError(f"count_windows: {launches['count_windows']} launches counted, "
+                             f"{paths['count_windows']['launches']} timed")
     genome_row = {"bases": len(genome), "records": len(got[0]), "native_s": round(native_s, 3),
-                  "device_s": round(device_s, 3), "device_parts_s": parts}
+                  "device_s": round(device_s, 3), "device_parts_s": parts,
+                  "parts_share": parts_share(parts, device_s)}
     log(f"count of the genome: native {native_s:.2f} s, device {device_s:.2f} s {parts}")
     del got, want
 
-    # the kernels against their twins on the kid's first chunk
-    stream, valid, own, n = bdv.pack_piece(first_chunk(reads["kid"], k), None, bdv.CHUNK_BASES)
-    st, vt, ot = (tk.words_tensor(a, dev) for a in (stream, valid, own))
-    keys = torch.empty((n, tk.words(k)), dtype=torch.int32, device=dev)
-    masks = torch.empty(n, dtype=torch.uint8, device=dev)
-    windows_ms = event_ms(lambda: bdv.windows_kernel(st, vt, ot, k, n, keys, masks), 3)
-    windows_plain_ms, want = host_ms(lambda: bdv.windows_plain(st, vt, ot, k, n))
-    windows_err = max(same(keys, want[0], "count_windows keys"),
-                      same(masks, want[1], "count_windows masks"))
+    # ctk_count_windows against its twin on the kid's first chunk, into
+    # poisoned buffers with room for every window
+    data = bdv.encode([first_chunk(reads["kid"], k)], k)
+    n, w = len(data), tk.words(k)
+    bases = bdv.upload(data, dev)
+    keys = torch.full((n - k + 1, w), 0x5A5A5A5A, dtype=torch.int32, device=dev)
+    masks = torch.full((n - k + 1,), 0x5A, dtype=torch.uint8, device=dev)
+    count = torch.full((1,), -7, dtype=torch.int32, device=dev)
+    windows_ms = event_ms(lambda: bdv.count_kernel(bases, 0, n, k, keys, masks, count), 3)
+    windows_plain_ms, want = host_ms(lambda: bdv.count_windows_plain(bases, 0, n, k))
+    m = int(count.item())
+    if m != want[0].shape[0]:
+        raise AssertionError(f"count_windows: {m} rows, the twin {want[0].shape[0]}")
+    windows_err = max(same(keys[:m], want[0], "count_windows keys"),
+                      same(masks[:m], want[1], "count_windows masks"))
+    if not ((keys[m:] == 0x5A5A5A5A).all() and (masks[m:] == 0x5A).all()):
+        raise AssertionError("count_windows wrote a row past its count")
     del want
-    windows_bound = bound_ms(nbytes(st, vt, ot, keys, masks))
-    lk, lm = bdv.live_windows(keys, masks)
-    del keys, masks
-    sort_ms = event_ms(lambda: bdv.sort_order(lk), 3)
-    order = bdv.sort_order(lk)
-    sk, sm = lk[order], lm[order]
-    cov = torch.ones(sk.shape[0], dtype=torch.int32, device=dev)
-    del lk, lm, order
+    sk, sm = keys[:m], masks[:m]
+    windows_bound = bound_ms(nbytes(bases, sk, sm, count))
+    info = bdv.count_kernel_info(k)
+    sort_ms = event_ms(lambda: bdv.sort_order(sk), 3)
+    order = bdv.sort_order(sk)
+    sk, sm = sk[order], sm[order]
+    cov = torch.ones(m, dtype=torch.int32, device=dev)
+    del keys, masks, order
     out = (torch.empty_like(sk), torch.empty_like(cov), torch.empty_like(sm))
-    count = torch.empty(1, dtype=torch.int32, device=dev)
     reduce_ms = event_ms(lambda: bdv.reduce_kernel(sk, cov, sm, *out, count), 3)
     reduce_plain_ms, want = host_ms(lambda: bdv.reduce_plain(sk, cov, sm))
     nu = int(count.item())
     reduce_err = max(same(a[:nu], b, f"segment_reduce {name}")
                      for name, a, b in zip(("keys", "coverage", "masks"), out, want))
     reduce_bound = bound_ms(nbytes(sk, cov, sm, count) + sum(nbytes(x[:nu]) for x in out))
-    chunk = {"bases": n, "windows": int(sk.shape[0]), "unique": nu,
+    chunk = {"bases": n, "windows": m, "unique": nu,
              "windows_ms": round(windows_ms, 4), "windows_plain_ms": round(windows_plain_ms, 2),
              "windows_bound": bound_fields(windows_bound), "windows_err": windows_err,
+             "windows_kernel": info,
              "sort_ms": round(sort_ms, 4), "reduce_err": reduce_err,
              "reduce_ms": round(reduce_ms, 4), "reduce_plain_ms": round(reduce_plain_ms, 2),
              "reduce_bound": bound_fields(reduce_bound)}
     log(f"count kernels on a chunk: {chunk}")
-    del st, vt, ot, sk, sm, cov, out, want
+    del bases, sk, sm, cov, out, want
 
     # ctk_segment_reduce on the path's largest merge (sorted as the merge sorts)
     mk, mc, mm = merge["args"]
@@ -1376,7 +1434,8 @@ def build_phase(dev, reads, genome) -> dict:
     del mk, mc, mm, mout, want, merge
     torch.cuda.empty_cache()
     return {"k": k, "samples": samples, "genome": genome_row, "launches": launches,
-            "identical": True, "chunk": chunk, "reduce_path": reduce_path, "merge": merge_row}
+            "identical": True, "chunk": chunk, "count_path": paths["count_windows"],
+            "reduce_path": paths["segment_reduce"], "merge": merge_row}
 
 
 LINK_SEEDS = 262_144                         # BENCH_WALKS
@@ -2569,7 +2628,7 @@ def main() -> int:
          "replaces": "corticall_tpu/ops/build_device.py:73",
          "launches": bp["launches"]["count_windows"], "max_abs_err": chunk["windows_err"],
          "ms": chunk["windows_ms"], "plain_ms": chunk["windows_plain_ms"],
-         **chunk["windows_bound"], "library_ms": None},
+         **chunk["windows_bound"], "library_ms": None, "path_ms": bp["count_path"]["path_ms"]},
         {"name": "segment_reduce", "route": "cuda",
          "source": "corticall_tpu_torch/csrc/count.cu",
          "replaces": "corticall_tpu/ops/build_device.py:139",

@@ -43,7 +43,8 @@ _SIGNATURES = {
     "ctk_jump_compose": (_P, _P, _I, _I, _I, _P),
     "ctk_jump_walk": (_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P),
     "ctk_copy_rows_to_host": (_P, _I, _P, _I, _I, _I, _P),
-    "ctk_count_windows": (_P, _L, _P, _P, _L, _I, _I, _P, _P, _P),
+    "ctk_count_windows": (_P, _L, _L, _L, _I, _I, _P, _P, _P, _P, _I, _U, _P),
+    "ctk_count_windows_info": (_I, _P),
     "ctk_segment_reduce": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _U, _P),
     "ctk_ht_lookup": (_P, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P),
     "ctk_spec_walk": (_P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P),

@@ -1,21 +1,21 @@
-"""The device graph build: packed read streams -> the sorted unique canonical
-k-mer table with coverage and edge masks.
+"""The device graph build: read bytes -> the sorted unique canonical k-mer
+table with coverage and edge masks.
 
 Counterpart of corticall_tpu/ops/build_device.py, the device route of
 `build.build_graph_from_reads` (use_device=True, or CORTICALL_DEVICE_BUILD=1).
 The host joins reads with k-long 'N' separators into chunks of at most
 `chunk_bases` bases (a sequence longer than a chunk is cut into overlapping
-pieces with an explicit window-ownership bitmap, so each window is counted by
-exactly one piece and edge masks see the true neighbours through the overlap)
-and packs each at 2 bits a base plus two bitmaps (base valid, window owned).
-On the device:
+pieces, each owning one interval of windows, so each window is counted by
+exactly one piece and edge masks see the true neighbours through the
+overlap), and uploads each piece's bytes as they are.  On the device:
 
-- `extract_windows`: every window of the stream as its canonical k-mer and
-  its in/out edge masks (`ctk_count_windows` on the card, `windows_plain` on
-  the CPU), invalid windows as the all-ones key;
-- the invalid windows are dropped (`masked_select`-style indexing), the rows
-  sorted by `torch.sort` in the unsigned order of their words (`sort_order`,
-  the order of the host's `words_to_bytes_be` keys);
+- `count_windows`: the piece's valid windows, in stream order, as their
+  canonical k-mers and in/out edge masks (`ctk_count_windows` on the card:
+  the bytes packed in shared memory, the windows compacted by decoupled
+  look-back, one launch and one read of its count; `count_windows_plain` on
+  the CPU);
+- the rows sorted by `torch.sort` in the unsigned order of their words
+  (`sort_order`, the order of the host's `words_to_bytes_be` keys);
 - `segment_reduce`: each run of equal keys becomes one row, coverage summed
   as uint32 (wrapping, as XLA's segment_sum does) and masks ORed
   (`ctk_segment_reduce` on the card: one pass over tiles of 2,048 rows with
@@ -27,9 +27,12 @@ On the device:
 Only the final table crosses back to the host; it equals build.count_kmers
 and the native core's bit for bit.  Words are uint32 bit patterns in int32
 tensors; masks a byte a row, in << 4 | out.  Not carried over from the JAX
-package: padding a chunk's stream to `chunk_bases` and the accumulator to a
-power of two (shapes fixed for its compiler); a chunk processes exactly its
-bases and a merge exactly its rows.
+package: packing a piece on the host (2 bits a base and two bitmaps,
+`_count_piece`, corticall_tpu/ops/build_device.py:216-232), which spared its
+rig's slow host-to-device link and cost the port over half of a sample's
+device seconds (PERF.md); padding a chunk's stream to `chunk_bases` and the
+accumulator to a power of two (shapes fixed for its compiler): a chunk
+processes exactly its bases and a merge exactly its rows.
 """
 
 from __future__ import annotations
@@ -49,11 +52,18 @@ CHUNK_BASES = 1 << 25        # stream bases a chunk holds, separators included
 # kernel launches (plain integers; chip_smoke.py resets and reads them)
 LAUNCHES = {"count_windows": 0, "segment_reduce": 0}
 
+COUNT_TILE = 4096            # ctk_count_windows' windows a tile (csrc/count.cu kCountTile)
 REDUCE_TILE_ROWS = 2048      # ctk_segment_reduce's rows a tile (csrc/count.cu kTileRows)
-EPOCH_LIMIT = 1 << 22        # its status words' epoch field holds 1 .. EPOCH_LIMIT - 1
+EPOCH_LIMIT = 1 << 22        # their status words' epoch field holds 1 .. EPOCH_LIMIT - 1
 
-# per device: [int64 scratch, the last launch's epoch] (reduce_scratch)
+# per device: [int64 scratch, the last launch's epoch] (count_scratch, reduce_scratch)
+_COUNT_SCRATCH: dict = {}
 _REDUCE_SCRATCH: dict = {}
+# per device: [a pinned uint8 buffer, the event of the last copy out of it] (upload)
+_STAGING: dict = {}
+
+# a byte's base code: ACGT and acgt 0..3, any other byte 255 (kmer._CODE_OF)
+_CODES = torch.from_numpy(km._CODE_OF.copy())
 
 
 def pack_stream(codes: np.ndarray) -> np.ndarray:
@@ -73,18 +83,6 @@ def pack_bits(bits: np.ndarray) -> np.ndarray:
     b = np.packbits(bits, bitorder="little")
     pad = -(-len(bits) // 32) * 4
     return np.pad(b, (0, pad - len(b))).view(np.uint32)
-
-
-def pack_piece(seq: str, own: np.ndarray | None, chunk_bases: int):
-    """A piece's (stream, base-valid bitmap, ownership bitmap) uint32 words
-    and its length in bases; `own` None means every window."""
-    codes = km.string_to_codes_permissive(seq)
-    n = len(codes)
-    if n > chunk_bases:
-        raise ValueError("piece exceeds chunk_bases")
-    own = np.ones(n, dtype=bool) if own is None else own
-    return (pack_stream(np.minimum(codes, 3).astype(np.uint8)), pack_bits(codes <= 3),
-            pack_bits(own), n)
 
 
 # ---------------------------------------------------------------------------
@@ -137,46 +135,110 @@ def windows_plain(stream, valid, own, k: int, n: int):
     return keys, torch.where(ok, (in_m << 4) | out_m, 0).to(torch.uint8)
 
 
-def extract_windows(stream: torch.Tensor, valid: torch.Tensor, own: torch.Tensor,
-                    k: int, n: int):
-    """(keys int32 [n, W], masks uint8 [n]) of the first n windows of a
-    packed stream (int32 words) with its base-valid and ownership bitmaps:
-    the plain twin for CPU tensors, one `ctk_count_windows` launch for CUDA
-    tensors."""
-    if {stream.dtype, valid.dtype, own.dtype} != {torch.int32}:
-        raise TypeError("the stream and bitmaps must be int32 words")
-    if stream.numel() * 16 < n or valid.numel() * 32 < n or own.numel() * 32 < n or n < 0:
-        raise ValueError(f"the stream or a bitmap is shorter than {n} bases")
+def count_windows_plain(bases: torch.Tensor, own_lo: int, own_hi: int, k: int):
+    """Plain twin of `ctk_count_windows`: the JAX package's host packing
+    (codes by `kmer._CODE_OF`, an invalid base as 3 in the stream;
+    `pack_stream`, `pack_bits`) and `windows_plain` over the piece's bytes
+    with the owned windows [own_lo, own_hi), the invalid windows' rows
+    dropped: (keys int32 [m, W], masks uint8 [m]) in stream order."""
+    dev = bases.device
+    codes = _CODES.to(dev)[bases.long()].cpu().numpy()
+    n = len(codes)
+    own = np.zeros(n, dtype=bool)
+    own[own_lo:own_hi] = True
+    stream, valid, own_w = (words_tensor(x, dev) for x in (
+        pack_stream(np.minimum(codes, 3)), pack_bits(codes <= 3), pack_bits(own)))
+    keys, masks = windows_plain(stream, valid, own_w, k, n)
+    live = (keys != SENT).any(dim=1)
+    return keys[live], masks[live]
+
+
+def count_windows(bases: torch.Tensor, own_lo: int, own_hi: int, k: int):
+    """A piece's valid windows (owned: own_lo <= i < own_hi; i + k <= n; k
+    valid bases) in stream order, from its bytes (uint8 [n]): (keys int32
+    [m, W], masks uint8 [m]).  The plain twin for a CPU tensor; for a CUDA
+    tensor one `ctk_count_windows` launch and one read of its count."""
+    if bases.dtype != torch.uint8 or bases.dim() != 1:
+        raise TypeError("bases must be a uint8 tensor [n]")
+    if not bases.is_contiguous():
+        raise ValueError("bases must be contiguous")
+    n = bases.shape[0]
+    if not 0 <= own_lo <= own_hi <= n:
+        raise ValueError(f"owned windows [{own_lo}, {own_hi}) outside the piece's {n}")
     if not 1 <= k <= 63:
         raise ValueError(f"k={k} outside 1..63")
-    if not stream.device == valid.device == own.device:
-        raise ValueError("the stream and bitmaps must be on one device")
-    if stream.device.type == "cpu":
-        return windows_plain(stream, valid, own, k, n)
-    if stream.device.type != "cuda":
-        raise ValueError(f"unsupported device {stream.device}")
-    keys = torch.empty((n, tk.words(k)), dtype=torch.int32, device=stream.device)
-    masks = torch.empty(n, dtype=torch.uint8, device=stream.device)
-    if n:
-        windows_kernel(stream.contiguous(), valid.contiguous(), own.contiguous(), k, n,
-                       keys, masks)
-    return keys, masks
+    if bases.device.type == "cpu":
+        return count_windows_plain(bases, own_lo, own_hi, k)
+    if bases.device.type != "cuda":
+        raise ValueError(f"unsupported device {bases.device}")
+    rows = max(0, min(own_hi, n - k + 1) - own_lo)        # room for every owned window
+    keys = torch.empty((rows, tk.words(k)), dtype=torch.int32, device=bases.device)
+    masks = torch.empty(rows, dtype=torch.uint8, device=bases.device)
+    if n == 0:
+        return keys, masks
+    count = torch.empty(1, dtype=torch.int32, device=bases.device)
+    count_kernel(aligned(bases), own_lo, own_hi, k, keys, masks, count)
+    m = int(count.item())
+    return keys[:m], masks[:m]
 
 
-def windows_kernel(stream, valid, own, k: int, n: int, keys, masks) -> None:
-    """One `ctk_count_windows` launch on checked, contiguous card tensors
-    into keys int32 [n, W] and masks uint8 [n]."""
+def count_kernel(bases, own_lo: int, own_hi: int, k: int, keys, masks, count) -> None:
+    """One `ctk_count_windows` launch on a checked, contiguous, 16-byte
+    aligned card tensor of n >= 1 bytes: its valid windows into the first
+    `count` rows of keys int32 [rows, W] and masks uint8 [rows] (16-byte
+    aligned, room for every owned window), its scratch the device's
+    (`count_scratch`)."""
+    n = bases.shape[0]
+    scratch, tiles, epoch = count_scratch(bases.device, n)
     err = _kernels.library().ctk_count_windows(
-        stream.data_ptr(), stream.numel(), valid.data_ptr(), own.data_ptr(), n,
-        keys.shape[1], k, keys.data_ptr(), masks.data_ptr(), _kernels.stream(stream.device))
+        bases.data_ptr(), n, own_lo, own_hi, keys.shape[1], k, keys.data_ptr(),
+        masks.data_ptr(), count.data_ptr(), scratch.data_ptr(), tiles, epoch,
+        _kernels.stream(bases.device))
     _kernels.check(err, "count_windows")
     LAUNCHES["count_windows"] += 1
 
 
-def live_windows(keys: torch.Tensor, masks: torch.Tensor):
-    """The valid windows' (keys, masks): rows that are not all ones."""
-    live = (keys != SENT).any(dim=1)
-    return keys[live], masks[live]
+def count_kernel_info(k: int, lib=None) -> dict:
+    """How a `ctk_count_windows` launch at k runs on the current card (of
+    `lib`, default this package's kernels): threads a block, registers and
+    local (spilled) bytes a thread, blocks resident an SM, dynamic shared
+    bytes a block, windows a tile, the card's SMs."""
+    import ctypes
+
+    out = (ctypes.c_int * 7)()
+    err = (lib or _kernels.library()).ctk_count_windows_info(tk.words(k), out)
+    _kernels.check(err, "count_windows_info")
+    return dict(zip(("threads", "registers", "blocks_per_sm", "local_bytes", "shared_bytes",
+                     "tile_windows", "sms"), out))
+
+
+def encode(reads, k: int) -> bytes:
+    """A piece's bytes: its reads joined by k-long 'N' separators (every
+    window across a join is invalid; one read is its own bytes), as the JAX
+    package's packing reads them."""
+    return ("N" * k).join(reads).encode()
+
+
+def upload(data: bytes, device: torch.device) -> torch.Tensor:
+    """A piece's bytes as a uint8 tensor on `device`: to a card through a
+    pinned buffer reused piece after piece (grown when a piece outgrows it),
+    copied without blocking the host; on the CPU a copy."""
+    src = np.frombuffer(data, dtype=np.uint8)
+    if device.type != "cuda":
+        return torch.from_numpy(src.copy()).to(device)
+    n = len(src)
+    entry = _STAGING.get(device)
+    if entry is None or entry[0].numel() < n:
+        entry = [torch.empty(max(n, 1), dtype=torch.uint8, pin_memory=True), None]
+        _STAGING[device] = entry
+    elif entry[1] is not None:
+        entry[1].synchronize()                         # its last copy has left it
+    entry[0][:n].numpy()[:] = src
+    out = torch.empty(n, dtype=torch.uint8, device=device)
+    out.copy_(entry[0][:n], non_blocking=True)
+    entry[1] = torch.cuda.Event()
+    entry[1].record(torch.cuda.current_stream(device))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -324,29 +386,42 @@ def reduce_tiles_plain(keys: torch.Tensor, cov: torch.Tensor, masks: torch.Tenso
             torch.tensor(ors, dtype=torch.uint8, device=dev))
 
 
-def reduce_scratch(device: torch.device, m: int):
-    """ctk_segment_reduce's scratch on `device`, kept between launches: two
-    uint32 counters (back at 0 after every launch) and two status words a
-    tile, grown (zeroed) to m rows' tiles; and the epoch of the next launch,
-    which makes words of earlier launches read as unwritten.  When the epochs
-    run out the statuses are zeroed and the count starts again.  Launches on
-    one device share it, so they must be ordered on one stream."""
-    tiles = -(-m // REDUCE_TILE_ROWS)
-    entry = _REDUCE_SCRATCH.get(device)
-    if entry is None or entry[0].numel() < 2 + 2 * tiles:
-        have = 0 if entry is None else (entry[0].numel() - 2) // 2
-        entry = [torch.zeros(2 + 2 * max(tiles, 2 * have), dtype=torch.int64, device=device), 0]
-        _REDUCE_SCRATCH[device] = entry
+def _scratch(table: dict, device: torch.device, tiles: int, words: int):
+    """A kernel's look-back scratch on `device`, kept between launches: two
+    uint32 counters (back at 0 after every launch) and `words` status words
+    a tile, grown (zeroed) to `tiles` tiles; and the epoch of the next
+    launch, which makes words of earlier launches read as unwritten.  When
+    the epochs run out the statuses are zeroed and the count starts again.
+    Launches on one device share it, so they must be ordered on one stream.
+    Returns (the int64 scratch, the tiles it holds, the epoch)."""
+    entry = table.get(device)
+    if entry is None or entry[0].numel() < 2 + words * tiles:
+        have = 0 if entry is None else (entry[0].numel() - 2) // words
+        entry = [torch.zeros(2 + words * max(tiles, 2 * have), dtype=torch.int64,
+                             device=device), 0]
+        table[device] = entry
     entry[1] += 1
     if entry[1] == EPOCH_LIMIT:
         entry[0].zero_()
         entry[1] = 1
-    return entry[0], (entry[0].numel() - 2) // 2, entry[1]
+    return entry[0], (entry[0].numel() - 2) // words, entry[1]
+
+
+def count_scratch(device: torch.device, n: int):
+    """ctk_count_windows' scratch (_scratch): one status word a tile of
+    COUNT_TILE windows, for a piece of n bytes."""
+    return _scratch(_COUNT_SCRATCH, device, -(-n // COUNT_TILE), 1)
+
+
+def reduce_scratch(device: torch.device, m: int):
+    """ctk_segment_reduce's scratch (_scratch): two status words a tile of
+    REDUCE_TILE_ROWS rows, for m rows."""
+    return _scratch(_REDUCE_SCRATCH, device, -(-m // REDUCE_TILE_ROWS), 2)
 
 
 def aligned(x: torch.Tensor) -> torch.Tensor:
-    """x, or a copy of it that starts on a 16-byte boundary (ctk_segment_reduce
-    copies its inputs in 16-byte pieces)."""
+    """x, or a copy of it that starts on a 16-byte boundary (the count kernels
+    read their inputs in 16-byte pieces)."""
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
@@ -398,13 +473,10 @@ class DeviceCounter:
             stride = c - 2 * k
             for a in range(0, len(seq), stride):
                 lo = max(0, a - 1)
-                piece = seq[lo:a + c - k]
-                own = np.zeros(len(piece), dtype=bool)
                 o0 = a - lo
                 o1 = min(a + stride, len(seq) - k + 1) - lo
-                own[o0:max(o0, o1)] = True
-                if own.any():
-                    self._count_piece(piece, own)
+                if o1 > o0:
+                    self._count_piece(encode([seq[lo:a + c - k]], k), o0, o1)
                 if a + stride >= len(seq) - k + 1:
                     break
             return
@@ -416,15 +488,16 @@ class DeviceCounter:
     def _flush_reads(self) -> None:
         if not self._reads:
             return
-        joined = ("N" * self.k).join(self._reads)
+        data = encode(self._reads, self.k)
         self._reads, self._pending = [], 0
-        self._count_piece(joined, None)
+        self._count_piece(data)
 
-    def _count_piece(self, seq: str, own: np.ndarray | None) -> None:
-        stream, valid, own_w, n = pack_piece(seq, own, self.chunk_bases)
-        keys, masks = live_windows(*extract_windows(
-            words_tensor(stream, self.device), words_tensor(valid, self.device),
-            words_tensor(own_w, self.device), self.k, n))
+    def _count_piece(self, data: bytes, own_lo: int = 0, own_hi: int | None = None) -> None:
+        """Count a piece's windows [own_lo, own_hi) (default: all of them)."""
+        if len(data) > self.chunk_bases:
+            raise ValueError("piece exceeds chunk_bases")
+        keys, masks = count_windows(upload(data, self.device), own_lo,
+                                    len(data) if own_hi is None else own_hi, self.k)
         cov = torch.ones(keys.shape[0], dtype=torch.int32, device=self.device)
         self._merge(*sort_reduce(keys, cov, masks))
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Times of ctk_segment_reduce (csrc/count.cu), ctk_ht_lookup and
-ctk_spec_walk (csrc/walk_table.cu) on one GPU, at chip_smoke.py's phase 9
-and 10 sizes.
+"""Times of ctk_segment_reduce and ctk_count_windows (csrc/count.cu),
+ctk_ht_lookup and ctk_spec_walk (csrc/walk_table.cu) on one GPU, at
+chip_smoke.py's phase 9 and 10 sizes.
 
     python3 corticall_tpu_torch/tools/table_probe.py [--repo DIR] [--ablate]
+    python3 corticall_tpu_torch/tools/table_probe.py --count [--repo DIR] [--ablate]
     python3 corticall_tpu_torch/tools/table_probe.py --spec [--repo DIR]
     python3 corticall_tpu_torch/tools/table_probe.py --spec --inputs-only \
         --device cpu --spec-bases 20000 --spec-seeds 256
@@ -41,6 +42,24 @@ walks a thread at 64 registers; the warp-cooperative tail (a warp iterates
 until its last walk ends); the card's L2 fetch granularity set to 32 bytes
 ahead of each launch (a hint to fetch a row's one sector, not 64 bytes; it
 stays set for the rest of the process, so it runs last).
+
+--count times the device build's count on a kid-shaped trio sample: 20x
+150 bp reads with 0.2% errors (simulate.simulate_reads) of a random 2 Mbp
+genome, and their first chunk (chip_smoke.first_chunk: 170,327 reads,
+33,554,372 bytes, 17,714,008 valid windows at k = 47).  For each checkout in
+turns (other, this, this, other): the path from the chunk's string to its
+compacted rows on the card (host clock, synchronized: here encode, upload
+and count_windows; in a checkout that packs on the host, pack_piece,
+words_tensor, extract_windows and live_windows), its count kernel alone
+(CUDA events; a packing checkout's windows kernel and its compaction
+apart), and the sample's build_graph_from_reads(use_device=True) seconds;
+rows and graphs equal across checkouts, the kernel's rows equal to the
+twin's.  --count --ablate also times csrc/count.cu's ctk_count_windows
+rebuilt with one choice changed at a time (COUNT_ABLATIONS): each tile's
+rows placed by one atomicAdd, out of order (compared as sorted rows: the
+cost of keeping the order); keys and masks stored from registers at their
+rows, no staging (the cost of staging); tiles of half and double the
+windows; each with its registers, spills and shared memory.
 
 --ablate: csrc/count.cu rebuilt with one choice changed at a time (status
 words stored with release and loaded with acquire semantics; each tile's
@@ -84,6 +103,71 @@ SPEC_ABLATIONS = {
         "  const SpecKernel fn = spec_kernel_for(buckets, bs, w);\n")],
 }
 
+GENOME_BASES, READ_LENGTH, COVERAGE, READ_ERROR = 2_000_000, 150, 20, 0.002   # phase 4's kid
+
+# ctk_count_windows with each thread computing the tile's valid windows by
+# rank (their positions listed in shared memory first), not its 16 striped
+# windows with the invalid ones idle
+DENSE = [
+    ("  uint8_t masks[kCountTile];          // and their masks (in << 4 | out)\n",
+     "  uint8_t masks[kCountTile];          // and their masks (in << 4 | out)\n"
+     "  uint16_t pos[kCountTile];\n"),
+    ("""  // the valid windows, staged at their ranks
+  const int s = 32 * W - 2 * k;
+  const unsigned below = (1u << lane) - 1u;
+  for (int j = 0; j < kCountItems; ++j) {
+    if (!(mine >> j & 1u)) continue;
+    const int span = j * kCountWarps + warp;
+    const int rank = (int)b.before[span] + __popc(b.ballots[span] & below);
+    const int p = kLead + j * kCountThreads + t;
+""", """  const unsigned below = (1u << lane) - 1u;
+  for (int j = 0; j < kCountItems; ++j) {
+    if (!(mine >> j & 1u)) continue;
+    const int span = j * kCountWarps + warp;
+    b.pos[(int)b.before[span] + __popc(b.ballots[span] & below)] =
+        (uint16_t)(j * kCountThreads + t);
+  }
+  __syncthreads();
+  const int s = 32 * W - 2 * k;
+  for (int rank = t; rank < b.rows; rank += kCountThreads) {
+    const int p = kLead + b.pos[rank];
+""")]
+
+# count_windows variant -> [(text of csrc/count.cu, its replacement)]
+COUNT_ABLATIONS = {
+    "atomic compaction (rows out of order)": [
+        ("""    const uint32_t before = look_back(status, tile, epoch);
+    if (lane == 0) {
+      if (tile) st_status(status + tile, status_word(epoch, kPrefix, before + rows));
+      if (tile == ntiles - 1) *count = (int)(before + rows);
+      b.out = before;
+""", """    if (lane == 0) {
+      b.out = atomicAdd(reinterpret_cast<unsigned*>(status) - 2, rows);
+"""),
+        ("\n      counters[0] = 0u;  // every block has taken its last tile\n",
+         "\n      *count = (int)atomicExch(counters + 2, 0u);\n      counters[0] = 0u;\n")],
+    "keys from registers (no staging)": [
+        ("  uint32_t keys[kCountTile * W];      // the tile's valid windows' keys, at their ranks\n",
+         "  uint32_t keys[4];\n"),
+        ("  uint8_t masks[kCountTile];          // and their masks (in << 4 | out)\n",
+         "  uint8_t masks[16];\n"),
+        ("  // the valid windows, staged at their ranks\n", "  __syncthreads();\n"),
+        ("    for (int w = 0; w < W; ++w) b.keys[rank * W + w] = canon[w];\n"
+         "    b.masks[rank] = (uint8_t)((in_m << 4) | out_m);\n",
+         "    for (int w = 0; w < W; ++w) keys[(b.out + rank) * W + w] = canon[w];\n"
+         "    masks[b.out + rank] = (uint8_t)((in_m << 4) | out_m);\n"),
+        ("  write_rows<W>(b, keys, masks);\n", "")],
+    "dense (valid windows by rank)": DENSE,
+    "no canonicalization (wrong outputs)": [(
+        "    const bool flip = canonicalize<W>(v, canon, k);\n",
+        "    const bool flip = false;\n#pragma unroll\n    for (int w = 0; w < W; ++w) canon[w] = v[w];\n")],
+    "no key arithmetic (wrong outputs)": [("    if (!(mine >> j & 1u)) continue;\n", "    continue;\n")],
+    "half tile (2,048 windows)": [("constexpr int kCountItems = 16;",
+                                   "constexpr int kCountItems = 8;")],
+    "double tile (8,192 windows)": [("constexpr int kCountItems = 16;",
+                                     "constexpr int kCountItems = 32;")],
+}
+
 # variant -> ([(text of csrc/count.cu, its replacement)], tile rows)
 ABLATIONS = {
     "release / acquire status words": ([("st.relaxed.gpu.b64", "st.release.gpu.b64"),
@@ -98,6 +182,187 @@ ABLATIONS = {
           "bool hdone = true, cdone = true;"),
          ("sh.out = (long long)before - (lead ? 1 : 0);", "sh.out = 0;")], 2048),
 }
+
+
+def count_case(dev):
+    """A kid-shaped sample's reads (phase 4's: GENOME_BASES, COVERAGE x
+    READ_LENGTH reads at READ_ERROR), its first chunk and the chunk's rows
+    by the twin (on the card)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from corticall_tpu_torch import simulate as sim
+    from corticall_tpu_torch.ops import build_device as bdv
+    genome = "".join(np.random.default_rng(5).choice(list("ACGT"), GENOME_BASES))
+    reads = sim.simulate_reads([genome], COVERAGE, READ_LENGTH, READ_ERROR, seed=1)
+    chunk = cs.first_chunk(reads, K)
+    bases = torch.from_numpy(np.frombuffer(chunk.encode(), np.uint8).copy()).to(dev)
+    want = bdv.count_windows_plain(bases, 0, len(chunk), K)
+    return {"reads": reads, "chunk": chunk, "bases": bases, "want": want,
+            "sizes": {"reads": len(reads), "chunk_reads": chunk.count("N" * K) + 1,
+                      "bytes": len(chunk), "windows": int(want[0].shape[0])}}
+
+
+def count_path(bdv, chunk: str, dev):
+    """A checkout's rows of a chunk's string on the card: this one's (bytes
+    up, one count_windows launch), or one that packs on the host."""
+    if hasattr(bdv, "pack_piece"):
+        stream, valid, own, n = bdv.pack_piece(chunk, None, bdv.CHUNK_BASES)
+        return bdv.live_windows(*bdv.extract_windows(
+            *(bdv.words_tensor(x, dev) for x in (stream, valid, own)), K, n))
+    return bdv.count_windows(bdv.upload(bdv.encode([chunk], K), dev), 0, len(chunk), K)
+
+
+def time_count_kernel(cs, bdv, case, dev) -> dict:
+    """A checkout's count kernel alone on the chunk (CUDA events): this
+    one's into poisoned buffers, held against the twin; a packing one's
+    windows kernel, and its compaction apart."""
+    import torch
+    chunk, n, w = case["chunk"], len(case["chunk"]), case["want"][0].shape[1]
+    if hasattr(bdv, "pack_piece"):
+        stream, valid, own, _ = bdv.pack_piece(chunk, None, bdv.CHUNK_BASES)
+        st, vt, ot = (bdv.words_tensor(x, dev) for x in (stream, valid, own))
+        keys = torch.empty((n, w), dtype=torch.int32, device=dev)
+        masks = torch.empty(n, dtype=torch.uint8, device=dev)
+        ms = cs.event_ms(lambda: bdv.windows_kernel(st, vt, ot, K, n, keys, masks), REPS)
+        compact_ms = cs.event_ms(lambda: bdv.live_windows(keys, masks), REPS)
+        return {"ms": round(ms, 4), "compact_ms": round(compact_ms, 4)}
+    keys, masks, count = count_buffers(case, dev)
+    ms = cs.event_ms(lambda: bdv.count_kernel(case["bases"], 0, n, K, keys, masks, count), REPS)
+    check_count(cs, keys, masks, count, case["want"], "count_windows")
+    return {"ms": round(ms, 4), **bdv.count_kernel_info(K)}
+
+
+def count_buffers(case, dev):
+    """Poisoned keys and masks with room for every window, and the count."""
+    import torch
+    n, w = len(case["chunk"]), case["want"][0].shape[1]
+    return (torch.full((n - K + 1, w), 0x5A5A5A5A, dtype=torch.int32, device=dev),
+            torch.full((n - K + 1,), 0x5A, dtype=torch.uint8, device=dev),
+            torch.full((1,), -7, dtype=torch.int32, device=dev))
+
+
+def check_count(cs, keys, masks, count, want, what: str, in_order: bool = True) -> None:
+    """The kernel's rows against the twin's (as sorted rows when not
+    `in_order`), and nothing written past its count."""
+    import torch
+    from corticall_tpu_torch.ops import build_device as bdv
+    m = int(count.item())
+    if m != want[0].shape[0]:
+        raise AssertionError(f"{what}: {m} rows, the twin {want[0].shape[0]}")
+    if in_order:
+        cs.same(keys[:m], want[0], f"{what} keys")
+        cs.same(masks[:m], want[1], f"{what} masks")
+    else:
+        a, b = (torch.cat([k, mk.to(torch.int32)[:, None]], dim=1)
+                for k, mk in ((keys[:m], masks[:m]), want))
+        cs.same(a[bdv.sort_order(a)], b[bdv.sort_order(b)], f"{what} sorted rows")
+    if not ((keys[m:] == 0x5A5A5A5A).all() and (masks[m:] == 0x5A).all()):
+        raise AssertionError(f"{what}: a row past the count was written")
+
+
+def count_libraries() -> dict:
+    """{variant: a library of csrc/count.cu so changed (COUNT_ABLATIONS)},
+    built into build/probe/."""
+    from corticall_tpu_torch.ops import _kernels
+    out_dir = os.path.join(HERE, "build", "probe")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(_kernels.CSRC_DIR, "count.cu")) as f:
+        original = f.read()
+    procs, libs = [], []
+    for index, edits in enumerate(COUNT_ABLATIONS.values()):
+        src = original
+        for old, new in edits:
+            if src.count(old) != 1:
+                raise RuntimeError(f"count.cu no longer has {old!r} once")
+            src = src.replace(old, new)
+        path = os.path.join(out_dir, f"count_windows_ablate{index}.cu")
+        with open(path, "w") as f:
+            f.write(src)
+        libs.append(os.path.join(out_dir, f"count_windows_ablate{index}.so"))
+        procs.append(subprocess.Popen([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-I",
+                                       _kernels.CSRC_DIR, "-shared", "-o", libs[-1], path]))
+    if any(p.wait() for p in procs):
+        raise RuntimeError("nvcc failed")
+    out = {}
+    for name, path in zip(COUNT_ABLATIONS, libs):
+        lib = ctypes.CDLL(path)
+        for entry in ("ctk_count_windows", "ctk_count_windows_info"):
+            fn = getattr(lib, entry)
+            fn.argtypes = list(_kernels._SIGNATURES[entry])
+            fn.restype = ctypes.c_int
+        out[name] = lib
+    return out
+
+
+def count_main(cs, order, dev, ablate: bool = False) -> None:
+    """--count: each checkout's path, kernel and sample in turns, then with
+    --ablate each COUNT_ABLATIONS library."""
+    import importlib
+    import time
+    import numpy as np
+    import torch
+    from corticall_tpu_torch.ops import _kernels, build_device as this_bdv
+    case = count_case(dev)
+    print(json.dumps({"count_case": case["sizes"]}), flush=True)
+    builds = {}
+    for name, bdv, _, _ in order:                     # first use: the library, torch.sort
+        bdv.count_kmers_device([case["chunk"][:5000]], K, device=dev)
+        builds[name] = importlib.import_module(bdv.__name__.rsplit(".", 2)[0] + ".build")
+    first = None
+    for turn, (name, bdv, _, _) in enumerate(order):
+        path_ms = []
+        for _ in range(3):
+            ms, rows = cs.host_ms(lambda: count_path(bdv, case["chunk"], dev))
+            path_ms.append(round(ms, 2))
+        for a, b, what in zip(rows, case["want"], ("keys", "masks")):
+            cs.same(a, b, f"{name} path, {what}")
+        del rows
+        kernel = time_count_kernel(cs, bdv, case, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = builds[name].build_graph_from_reads(case["reads"], K, "kid", use_device=True,
+                                                device=dev)
+        sample_s = time.perf_counter() - t0
+        graph = (g.kmers, g.coverages, g.edges)
+        if first is None:
+            first = graph
+        elif not all(np.array_equal(a, b) for a, b in zip(graph, first)):
+            raise AssertionError(f"{name}: the sample's graph differs from {order[0][0]}'s")
+        del g, graph
+        print(json.dumps({"kernel": "count_windows", "version": name, "turn": turn,
+                          "path_ms": path_ms, "count_kernel": kernel,
+                          "sample_device_s": round(sample_s, 3)}), flush=True)
+        torch.cuda.empty_cache()
+    if ablate:
+        n = len(case["chunk"])
+        scratch = torch.zeros(2 + n // 1024 + 2, dtype=torch.int64, device=dev)
+        epoch = 0
+        for variant, lib in count_libraries().items():
+            keys, masks, count = count_buffers(case, dev)
+
+            def run():
+                nonlocal epoch
+                epoch += 1
+                _kernels.check(lib.ctk_count_windows(
+                    case["bases"].data_ptr(), n, 0, n, keys.shape[1], K, keys.data_ptr(),
+                    masks.data_ptr(), count.data_ptr(), scratch.data_ptr(),
+                    scratch.numel() - 2, epoch, _kernels.stream(dev)), variant)
+
+            ms = cs.event_ms(run, REPS)
+            if "wrong outputs" in variant:            # time only
+                if int(count.item()) != case["want"][0].shape[0]:
+                    raise AssertionError(f"{variant}: the count differs from the twin's")
+            else:
+                check_count(cs, keys, masks, count, case["want"], variant,
+                            in_order="out of order" not in variant)
+            print(json.dumps({"kernel": "count_windows", "version": ".", "variant": variant,
+                              "ms": round(ms, 4), **this_bdv.count_kernel_info(K, lib)}),
+                  flush=True)
+            del keys, masks, count
+    del case
+    torch.cuda.empty_cache()
 
 
 def load_ops(repo: str):
@@ -388,6 +653,7 @@ def main() -> int:
     ap.add_argument("--repo", help="another checkout whose kernels are timed in turns")
     ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--spec", action="store_true", help="time the speculative walk alone")
+    ap.add_argument("--count", action="store_true", help="time the device build's count alone")
     ap.add_argument("--spec-bases", type=int, default=SPEC_BASES)
     ap.add_argument("--spec-seeds", type=int, default=SPEC_SEEDS)
     ap.add_argument("--device", help="where --inputs-only builds (default: the card)")
@@ -412,6 +678,10 @@ def main() -> int:
         order = [other, this, this, other]
     if args.spec:
         spec_main(cs, order, this[3], dev, args.ablate)
+        print(cs.nvidia_smi(), flush=True)
+        return 0
+    if args.count:
+        count_main(cs, order, dev, args.ablate)
         print(cs.nvidia_smi(), flush=True)
         return 0
 

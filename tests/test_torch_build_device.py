@@ -134,10 +134,11 @@ def test_windows_twin_matches_jax_extract_windows(k):
     seq = "".join(seq)
     own = rng.random(3000) < 0.9
     c = 1 << 12
-    stream, valid, own_w, n = tbdv.pack_piece(seq, own, c)
-    keys, masks = tbdv.windows_plain(*(tk.words_tensor(a, "cpu") for a in (stream, valid, own_w)),
-                                     k, n)
     codes = km.string_to_codes_permissive(seq)
+    n = len(codes)
+    packed = (tbdv.pack_stream(np.minimum(codes, 3)), tbdv.pack_bits(codes <= 3),
+              tbdv.pack_bits(own))
+    keys, masks = tbdv.windows_plain(*(tk.words_tensor(a, "cpu") for a in packed), k, n)
     pad = c - n
     jk, jc, ji, jo = jbdv._extract_windows(
         jnp.asarray(jbdv.pack_stream(np.concatenate([np.minimum(codes, 3).astype(np.uint8),
@@ -148,6 +149,99 @@ def test_windows_twin_matches_jax_extract_windows(k):
     np.testing.assert_array_equal(masks.numpy(), (np.asarray(ji)[:n] << 4) | np.asarray(jo)[:n])
     assert (np.asarray(jc)[:n] == (keys != -1).any(1).numpy()).all()
     assert not np.asarray(jc)[n:].any()
+
+
+IUPAC_AND_OTHER = b"NnRYKMSWBDHVrykmswbdhv-.*0 \x00\x80\xff"
+
+
+def _messy_bytes(rng, n, odd=0.015):
+    """n bytes from a seed: upper- and lower-case bases, with `odd` of them
+    N or n, IUPAC letters or other bytes, and 60 valid bases at the end."""
+    b = np.frombuffer(b"ACGTacgt", np.uint8)[rng.integers(0, 8, n)]
+    other = rng.random(n) < odd
+    other[-60:] = False
+    b[other] = np.frombuffer(IUPAC_AND_OTHER, np.uint8)[
+        rng.integers(0, len(IUPAC_AND_OTHER), int(other.sum()))]
+    return b.tobytes()
+
+
+def _jax_live_windows(data, own_lo, own_hi, k, c=1 << 13):
+    """The JAX package's path for a piece: its host packing (pack_stream and
+    _pack_bits of string_to_codes_permissive, padded to the chunk) through
+    _extract_windows, the invalid (sentinel) rows dropped: (keys uint32,
+    masks in << 4 | out)."""
+    import jax.numpy as jnp
+    jbdv = _jax_bdv()
+    codes = km.string_to_codes_permissive(data)
+    n = len(codes)
+    own = np.zeros(c, bool)
+    own[own_lo:own_hi] = True
+    pad = c - n
+    jk, jc, ji, jo = jbdv._extract_windows(
+        jnp.asarray(jbdv.pack_stream(np.concatenate([np.minimum(codes, 3).astype(np.uint8),
+                                                     np.zeros(pad, np.uint8)]))),
+        jnp.asarray(jbdv._pack_bits(np.concatenate([codes <= 3, np.zeros(pad, bool)]))),
+        jnp.asarray(jbdv._pack_bits(own)), k, c)
+    live = np.asarray(jc) != 0
+    assert not live[n:].any()
+    return np.asarray(jk)[live], (np.asarray(ji)[live] << 4) | np.asarray(jo)[live]
+
+
+@pytest.mark.parametrize("k", [21, 32, 47])
+def test_count_windows_twin_matches_jax(k):
+    """count_windows on a piece's bytes (CPU: the twin) equals the JAX
+    package's host packing and _extract_windows with the sentinel rows
+    dropped, row for row in stream order: upper- and lower-case bases, N and
+    n, IUPAC letters and other bytes, windows at the piece's end, owned
+    windows from inside the piece to inside it and to its end."""
+    rng = np.random.default_rng(200 + k)
+    data = _messy_bytes(rng, 5000)
+    bases = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
+    for own_lo, own_hi in ((37, 4900), (1, 5000), (0, 5000)):
+        keys, masks = tbdv.count_windows(bases, own_lo, own_hi, k)
+        want_keys, want_masks = _jax_live_windows(data, own_lo, own_hi, k)
+        assert keys.shape == (len(want_keys), tk.words(k)) and len(want_keys) > 100
+        np.testing.assert_array_equal(keys.numpy().view(np.uint32), want_keys)
+        np.testing.assert_array_equal(masks.numpy(), want_masks)
+    ends_at_n = tbdv.count_windows(bases, 0, 5000, k)[0]
+    assert torch.equal(ends_at_n[-1], tbdv.count_windows(bases, 5000 - k, 5000, k)[0][0])
+
+
+def test_device_count_packs_nothing_on_the_host(monkeypatch):
+    """count_kmers_device on the CPU equals build.count_kmers with the host
+    packers refused: the JAX package's codes (string_to_codes_permissive)
+    never, pack_stream and pack_bits only inside the twin that stands in for
+    ctk_count_windows."""
+    reads = _short_reads(seed=41, n=6000, count=300)
+    reads.append(_genome(np.random.default_rng(43), 9000))       # pieces of a long sequence
+    inside = [0]
+
+    def refuse(*a, **kw):
+        raise AssertionError("a numpy packer ran on the device route")
+
+    def only_in_twin(fn):
+        def run(*a, **kw):
+            if not inside[0]:
+                refuse()
+            return fn(*a, **kw)
+        return run
+
+    def twin(*a, **kw):
+        inside[0] += 1
+        try:
+            return real_twin(*a, **kw)
+        finally:
+            inside[0] -= 1
+
+    real_twin = tbdv.count_windows_plain
+    monkeypatch.setattr(tbdv.km, "string_to_codes_permissive", refuse)
+    monkeypatch.setattr(tbdv, "pack_stream", only_in_twin(tbdv.pack_stream))
+    monkeypatch.setattr(tbdv, "pack_bits", only_in_twin(tbdv.pack_bits))
+    monkeypatch.setattr(tbdv, "count_windows_plain", twin)
+    got = tbdv.count_kmers_device(reads, 31, chunk_bases=1 << 12, device="cpu")
+    monkeypatch.undo()
+    for a, b in zip(got, bd.count_kmers(reads, 31)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_sort_order_is_the_unsigned_word_order():
@@ -336,61 +430,140 @@ def test_pipeline_device_build_env(tmp_path, monkeypatch):
 
 def test_wrappers_validate_and_run_the_twins_on_cpu():
     before = dict(tbdv.LAUNCHES)
-    stream, valid, own, n = tbdv.pack_piece("ACGTTGCA" * 10, None, 1 << 10)
-    st, vt, ot = (tk.words_tensor(a, "cpu") for a in (stream, valid, own))
-    keys, masks = tbdv.extract_windows(st, vt, ot, 21, n)
-    assert keys.shape == (80, 2) and keys.dtype == torch.int32 and masks.dtype == torch.uint8
+    bases = torch.from_numpy(np.frombuffer(b"ACGTTGCA" * 10, np.uint8).copy())
+    keys, masks = tbdv.count_windows(bases, 0, 80, 21)
+    assert keys.shape == (60, 2) and keys.dtype == torch.int32 and masks.dtype == torch.uint8
     with pytest.raises(TypeError):
-        tbdv.extract_windows(st.long(), vt, ot, 21, n)
-    with pytest.raises(ValueError):
-        tbdv.extract_windows(st, vt, ot, 21, 10 ** 4)
-    with pytest.raises(ValueError):
-        tbdv.extract_windows(st, vt, ot, 64, n)
+        tbdv.count_windows(bases.to(torch.int32), 0, 80, 21)
+    with pytest.raises(TypeError):
+        tbdv.count_windows(bases.reshape(8, 10), 0, 80, 21)
+    with pytest.raises(ValueError, match="contiguous"):
+        tbdv.count_windows(bases[::2], 0, 40, 21)
+    for lo, hi in ((-1, 80), (10, 9), (0, 81)):
+        with pytest.raises(ValueError, match="owned windows"):
+            tbdv.count_windows(bases, lo, hi, 21)
+    for k in (0, 64):
+        with pytest.raises(ValueError, match="outside 1..63"):
+            tbdv.count_windows(bases, 0, 80, k)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tbdv.count_windows(torch.empty(80, dtype=torch.uint8, device="meta"), 0, 80, 21)
+    assert tbdv.count_windows(bases[:20], 0, 20, 21)[0].shape == (0, 2)   # shorter than k
     cov = torch.ones(keys.shape[0], dtype=torch.int32)
     with pytest.raises(ValueError):
         tbdv.segment_reduce(keys, cov.long(), masks)
     with pytest.raises(ValueError):
         tbdv.segment_reduce(keys.long(), cov, masks)
     with pytest.raises(ValueError, match="piece exceeds"):
-        tbdv.pack_piece("A" * 100, None, 64)
+        tbdv.DeviceCounter(21, 64, "cpu")._count_piece(b"A" * 100)
     assert tbdv.LAUNCHES == before                     # no kernel on the CPU
     empty = tbdv.count_kmers_device(["ACG"], 21, device="cpu")
     assert empty[0].shape == (0, 2) and all(len(x) == 0 for x in empty[1:])
+
+
+def test_count_scratch_is_the_counts_own():
+    """ctk_count_windows' look-back scratch is its own (one status word a
+    tile of 4,096 windows), apart from ctk_segment_reduce's, with epochs of
+    its own."""
+    cpu = torch.device("cpu")
+    saved = tbdv._COUNT_SCRATCH.pop(cpu, None), tbdv._REDUCE_SCRATCH.pop(cpu, None)
+    try:
+        scratch, tiles, epoch = tbdv.count_scratch(cpu, 3 * 4096 + 1)
+        assert tiles == 4 and scratch.numel() == 6 and epoch == 1 and not scratch.any()
+        rs, _, repoch = tbdv.reduce_scratch(cpu, 100)
+        assert rs is not scratch and repoch == 1
+        assert tbdv.count_scratch(cpu, 100)[2] == 2 and tbdv.reduce_scratch(cpu, 100)[2] == 2
+    finally:
+        for table, entry in zip((tbdv._COUNT_SCRATCH, tbdv._REDUCE_SCRATCH), saved):
+            table.pop(cpu, None)
+            if entry is not None:
+                table[cpu] = entry
 
 
 # ---------------------------------------------------------------------------
 # kernels against the plain twins (card only)
 # ---------------------------------------------------------------------------
 
-def _piece(rng, k, n=5000, with_own=True):
-    seq = list(_genome(rng, n))
-    for pos in rng.integers(0, n, size=20):
-        seq[pos] = "N"
-    seq = "".join(seq) + "T" * 16 + "A" * 16 + "N" * k + "A" * 40
-    own = rng.random(len(seq)) < 0.95 if with_own else None
-    return tbdv.pack_piece(seq, own, 1 << 14)
+def _card_pieces(rng, k):
+    """(name, bytes, own_lo, own_hi) of the pieces the card tests hold the
+    count kernel to: mixed bytes with owned windows inside, every byte value
+    between runs of bases, all invalid, all valid, n not a multiple of 16, n
+    below one tile, n below k, and n over many tiles."""
+    mixed = _messy_bytes(rng, 5000) + b"T" * 16 + b"A" * 16 + b"N" * k + b"A" * 40
+    every = b"".join(_genome(rng, int(rng.integers(k, k + 30))).encode() + bytes([v])
+                     for v in range(256))
+    return [("mixed", mixed, 29, len(mixed) - 33), ("mixed, all owned", mixed, 0, len(mixed)),
+            ("every byte value", every, 0, len(every)),
+            ("all invalid", b"N" * 4000 + b"n" * 1000, 0, 5000),
+            ("all valid", _genome(rng, 9000).encode(), 0, 9000),
+            ("ragged", _messy_bytes(rng, 4099), 1, 4099),
+            ("below a tile", _messy_bytes(rng, 100), 0, 100),
+            ("below k", b"ACGTA" * (k // 5), 0, 5 * (k // 5)),
+            ("many tiles", _messy_bytes(rng, 200_003, odd=0.004), 7, 199_990)]
+
+
+def _count_into_poison(cuda, data, own_lo, own_hi, k, offset=0):
+    """One count_kernel launch on the piece's bytes (a view `offset` bytes
+    into its buffer, copied to 16-byte alignment) into poison-filled
+    buffers: (keys, masks, count tensor, room)."""
+    buf = torch.from_numpy(np.frombuffer(b"x" * offset + data, np.uint8).copy()).to(cuda)
+    bases = tbdv.aligned(buf[offset:])
+    room = max(0, min(own_hi, len(data) - k + 1) - own_lo)
+    keys = torch.full((room + 40, tk.words(k)), 0x5A5A5A5A, dtype=torch.int32, device=cuda)
+    masks = torch.full((room + 40,), 0x5A, dtype=torch.uint8, device=cuda)
+    count = torch.full((1,), -7, dtype=torch.int32, device=cuda)
+    tbdv.count_kernel(bases, own_lo, own_hi, k, keys, masks, count)
+    return keys, masks, count, room
+
+
+def _held_to_twin(cuda, got, data, own_lo, own_hi, k, what):
+    keys, masks, count, room = got
+    bases = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(cuda)
+    want = tbdv.count_windows_plain(bases, own_lo, own_hi, k)
+    m = int(count.item())
+    assert m == want[0].shape[0] <= room, what
+    assert torch.equal(keys[:m], want[0]) and torch.equal(masks[:m], want[1]), what
+    assert (keys[m:] == 0x5A5A5A5A).all() and (masks[m:] == 0x5A).all(), what   # nothing past m
+    return m
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [16, 21, 31, 32, 47, 48, 63])
 def test_windows_kernel_matches_twin_on_card(cuda, k):
-    """Launched into poison-filled buffers, every window's key and masks
-    equal the twin's, at the piece's end too; nothing past n is written."""
+    """Launched into poison-filled buffers, ctk_count_windows writes the
+    twin's rows in stream order and its count, and no row past the count,
+    on every piece of _card_pieces (and one a byte off its alignment);
+    then after its scratch's epochs wrap, with a ctk_segment_reduce launch
+    between two counts on one stream, and through count_windows."""
     rng = np.random.default_rng(k)
-    stream, valid, own, n = _piece(rng, k)
-    st, vt, ot = (tk.words_tensor(a, cuda) for a in (stream, valid, own))
-    w = tk.words(k)
-    keys = torch.full((n + 40, w), 0x5A5A5A5A, dtype=torch.int32, device=cuda)
-    masks = torch.full((n + 40,), 0x5A, dtype=torch.uint8, device=cuda)
+    pieces = _card_pieces(rng, k)
     before = tbdv.LAUNCHES["count_windows"]
-    tbdv.windows_kernel(st, vt, ot, k, n, keys[:n], masks[:n])
-    torch.cuda.synchronize()
-    assert tbdv.LAUNCHES["count_windows"] == before + 1
-    want = tbdv.windows_plain(st, vt, ot, k, n)
-    assert torch.equal(keys[:n], want[0]) and torch.equal(masks[:n], want[1])
-    assert (keys[n:] == 0x5A5A5A5A).all() and (masks[n:] == 0x5A).all()
-    got = tbdv.extract_windows(st, vt, ot, k, n)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for name, data, lo, hi in pieces:
+        m = _held_to_twin(cuda, _count_into_poison(cuda, data, lo, hi, k), data, lo, hi, k, name)
+        assert (m == 0) == (name in ("all invalid", "below k")), name
+    name, data, lo, hi = pieces[0]
+    _held_to_twin(cuda, _count_into_poison(cuda, data, lo, hi, k, offset=1), data, lo, hi, k,
+                  "a byte off")
+    assert tbdv.LAUNCHES["count_windows"] == before + len(pieces) + 1
+
+    dev = torch.device("cuda", torch.cuda.current_device())        # the tensors' device
+    tbdv._COUNT_SCRATCH[dev][1] = tbdv.EPOCH_LIMIT - 2
+    name, data, lo, hi = pieces[-1]
+    runs = []
+    for i in range(4):                                              # epochs L - 1, 1, 2, 3
+        runs.append(_count_into_poison(cuda, data, lo, hi, k))
+        if i == 1:
+            kd, cov, mk = runs[-1][0][:1000], torch.ones(1000, dtype=torch.int32, device=cuda), \
+                runs[-1][1][:1000]
+            order = tbdv.sort_order(kd)
+            tbdv.segment_reduce(kd[order], cov, mk[order])
+    assert tbdv._COUNT_SCRATCH[dev][1] == 3
+    for got in runs:
+        _held_to_twin(cuda, got, data, lo, hi, k, "epochs wrapped")
+    got = tbdv.count_windows(torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(cuda),
+                             lo, hi, k)
+    want = tbdv.count_windows_plain(torch.from_numpy(np.frombuffer(data, np.uint8).copy()), lo,
+                                    hi, k)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
 
 
 def _sorted_rows_for_card(rng, k, rows, shape):
@@ -475,6 +648,7 @@ def test_count_on_card_matches_host_without_any_twin(cuda, monkeypatch, k, chunk
         raise AssertionError("a twin ran on the card")
 
     monkeypatch.setattr(tbdv, "windows_plain", refuse)
+    monkeypatch.setattr(tbdv, "count_windows_plain", refuse)
     monkeypatch.setattr(tbdv, "reduce_plain", refuse)
     before = dict(tbdv.LAUNCHES)
     got = tbdv.count_kmers_device(reads, k, chunk_bases=chunk, device=cuda)

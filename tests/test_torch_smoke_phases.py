@@ -114,11 +114,18 @@ def rehearse() -> dict:
                 "local_bytes": 0, "blocks_per_sm": 16, "walks_per_thread": 1,
                 "resident_lanes": 128 * 16 * 132, "waves": 1}
 
-    def windows_kernel(stream, valid, own, k, n, keys, masks):
-        want = bdv.windows_plain(stream, valid, own, k, n)
-        keys.copy_(want[0])
-        masks.copy_(want[1])
+    def count_kernel(bases, own_lo, own_hi, k, keys, masks, count):
+        want = bdv.count_windows_plain(bases, own_lo, own_hi, k)
+        m = want[0].shape[0]
+        keys[:m] = want[0]
+        masks[:m] = want[1]
+        count.fill_(m)
         bdv.LAUNCHES["count_windows"] += 1
+
+    def count_kernel_info(k, lib=None):
+        # what ctk_count_windows_info reports at W = 3, for a card of 132 SMs
+        return {"threads": 256, "registers": 64, "blocks_per_sm": 4, "local_bytes": 0,
+                "shared_bytes": 55864, "tile_windows": 4096, "sms": 132}
 
     def reduce_kernel(keys, cov, masks, *out_count):
         *out, count = out_count
@@ -142,11 +149,13 @@ def rehearse() -> dict:
         ck.spec_walk_kernel(buckets, seeds, k, num_steps, *out)
         return out
 
-    def extract_windows(stream, valid, own, k, n):
-        keys = torch.empty((n, tk.words(k)), dtype=torch.int32)
-        masks = torch.empty(n, dtype=torch.uint8)
-        bdv.windows_kernel(stream, valid, own, k, n, keys, masks)
-        return keys, masks
+    def count_windows(bases, own_lo, own_hi, k):
+        rows = max(0, min(own_hi, bases.shape[0] - k + 1) - own_lo)
+        keys = torch.empty((rows, tk.words(k)), dtype=torch.int32)
+        masks = torch.empty(rows, dtype=torch.uint8)
+        count = torch.empty(1, dtype=torch.int32)
+        bdv.count_kernel(bases, own_lo, own_hi, k, keys, masks, count)
+        return keys[:int(count)], masks[:int(count)]
 
     def segment_reduce(keys, cov, masks):
         out = (torch.empty_like(keys), torch.empty_like(cov), torch.empty_like(masks))
@@ -156,7 +165,8 @@ def rehearse() -> dict:
 
     def entry_timers(kernels=None, entries=None):
         # the fakes launch nothing: each launch helper's call on the host clock
-        helpers = {"ht_lookup": (ht, "lookup_kernel"), "segment_reduce": (bdv, "reduce_kernel")}
+        helpers = {"ht_lookup": (ht, "lookup_kernel"), "segment_reduce": (bdv, "reduce_kernel"),
+                   "count_windows": (bdv, "count_kernel")}
         timers = {name: [] for name in entries}
         saved = {name: getattr(*helpers[name]) for name in entries}
 
@@ -180,7 +190,8 @@ def rehearse() -> dict:
     ht.lookup_kernel, ht.lookup = lookup_kernel, lookup
     ck.spec_walk_kernel, ck.walk_forward_spec = spec_walk_kernel, walk_forward_spec
     ck.kernel_info = kernel_info
-    bdv.windows_kernel, bdv.extract_windows = windows_kernel, extract_windows
+    bdv.count_kernel, bdv.count_windows = count_kernel, count_windows
+    bdv.count_kernel_info = count_kernel_info
     bdv.reduce_kernel, bdv.segment_reduce = reduce_kernel, segment_reduce
     small = 1 << 14                             # chunks small enough to merge
     bdv.CHUNK_BASES = small
@@ -404,9 +415,17 @@ def test_walk_table_and_build_phases_rehearse_on_cpu(tmp_path):
     # chunk, and the merges
     assert build["launches"]["count_windows"] >= 7
     assert build["launches"]["segment_reduce"] > build["launches"]["count_windows"]
-    parts = build["samples"]["kid"]["device_parts_s"]
-    assert set(parts) == {"pack", "transfer", "windows", "compact", "sort", "reduce", "merge"}
+    count = build["count_path"]
+    assert count["launches"] == build["launches"]["count_windows"] == len(count["launch_ms"])
+    assert count["path_ms"] > 0
+    for sample in build["samples"].values():
+        assert set(sample["device_parts_s"]) == {"encode", "transfer", "windows", "sort", "reduce",
+                                                 "merge", "finish", "counter", "fence", "graph"}
+        assert abs(sample["parts_share"] - 1) <= 0.05
+    assert set(build["genome"]["device_parts_s"]) == {"encode", "transfer", "windows", "sort",
+                                                      "reduce", "merge", "finish", "counter"}
     assert build["chunk"]["unique"] <= build["chunk"]["windows"] <= build["chunk"]["bases"]
+    assert build["chunk"]["windows_bound"]["bound_by"] == "bytes"
 
 
 def rehearse_mesh() -> dict:

@@ -102,7 +102,22 @@ Phases, one JSON line each (progress goes to stderr):
    (one launch a step over the four shards) timed at a call of those runs
    beside their bounds, ctk_link_step also at the linked step with the most
    needy walks, and each kernel's path_ms: the walk run and the linked walks
-   once more, every launch between its own CUDA events.
+   once more, every launch between its own CUDA events;
+13. cross: corticall_tpu_torch.pipeline.run_cross_pipeline over phase 4's
+   parents' reads and references with one progeny, kid2 (simulated from the
+   same parents with seeds of its own), the three builds on the device
+   count (CORTICALL_DEVICE_BUILD=1 for the phase only): the shared and
+   per-child seconds, the launches of the SW, Tesserae and count kernels
+   (each above 0), the parents' graphs written once in the shared workdir
+   with phase 4's bytes, and kid2's calls against its own truth;
+14. cli: the command line (corticall_tpu_torch.commands.cli.main, in this
+   process) over kid2's stage files: Build on the device count and Clean
+   against the stage's graph, Partition against core.partition on the same
+   files, AlignContigs against align_contigs, Call against the stage's VCF
+   and accounting bytes, FilterCalls' records against the stage's, each
+   command's seconds and the kernels' launches in Build, AlignContigs and
+   Call; and `python -m corticall_tpu_torch AlignContigs` in a subprocess,
+   the same TSV.
 
 Then one JSON line with each kernel's route, source, launches, error,
 times and bound (fifteen kernels), the nvidia-smi line, and the result line.
@@ -113,12 +128,15 @@ most of it host work (graph simulation and builds, the placements, the
 plain twins).
 """
 
+import glob
+import hashlib
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 sys.modules["jax"] = None          # the port must run without jax
 sys.modules["corticall_tpu"] = None  # and without the JAX package
@@ -606,6 +624,8 @@ def run_main_path(dev, mbp):
             pipeline_s = time.perf_counter() - t0
             with open(os.path.join(wd, "calls.vcf"), "rb") as f:
                 calls_vcf = f.read()
+            # the parents' graphs, for phase 13's cross to be held against
+            clean_sha = {s: sha256(os.path.join(wd, f"{s}.clean.ctx")) for s in ("mom", "dad")}
         launches = {"sw_banded": tsw.LAUNCHES, "tesserae": tt.LAUNCHES}
     finally:
         tsw.sw_banded, tt.tesserae_fused = sw_kernel, ts_kernel
@@ -615,7 +635,7 @@ def run_main_path(dev, mbp):
     return {"out": out, "res": res, "ev": ev, "launches": launches, "reads": reads,
             "sw_sent": sw_sent, "ts_sent": ts_sent, "section_targets": section_targets,
             "simulate_s": simulate_s, "refs": refs, "calls_vcf": calls_vcf,
-            "pipeline_s": pipeline_s}
+            "pipeline_s": pipeline_s, "parents": (mom, dad), "clean_sha": clean_sha}
 
 
 def check_main_path(mp) -> None:
@@ -2423,6 +2443,239 @@ def mesh_phase(dev, out, bench, mp) -> dict:
     return result
 
 
+# ---- phases 13-14: the cross and the command line ---------------------------
+
+KID2_SEEDS = (17, 19)                         # kid2's simulation and reads (phase 4's kid: 7, 11)
+PATH_KERNELS = ("sw_banded", "tesserae", "count_windows", "segment_reduce")
+# `python -m corticall_tpu_torch`, as phase 14's subprocess runs it
+CLI_COMMAND = [sys.executable, "-m", "corticall_tpu_torch"]
+
+
+def sha256(path) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def reset_launches() -> None:
+    tsw.LAUNCHES = tt.LAUNCHES = 0
+    for key in bdv.LAUNCHES:
+        bdv.LAUNCHES[key] = 0
+
+
+def read_launches() -> dict:
+    return {"sw_banded": tsw.LAUNCHES, "tesserae": tt.LAUNCHES, **bdv.LAUNCHES}
+
+
+def device_build():
+    """CORTICALL_DEVICE_BUILD=1 for a block only."""
+    return mock.patch.dict(os.environ, CORTICALL_DEVICE_BUILD="1")
+
+
+def cross_phase(dev, mp, wd) -> tuple[dict, dict]:
+    """Phase 13: run_cross_pipeline over phase 4's parents' reads and
+    references with one progeny, kid2 (simulated from the same parents with
+    seeds of its own), into `wd`, the builds on the device count
+    (CORTICALL_DEVICE_BUILD=1 for the phase only), launches counted.  The
+    parents' graphs must be written once, in the shared workdir only, with
+    the bytes of phase 4's native builds; kid2 must have calls and a true
+    positive against its own truth.  Returns the phase's fields and kid2's
+    reads and simulation, for phase 14."""
+    from corticall_tpu_torch import simulate as sim
+    from corticall_tpu_torch.demo import evaluate
+    from corticall_tpu_torch.pipeline import run_cross_pipeline
+
+    mom, dad = mp["parents"]
+    res = sim.simulate_haploid_child(mom, dad, parents=("mom", "dad"), mu=2.0,
+                                     num_variants=PF_DNMS, k=PF_K, seed=KID2_SEEDS[0])
+    reads = sim.simulate_reads(list(res["child"].values()), PF_COVERAGE, PF_READLEN, PF_ERR,
+                               seed=KID2_SEEDS[1])
+    reset_launches()
+    t0 = time.perf_counter()
+    with device_build():
+        out = run_cross_pipeline(wd, {s: mp["reads"][s] for s in ("mom", "dad")},
+                                 {"kid2": reads}, ["mom", "dad"], references=mp["refs"],
+                                 k=PF_K, min_coverage=2, max_walk=PF_MAX_WALK, resume=False,
+                                 device=dev, log=lambda *a: log(" ".join(map(str, a))))
+    torch.cuda.synchronize()
+    cross_s = time.perf_counter() - t0
+    launches = read_launches()
+    kid = out["per_sample"]["kid2"]
+    hashes = {s: sha256(os.path.join(wd, f"{s}.clean.ctx")) for s in ("mom", "dad")}
+    with open(os.path.join(wd, "state.json")) as f:
+        shared_stages = list(json.load(f)["stages"])
+    with open(os.path.join(wd, "kid2", "state.json")) as f:
+        kid_stages = list(json.load(f)["stages"])
+    ev = evaluate(kid["variants"], res["truth_vcf"], mom, dad, PF_K, recombs=res.get("recombs"))
+    fields = {
+        "progeny": out["progeny"], "cross_s": round(cross_s, 2),
+        "shared_parent_build_s": out["shared_parent_build_s"],
+        "kid2_wallclock_s": kid["wallclock_s"], "total_s": out["total_s"],
+        "kid2_stage_s": kid["stages"], "shared_stages": shared_stages,
+        "parents": out["parents"], "parent_graphs_equal_phase_4": hashes == mp["clean_sha"],
+        "launches": launches, "calls": len(kid["variants"]),
+        "calls_after_filter": len(kid["filtered_variants"]),
+        "partition_route": kid["stats"]["partition"].get("walk_kernel"),
+        "kmer_venn": ev["kmer_venn"], "strict_recovered": ev["strict_recovered"],
+        "truth": len(res["truth_vcf"])}
+    if any(not launches[name] for name in PATH_KERNELS):
+        raise AssertionError(f"a kernel of the cross never launched: {launches}")
+    if hashes != mp["clean_sha"]:
+        raise AssertionError(f"the cross's parent graphs differ from phase 4's: {hashes}")
+    if shared_stages != ["build_clean_mom", "build_clean_dad"] or \
+            any(s.startswith("build_clean_") and s != "build_clean_kid2" for s in kid_stages) or \
+            any(os.path.exists(os.path.join(wd, "kid2", f"{s}.clean.ctx")) for s in ("mom", "dad")):
+        raise AssertionError(f"the parents were not built once in the shared workdir: "
+                             f"{shared_stages}, {kid_stages}")
+    if not kid["variants"] or ev["kmer_venn"]["tp"] < 1:
+        raise AssertionError(f"kid2: {len(kid['variants'])} calls, {ev['kmer_venn']}")
+    if not out["shared_parent_build_s"] > 0 or not kid["wallclock_s"] > 0:
+        raise AssertionError(f"the cross's seconds: {fields}")
+    return fields, {"reads": reads, "res": res}
+
+
+def alignment_tsv(out) -> str:
+    """align_contigs' placements as AlignContigs writes them."""
+    rows = ["#contig\treference\tchrom\tstart\tend\tstrand\tscore\tmapq\tnm\tcigar\n"]
+    for qn in out:
+        for a in out[qn]:
+            rows.append("\t".join([qn, getattr(a, "reference", "?"), a.contig, str(a.start),
+                                   str(a.end), "-" if a.negative else "+", f"{a.score:g}",
+                                   str(a.mapq), str(a.nm), a.cigar]) + "\n")
+    return "".join(rows)
+
+
+def vcf_parts(path) -> tuple[list, list]:
+    with open(path) as f:
+        lines = f.read().splitlines()
+    return [ln for ln in lines if ln.startswith("#")], [ln for ln in lines if not ln.startswith("#")]
+
+
+def cli_phase(dev, mp, cross, wd) -> dict:
+    """Phase 14: the command line over kid2's stage files in phase 13's
+    workdir, through corticall_tpu_torch.commands.cli.main in this process
+    (so that the launches can be counted): Build (the device count) and
+    Clean of kid2's reads as FASTA against the stage's kid2.clean.ctx;
+    Partition (the CLI's defaults: max_walk 20,000) against core.partition
+    on the same loaded files; AlignContigs against align_contigs; Call, with
+    the links in the order run_pipeline hands them to its Caller, against
+    the stage's calls.vcf and accounting.txt, byte for byte; FilterCalls'
+    records against the stage's calls.filtered.vcf (the header lines that
+    differ are listed); and AlignContigs again as `python -m
+    corticall_tpu_torch` in a subprocess, the same TSV."""
+    from corticall_tpu_torch import graph as gr
+    from corticall_tpu_torch.commands import cli, core
+    from corticall_tpu_torch.io import fasta as faio, links as lkio
+    from corticall_tpu_torch.models.contig_aligner import align_contigs
+    from corticall_tpu_torch.models.reference_index import IndexedReference
+
+    kd, cd = os.path.join(wd, "kid2"), os.path.join(wd, "cli")
+    os.makedirs(cd)
+    stage = {name: os.path.join(kd, name) for name in os.listdir(kd)}
+    head = [] if dev.type == "cuda" else ["--device", str(dev)]
+    refs = {}
+    for s, seqs in zip(("mom", "dad"), mp["parents"]):
+        refs[s] = os.path.join(cd, f"{s}.fa")
+        faio.write_fasta(refs[s], seqs)
+    ref_args = [a for s, p in refs.items() for a in ("-R", f"{s}:{p}")]
+    reads_fa = os.path.join(cd, "kid2_reads.fa")
+    faio.write_fasta(reads_fa, {f"r{i}": r for i, r in enumerate(cross["reads"])})
+    seconds, launches, checks = {}, {}, {}
+
+    def run(name, *argv):
+        reset_launches()
+        t0 = time.perf_counter()
+        code = cli.main([*head, name, *argv])
+        torch.cuda.synchronize()
+        seconds[name] = round(time.perf_counter() - t0, 3)
+        launches[name] = read_launches()
+        if code != 0:
+            raise AssertionError(f"{name} exited {code}")
+        return os.path.join(cd, f"{name}.out")
+
+    def same_bytes(what, got, want):
+        with open(got, "rb") as f, open(want, "rb") as g:
+            checks[what] = f.read() == g.read()
+        if not checks[what]:
+            raise AssertionError(f"{what}: the command's bytes differ from {want}")
+
+    with device_build():
+        built = run("Build", "-1", reads_fa, "-k", str(PF_K), "-s", "kid2",
+                    "-o", os.path.join(cd, "Build.out"))
+    if not launches["Build"]["count_windows"] or not launches["Build"]["segment_reduce"]:
+        raise AssertionError(f"Build did not run the count kernels: {launches['Build']}")
+    same_bytes("clean", run("Clean", "-g", built, "-o", os.path.join(cd, "Clean.out")),
+               stage["kid2.clean.ctx"])
+
+    links = sorted(glob.glob(os.path.join(kd, "*.ctp.bgz")))
+    parts = run("Partition", "-g", stage["joined.ctx"], "-r", stage["rois.filtered.ctx"],
+                *[a for p in links for a in ("-l", p)], "-o", os.path.join(cd, "Partition.out"))
+    t0 = time.perf_counter()
+    want = core.partition(gr.CortexGraph.load(stage["joined.ctx"]),
+                          gr.CortexGraph.load(stage["rois.filtered.ctx"]),
+                          [lkio.read_links(p) for p in links], False, device=dev)
+    seconds["partition_in_process"] = round(time.perf_counter() - t0, 3)
+    with open(parts) as f:
+        checks["partition"] = f.read() == "".join(f">{h}\n{c}\n" for h, c in want)
+    if not checks["partition"]:
+        raise AssertionError("Partition differs from core.partition on the same files")
+
+    tsv = run("AlignContigs", "-c", stage["partitions.trimmed.fa"], *ref_args,
+              "-o", os.path.join(cd, "AlignContigs.out"))
+    t0 = time.perf_counter()
+    placed = align_contigs(dict(faio.read_fasta(stage["partitions.trimmed.fa"])),
+                           {s: IndexedReference(dict(faio.read_fasta(p)))
+                            for s, p in refs.items()}, band=512, stats={}, device=dev)
+    torch.cuda.synchronize()
+    seconds["align_contigs_in_process"] = round(time.perf_counter() - t0, 3)
+    with open(tsv) as f:
+        aligned = f.read()
+    checks["align_contigs"] = aligned == alignment_tsv(placed)
+    if not checks["align_contigs"]:
+        raise AssertionError("AlignContigs differs from align_contigs")
+
+    order = [f"{s}.ctp.bgz" for s in ("kid2", "mom", "dad")] + \
+        [f"ref_{s}.ctp.bgz" for s in ("mom", "dad")]
+    vcf = run("Call", "-g", stage["joined.ctx"], "-r", stage["rois.filtered.ctx"],
+              "-p", stage["partitions.trimmed.fa"], "-b", "mom", "-b", "dad", *ref_args,
+              *[a for name in order for a in ("-l", stage[name])],
+              "-o", os.path.join(cd, "Call.out"), "-ao", os.path.join(cd, "accounting.txt"))
+    same_bytes("calls_vcf", vcf, stage["calls.vcf"])
+    same_bytes("accounting", os.path.join(cd, "accounting.txt"), stage["accounting.txt"])
+
+    filtered = run("FilterCalls", "-v", vcf, *ref_args, "-o", os.path.join(cd, "FilterCalls.out"))
+    (got_head, got_rec), (want_head, want_rec) = vcf_parts(filtered), \
+        vcf_parts(stage["calls.filtered.vcf"])
+    checks["filter_calls_records"] = got_rec == want_rec
+    if not checks["filter_calls_records"]:
+        raise AssertionError("FilterCalls' records differ from the stage's")
+    header_diff = {"cli_only": [ln for ln in got_head if ln not in want_head],
+                   "stage_only": [ln for ln in want_head if ln not in got_head]}
+
+    sub_tsv = os.path.join(cd, "subprocess.tsv")
+    t0 = time.perf_counter()
+    proc = subprocess.run([*CLI_COMMAND, *head, "AlignContigs", "-c",
+                           stage["partitions.trimmed.fa"], *ref_args, "-o", sub_tsv],
+                          capture_output=True, text=True, timeout=900, cwd=REPO)
+    seconds["subprocess_align_contigs"] = round(time.perf_counter() - t0, 3)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m corticall_tpu_torch exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    with open(sub_tsv) as f:
+        checks["subprocess_align_contigs"] = f.read() == aligned
+    if not checks["subprocess_align_contigs"]:
+        raise AssertionError("the subprocess's TSV differs from the in-process run's")
+
+    for name in ("AlignContigs", "Call"):
+        if not launches[name]["sw_banded"] or (name == "Call" and not launches[name]["tesserae"]):
+            raise AssertionError(f"{name} did not run its kernels: {launches[name]}")
+    return {"seconds": seconds, "launches": {n: launches[n] for n in ("Build", "AlignContigs",
+                                                                      "Call")},
+            "checks": checks, "filter_calls_header_diff": header_diff,
+            "partitions": len(want), "alignments": aligned.count("\n") - 1,
+            "calls": len(vcf_parts(vcf)[1]), "filtered_calls": len(got_rec),
+            "subprocess_exit": proc.returncode}
+
+
 def main() -> int:
     dev = require_cuda()
     t_all = time.perf_counter()
@@ -2555,6 +2808,12 @@ def main() -> int:
     hp = mesh_phase(dev, out, bench, mp)
     emit("mesh_vs_plain", identical=True, **hp)
     del bench
+
+    # ---- 13-14. the cross, then the command line over its stage files ----
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cross_") as wd:
+        xp, kid2 = cross_phase(dev, mp, wd)
+        emit("cross", **xp)
+        emit("cli", **cli_phase(dev, mp, kid2, wd))
 
     prod, full, rp_sw, rp_ts = sw_times[0], sp["shapes"][0], rp["sw"], rp["tesserae"]
     replayed, chunk = pp["replay"], bp["chunk"]

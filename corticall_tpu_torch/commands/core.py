@@ -1,7 +1,8 @@
 """Command-layer core: graph algebra, ROI discovery, prefilters, Partition.
 
-The host functions (join, remove, FindROIs, the prefilters, the greedy
-partition emit and the exact host engine) are copies of
+The host functions (join, remove, FindROIs, the prefilters with
+FindShared, FindUnanchored and FindContamination, the greedy partition emit
+and the exact host engine) are copies of
 corticall_tpu/commands/core.py.  Partition takes the routes of the JAX
 package's partition:
 
@@ -225,6 +226,25 @@ def find_low_complexity(graph: gr.CortexGraph, roi: gr.CortexGraph, parents: lis
     return subset_colors(roi, [0], mask.astype(bool))
 
 
+def find_shared(graph: gr.CortexGraph, roi: gr.CortexGraph, parents: list,
+                ignore: list = ()) -> gr.CortexGraph:
+    """Excluded = ROI kmers covered in any joined-graph color that is neither
+    the child, a parent, nor ignored (FindShared.java)."""
+    child = roi.sample_name(0)
+    child_color = graph.color_for_sample(child)
+    parent_colors = set(graph.colors_for_samples(parents))
+    ignore_colors = set(graph.colors_for_samples(list(ignore))) if ignore else set()
+    other = [c for c in range(graph.num_colors)
+             if c != child_color and c not in parent_colors and c not in ignore_colors]
+    idx = graph.find_records(roi.kmers)
+    mask = np.zeros(roi.num_records, dtype=bool)
+    if other:
+        present = idx >= 0
+        cov = graph.coverages[np.maximum(idx, 0)][:, other]
+        mask = present & (cov > 0).any(axis=1)
+    return subset_colors(roi, [0], mask)
+
+
 def find_tips(graph: gr.CortexGraph, roi: gr.CortexGraph, parents: list,
               links=(), max_walk: int = 75000) -> gr.CortexGraph:
     """Excluded = novel-kmer chains anchored at one end only (FindTips.java:43-140).
@@ -324,6 +344,108 @@ def find_orphans(graph: gr.CortexGraph, roi: gr.CortexGraph, parents: list) -> g
                 for v in dfs.vertices():
                     orphans.add(v.canonical)
     return _excluded_subset(roi, orphans)
+
+
+def _combine_kmers(piece: list) -> str:
+    out = []
+    for s in piece:
+        out.append(s if not out else s[-1])
+    return "".join(out)
+
+
+def _split_contig_at_rois(contig: str, rois: set, k: int):
+    """(non-novel pieces, novel canonical kmers seen) — the piece splitting
+    shared by FindContamination/FindUnanchored (FindContamination.java:48-66)."""
+    pieces = []
+    piece: list = []
+    seen: set = set()
+    for i in range(len(contig) - k + 1):
+        sk = contig[i:i + k]
+        ck = min(sk, km.revcomp(sk))
+        if ck in rois:
+            if piece:
+                pieces.append(_combine_kmers(piece))
+                piece = []
+            seen.add(ck)
+        else:
+            piece.append(sk)
+    if piece:
+        pieces.append(_combine_kmers(piece))
+    return pieces, seen
+
+
+def find_unanchored(graph: gr.CortexGraph, roi: gr.CortexGraph, parents: list,
+                    lookups: dict, links=()) -> gr.CortexGraph:
+    """Excluded = novel chains whose flanking pieces place confidently on no
+    draft reference (FindUnanchored.java).  lookups: {name: IndexedReference}."""
+    child_color = graph.color_for_sample(roi.sample_name(0))
+    parent_colors = graph.colors_for_samples(parents)
+    k = graph.kmer_size
+    rois = {roi.kmer_string(i) for i in range(roi.num_records)}
+
+    e = TraversalEngine(TraversalConfig(
+        graph=graph, traversal_colors=[child_color],
+        joining_colors=list(parent_colors), direction=BOTH, combination=OR,
+        stopping_rule=ContigStopper, rois=roi, links=list(links)))
+
+    used: set = set()
+    unanchored: set = set()
+    for rk in sorted(rois):
+        if rk in used:
+            continue
+        contig = to_contig(e.walk(rk))
+        pieces, seen = _split_contig_at_rois(contig, rois, k)
+        has_alignments = False
+        for p in pieces:
+            for ir in lookups.values():
+                srs = ir.align(p)
+                if any(sr.mapq > 0 for sr in srs):
+                    has_alignments = True
+                    break
+            if has_alignments:
+                break
+        if not has_alignments:
+            unanchored |= seen
+        used |= seen
+    return _excluded_subset(roi, unanchored)
+
+
+def find_contamination(graph: gr.CortexGraph, roi: gr.CortexGraph, parents: list,
+                       contam: gr.CortexGraph, lookups: dict, links=()) -> gr.CortexGraph:
+    """Excluded = ROI kmers on contaminant-seeded chains whose pieces never
+    place confidently on any draft (FindContamination.java)."""
+    child_color = graph.color_for_sample(roi.sample_name(0))
+    parent_colors = graph.colors_for_samples(parents)
+    k = graph.kmer_size
+    rois = {roi.kmer_string(i) for i in range(roi.num_records)}
+
+    e = TraversalEngine(TraversalConfig(
+        graph=graph, traversal_colors=[child_color],
+        joining_colors=list(parent_colors), direction=BOTH, combination=OR,
+        stopping_rule=ContaminantStopper, rois=roi, links=list(links)))
+
+    seen_rois: dict = {s: False for s in rois}
+    contam_kmers: set = set()
+    for i in range(contam.num_records):
+        ck = contam.kmer_string(i)
+        if ck not in seen_rois or seen_rois[ck]:
+            continue
+        walk = e.walk(ck)
+        contig = to_contig(walk)
+        pieces, _ = _split_contig_at_rois(contig, rois, k)
+        well_aligned = False
+        for p in pieces:
+            for ir in lookups.values():
+                srs = ir.align(p)
+                if sum(1 for sr in srs if sr.mapq > 0) == 1:
+                    well_aligned = True
+        for v in walk:
+            canon = v.canonical
+            if canon in seen_rois:
+                seen_rois[canon] = True
+                if not well_aligned:
+                    contam_kmers.add(canon)
+    return _excluded_subset(roi, contam_kmers)
 
 
 # ---------------------------------------------------------------------------

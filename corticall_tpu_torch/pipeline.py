@@ -6,7 +6,9 @@ stats: per-sample Build+Clean, Join, Thread (reads and references), FindROIs,
 the prefilter chain, Partition (the port's routes), Trim, Call (the port's
 Caller: CUDA Tesserae and banded-SW kernels) and FilterCalls.  The resumable
 runner (`Pipeline`) and its file helpers are copies of the JAX package's.
-Graphs are always built on the host (native counting core).
+Graphs are built on the native counting core, or by the device count when
+CORTICALL_DEVICE_BUILD=1.  `run_cross_pipeline` is the cross: N progeny
+over parents built once.
 """
 
 from __future__ import annotations
@@ -287,6 +289,59 @@ def run_pipeline(workdir: str, reads_by_sample: dict, child: str,
         "stages": {n: pl.state.seconds(n) for n in pl.state.data["stages"]},
         "stats": {n: pl.state.stats(n) for n in pl.state.data["stages"]},
         "workdir": workdir,
+    }
+
+
+def run_cross_pipeline(workdir: str, parent_reads: dict, progeny_reads: dict,
+                       parents: list, references=None, log=None, device=None,
+                       **opts) -> dict:
+    """The cross (ProcessPfCross.wdl's N progeny over shared parents), as
+    corticall_tpu.pipeline.run_cross_pipeline: each parent built and cleaned
+    once into `{s}.clean.ctx` of the shared workdir, then run_pipeline for
+    every child in `workdir/<child>` over those graphs, with every option
+    (`resume` included) and `device` passed on.  `device` as run_pipeline's;
+    the parents' builds take the device count when CORTICALL_DEVICE_BUILD=1.
+    Returns the parents' records, `shared_parent_build_s`, `per_sample` (each
+    run_pipeline's result with its `wallclock_s`), `progeny` and `total_s`."""
+    device = resolve(device)
+    t_all = time.perf_counter()
+    pl = Pipeline(workdir, resume=opts.get("resume", True), log=log)
+    k = opts.get("k", 47)
+    min_coverage = opts.get("min_coverage", 2)
+    tip_length = opts.get("tip_length")
+    clean = opts.get("clean", True)
+
+    shared: dict = {}
+    for s in parents:
+        def compute(path, s=s):
+            g = bd.build_graph_from_reads(parent_reads[s], k, s, device=device)
+            raw = g.num_records
+            if clean:
+                g = bd.clean_graph(g, min_coverage=min_coverage,
+                                   tip_length=tip_length)
+            ctxio.write_ctx(path, g.data)
+            return g, {"raw_records": raw, "clean_records": g.num_records}
+        shared[s] = pl.stage(f"build_clean_{s}", [f"{s}.clean.ctx"],
+                             compute, _read_graph)
+    shared_s = round(time.perf_counter() - t_all, 2)
+
+    per_sample: dict = {}
+    for child in progeny_reads:
+        t0 = time.perf_counter()
+        res = run_pipeline(
+            os.path.join(workdir, child),
+            {child: progeny_reads[child], **parent_reads},
+            child, list(parents), references=references, log=log,
+            shared_graphs=shared, device=device, **opts)
+        res["wallclock_s"] = round(time.perf_counter() - t0, 2)
+        per_sample[child] = res
+
+    return {
+        "parents": {s: {"records": shared[s].num_records} for s in parents},
+        "shared_parent_build_s": shared_s,
+        "per_sample": per_sample,
+        "progeny": list(progeny_reads),
+        "total_s": round(time.perf_counter() - t_all, 2),
     }
 
 

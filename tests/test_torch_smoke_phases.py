@@ -114,27 +114,10 @@ def rehearse() -> dict:
                 "local_bytes": 0, "blocks_per_sm": 16, "walks_per_thread": 1,
                 "resident_lanes": 128 * 16 * 132, "waves": 1}
 
-    def count_kernel(bases, own_lo, own_hi, k, keys, masks, count):
-        want = bdv.count_windows_plain(bases, own_lo, own_hi, k)
-        m = want[0].shape[0]
-        keys[:m] = want[0]
-        masks[:m] = want[1]
-        count.fill_(m)
-        bdv.LAUNCHES["count_windows"] += 1
-
     def count_kernel_info(k, lib=None):
         # what ctk_count_windows_info reports at W = 3, for a card of 132 SMs
         return {"threads": 256, "registers": 64, "blocks_per_sm": 4, "local_bytes": 0,
                 "shared_bytes": 55864, "tile_windows": 4096, "sms": 132}
-
-    def reduce_kernel(keys, cov, masks, *out_count):
-        *out, count = out_count
-        want = bdv.reduce_tiles_plain(keys, cov, masks)
-        n = want[0].shape[0]
-        for o, w in zip(out, want):
-            o[:n] = w
-        count.fill_(n)
-        bdv.LAUNCHES["segment_reduce"] += 1
 
     def lookup(slots, keys, queries, max_probe, table=None):
         out = torch.empty(queries.shape[0], dtype=torch.int32)
@@ -148,20 +131,6 @@ def rehearse() -> dict:
                torch.empty(b, dtype=torch.bool), torch.empty(b, dtype=torch.int32))
         ck.spec_walk_kernel(buckets, seeds, k, num_steps, *out)
         return out
-
-    def count_windows(bases, own_lo, own_hi, k):
-        rows = max(0, min(own_hi, bases.shape[0] - k + 1) - own_lo)
-        keys = torch.empty((rows, tk.words(k)), dtype=torch.int32)
-        masks = torch.empty(rows, dtype=torch.uint8)
-        count = torch.empty(1, dtype=torch.int32)
-        bdv.count_kernel(bases, own_lo, own_hi, k, keys, masks, count)
-        return keys[:int(count)], masks[:int(count)]
-
-    def segment_reduce(keys, cov, masks):
-        out = (torch.empty_like(keys), torch.empty_like(cov), torch.empty_like(masks))
-        count = torch.empty(1, dtype=torch.int32)
-        bdv.reduce_kernel(keys, cov, masks, *out, count)
-        return tuple(x[:int(count)] for x in out)
 
     def entry_timers(kernels=None, entries=None):
         # the fakes launch nothing: each launch helper's call on the host clock
@@ -190,9 +159,8 @@ def rehearse() -> dict:
     ht.lookup_kernel, ht.lookup = lookup_kernel, lookup
     ck.spec_walk_kernel, ck.walk_forward_spec = spec_walk_kernel, walk_forward_spec
     ck.kernel_info = kernel_info
-    bdv.count_kernel, bdv.count_windows = count_kernel, count_windows
+    install_count_fakes(bdv, tk, torch)
     bdv.count_kernel_info = count_kernel_info
-    bdv.reduce_kernel, bdv.segment_reduce = reduce_kernel, segment_reduce
     small = 1 << 14                             # chunks small enough to merge
     bdv.CHUNK_BASES = small
     bdv.DeviceCounter.__init__.__defaults__ = (small, None)
@@ -212,6 +180,46 @@ def rehearse() -> dict:
              for i, s in enumerate(("kid", "mom", "dad"))}
     build = cs.build_phase(cpu, reads, genome)
     return {"walk": walk, "build": build}
+
+
+def install_count_fakes(bdv, tk, torch):
+    """The count kernels' launch helpers replaced by fakes that write their
+    plain twins' results and count a launch, and their wrappers by ones that
+    call the fakes on CPU tensors."""
+
+    def count_kernel(bases, own_lo, own_hi, k, keys, masks, count):
+        want = bdv.count_windows_plain(bases, own_lo, own_hi, k)
+        m = want[0].shape[0]
+        keys[:m] = want[0]
+        masks[:m] = want[1]
+        count.fill_(m)
+        bdv.LAUNCHES["count_windows"] += 1
+
+    def reduce_kernel(keys, cov, masks, *out_count):
+        *out, count = out_count
+        want = bdv.reduce_tiles_plain(keys, cov, masks)
+        n = want[0].shape[0]
+        for o, w in zip(out, want):
+            o[:n] = w
+        count.fill_(n)
+        bdv.LAUNCHES["segment_reduce"] += 1
+
+    def count_windows(bases, own_lo, own_hi, k):
+        rows = max(0, min(own_hi, bases.shape[0] - k + 1) - own_lo)
+        keys = torch.empty((rows, tk.words(k)), dtype=torch.int32)
+        masks = torch.empty(rows, dtype=torch.uint8)
+        count = torch.empty(1, dtype=torch.int32)
+        bdv.count_kernel(bases, own_lo, own_hi, k, keys, masks, count)
+        return keys[:int(count)], masks[:int(count)]
+
+    def segment_reduce(keys, cov, masks):
+        out = (torch.empty_like(keys), torch.empty_like(cov), torch.empty_like(masks))
+        count = torch.empty(1, dtype=torch.int32)
+        bdv.reduce_kernel(keys, cov, masks, *out, count)
+        return tuple(x[:int(count)] for x in out)
+
+    bdv.count_kernel, bdv.count_windows = count_kernel, count_windows
+    bdv.reduce_kernel, bdv.segment_reduce = reduce_kernel, segment_reduce
 
 
 def fake_timers(cs, torch):
@@ -584,3 +592,84 @@ def test_table_probe_builds_its_spec_inputs_on_cpu(tmp_path):
     sizes = json.loads(proc.stdout.strip().splitlines()[-1])["inputs"]
     assert sizes["seeds"] == 256 and sizes["device"] == "cpu"
     assert sizes["records"] > 19000 and sizes["buckets"] >= sizes["records"] // 2
+
+
+# `python -m corticall_tpu_torch` for phase 14's subprocess, with the
+# rehearsal's route to the SW pre-score's twin and without jax
+CLI_SHIM = ("import runpy, sys; sys.modules['jax'] = None; sys.modules['corticall_tpu'] = None; "
+            "from corticall_tpu_torch.models import contig_aligner as tca; "
+            "tca._device_ok = lambda device: True; tca.MIN_DEVICE_BATCH = 1; "
+            "runpy.run_module('corticall_tpu_torch', run_name='__main__')")
+
+
+def rehearse_cross(workdir) -> dict:
+    """Phases 13 (cross) and 14 (cli) on the CPU after phase 4's path at
+    20 kbp with 3 DNMs a child: the SW, Tesserae and count kernels replaced by fakes that run
+    their plain twins and count a launch, and the card's routes taken on the
+    CPU (the SW pre-score on every batch, Tesserae on the device class), so
+    that the phases' launch checks, hashes, links order and byte comparisons
+    run as they do on the card."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(TESTS))
+    import chip_smoke as cs
+    from corticall_tpu_torch.caller import call
+    from corticall_tpu_torch.models import contig_aligner as tca
+    from corticall_tpu_torch.ops import build_device as bdv, kmer as tk
+    from corticall_tpu_torch.ops import sw_device as tsw, tesserae_torch as tt
+
+    torch.set_num_threads(2)
+    fake_timers(cs, torch)
+    install_count_fakes(bdv, tk, torch)
+    sw, ts = tsw.sw_banded, tt.tesserae_fused
+
+    def sw_banded(*args, **kw):
+        out = sw(*args, **kw)
+        tsw.LAUNCHES += 1
+        return out
+
+    def tesserae_fused(*args, **kw):
+        out = ts(*args, **kw)
+        tt.LAUNCHES += 1
+        return out
+
+    tsw.sw_banded, tt.tesserae_fused = sw_banded, tesserae_fused
+    tca._device_ok, tca.MIN_DEVICE_BATCH = (lambda device: True), 1
+    make = call.Caller._make_tesserae
+    call.Caller._make_tesserae = lambda self, mode, *a: make(
+        self, "device" if mode == "auto" else mode, *a)
+    cs.CLI_COMMAND = [sys.executable, "-c", CLI_SHIM]
+    cs.PF_DNMS = 3
+    cpu = torch.device("cpu")
+    mp = cs.run_main_path(cpu, 0.02)
+    cs.check_main_path(mp)
+    cross, kid2 = cs.cross_phase(cpu, mp, workdir)
+    return {"main_launches": mp["launches"], "cross": cross,
+            "cli": cs.cli_phase(cpu, mp, kid2, workdir)}
+
+
+def test_cross_and_cli_phases_rehearse_on_cpu(tmp_path):
+    code = (f"import json, sys; sys.path.insert(0, {TESTS!r}); "
+            "import test_torch_smoke_phases as t; "
+            f"print(json.dumps(t.rehearse_cross({str(tmp_path / 'wd')!r})))")
+    env = {**os.environ, "CORTICALL_TPU_TESTS_ON_TPU": "1"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600, env=env, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    cross, cli = out["cross"], out["cli"]
+    assert cross["progeny"] == ["kid2"] and cross["parent_graphs_equal_phase_4"]
+    assert cross["shared_stages"] == ["build_clean_mom", "build_clean_dad"]
+    assert "build_clean_kid2" in cross["kid2_stage_s"] and "call" in cross["kid2_stage_s"]
+    assert all(cross["launches"][name] > 0 for name in
+               ("sw_banded", "tesserae", "count_windows", "segment_reduce"))
+    assert cross["calls"] > 0 and cross["kmer_venn"]["tp"] > 0
+    assert cli["checks"] == dict.fromkeys(
+        ("clean", "partition", "align_contigs", "calls_vcf", "accounting",
+         "filter_calls_records", "subprocess_align_contigs"), True)
+    assert cli["subprocess_exit"] == 0 and cli["calls"] == cross["calls"]
+    assert cli["launches"]["Build"]["count_windows"] > 0
+    assert cli["launches"]["AlignContigs"]["sw_banded"] > 0
+    assert cli["launches"]["Call"]["sw_banded"] > 0 and cli["launches"]["Call"]["tesserae"] > 0
+    assert set(cli["seconds"]) >= {"Build", "Clean", "Partition", "AlignContigs", "Call",
+                                   "FilterCalls", "subprocess_align_contigs"}

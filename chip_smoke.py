@@ -25,7 +25,9 @@ Phases, one JSON line each (progress goes to stderr):
    simulation truth (demo.evaluate's k-mer Venn);
 5. every SW batch and Tesserae section that the pipeline sent to a kernel,
    replayed through the plain twin on the card (any difference fails), and
-   the kernels timed at those shapes;
+   the kernels timed at those shapes; and the Tesserae delete state's FMA
+   term, ldel + leps * (j - 1) rounded once, of the kernel's device function
+   against the twin's at every j of the widest section;
 6. jump_vs_plain: the jump table of bench.py's graph (demo.build_bench_graph,
    a copy) at k=47 and 21M bases
    (about the flagship trio's 23.7M records), built by the kernels and by
@@ -117,13 +119,24 @@ Phases, one JSON line each (progress goes to stderr):
    and accounting bytes, FilterCalls' records against the stage's, each
    command's seconds and the kernels' launches in Build, AlignContigs and
    Call; and `python -m corticall_tpu_torch AlignContigs` in a subprocess,
-   the same TSV.
+   the same TSV;
+15. mesh_across_processes: the hash-sharded graph across two worker
+   processes on the card (corticall_tpu_torch/tools/dryrun_multihost.py's
+   workers, a torch.distributed group over gloo: NCCL cannot put two ranks
+   on one card), four shards each: phase 4's trio graph written as a .ctx,
+   each worker loading its byte range and sending the records to their
+   owners (every owned shard held against ShardedGraph.from_graph's), then
+   its block of a sharded walk of 262,144 trio record k-mers x 256 steps,
+   FindROIs and the linked ROI walks of phase 12, every output bit-identical
+   to phase 12's single-process mesh; the backend, each part's seconds, the
+   bytes exchanged and the sharding kernels' launches summed over the
+   workers.
 
 Then one JSON line with each kernel's route, source, launches, error,
 times and bound (fifteen kernels), the nvidia-smi line, and the result line.
 Any failure raises: the run exits non-zero and prints no result, as it does
 without a CUDA device or outside the repository.  Neither jax nor the JAX
-package (corticall_tpu) is ever imported.  About 12-13 minutes on one H100,
+package (corticall_tpu) is ever imported.  About 12-15 minutes on one H100,
 most of it host work (graph simulation and builds, the placements, the
 plain twins).
 """
@@ -679,6 +692,15 @@ def replay(mp) -> dict:
         ts["bound_ms"] += b_ms
         cluster = tt.kernel_config(args[1].shape[0], args[1].shape[1] + 1)[1]
         ts["clusters"][cluster] = ts["clusters"].get(cluster, 0) + 1
+    # the delete state's FMA term (ldel + leps * (j - 1), rounded once) of the
+    # kernel's device function against the twin's, every j of the widest section
+    widest = max(int(a[1].shape[1]) + 1 for a, _ in mp["ts_sent"])
+    params = mp["ts_sent"][0][0][3]
+    on_card = tt.delete_term_on_card(params, widest).cpu()
+    plain = tt.delete_term(params[0][0].cpu(), params[0][1].cpu(), widest)[0]
+    if not torch.equal(on_card.view(torch.int32), plain.view(torch.int32)):
+        raise AssertionError("the kernel's delete term differs from the twin's")
+    ts["delete_term_j"] = widest
     return {"sw_err": sw_err, "ts_err": ts_err, "sw_batches": len(mp["sw_sent"]),
             "sw_windows": sum(int(a[0].shape[0]) for a, _ in mp["sw_sent"]),
             "tesserae_sections": len(mp["ts_sent"]), "sw": sw, "tesserae": ts,
@@ -2214,7 +2236,7 @@ def plain_step(g, queries: np.ndarray, colors, k: int):
             advance.numpy())
 
 
-def mesh_phase(dev, out, bench, mp) -> dict:
+def mesh_phase(dev, out, bench, mp, ref=None) -> dict:
     """Phase 12: the hash-sharded graph (parallel/mesh.py) on MESH_SHARDS
     shards, all on the card.  The path (launches counted): on phase 6's
     graph, make_sharded_walk_run over phase 6's seeds x SPEC_STEPS (phase
@@ -2237,7 +2259,8 @@ def mesh_phase(dev, out, bench, mp) -> dict:
     MESH_CALL_SHARDS Callers, whose VCF must be phase 4's calls.vcf byte for
     byte.  Each kernel is timed at a call of the checked runs: ctk_route
     and ctk_shard_answer at step 1 of the linked walks (the size most of
-    their launches run at) and at step 0 of the walk run."""
+    their launches run at) and at step 0 of the walk run.  `ref`, when
+    given, takes what the cross-process phase is held to (trio_reference)."""
     from corticall_tpu_torch import kmer as km
     from corticall_tpu_torch.caller.call import Caller
     from corticall_tpu_torch.commands import core as tcore
@@ -2400,6 +2423,9 @@ def mesh_phase(dev, out, bench, mp) -> dict:
         raise AssertionError("the linked walks run with their launches timed differ")
     del timed_walk
 
+    if ref is not None:
+        ref.update(trio_reference(mesh, sgt, graph, child, parents, both, linked, b2))
+
     walk_rows, link_rows = mesh_kernel_rows(kept, errs), mesh_kernel_rows(link_kept, errs)
     kernels = {"route": {**link_rows["route"], "walk_step0": walk_rows["route"]},
                "shard_answer": {**link_rows["shard_answer"],
@@ -2441,6 +2467,129 @@ def mesh_phase(dev, out, bench, mp) -> dict:
     del sg, sgt, slt, walked, again, linked, kept, link_kept, most
     torch.cuda.empty_cache()
     return result
+
+
+def trio_reference(mesh, sgt, graph, child: int, parents: list, both, linked, b2: int) -> dict:
+    """What phase 15 is held to, from phase 12's single-process mesh on the
+    trio: the sharded walk of MESH_TRIO_SEEDS record k-mers (record i * 17
+    mod N, phase 11's) x SPEC_STEPS in the child's colour (bases, cycled,
+    steps), FindROIs (the ROI records in the graph's order and the count),
+    and the linked walks' seeds and streams (emitted, overflow and junctions
+    of the first b2 walks), all on the host."""
+    from corticall_tpu_torch.parallel import mesh as pm
+
+    n = graph.num_records
+    seeds = graph.kmers[(np.arange(MESH_TRIO_SEEDS, dtype=np.int64) * 17) % n]
+    walk = pm.make_sharded_walk_run(mesh, sgt, [child], graph.kmer_size, SPEC_STEPS)
+    bases, cycled, steps = walk(seeds, np.ones(len(seeds), dtype=bool))
+    masks, total = pm.make_sharded_find_rois(mesh, sgt, child, parents)()
+    roi = np.sort(np.concatenate([rec[m.cpu().numpy()] for rec, m in zip(sgt.records, masks)]))
+    return {"walk_seeds": seeds, "walk_bases": bases.cpu().numpy(),
+            "walk_cycled": cycled.cpu().numpy(), "walk_steps": steps.cpu().numpy(),
+            "roi_records": roi, "roi_total": total, "linked_seeds": both,
+            "linked_emitted": linked[0][:, :b2].cpu().numpy(),
+            "linked_overflow": linked[1][:b2].cpu().numpy(),
+            "linked_junctions": linked[2][:b2].cpu().numpy()}
+
+
+# ---- phase 15: the sharded graph across processes ---------------------------
+
+MESH_PROCESSES = 2                            # worker processes, both on the card
+MESH_PROCESS_SHARDS = 4                       # shards a process: 8 global shards
+MESH_PROCESS_TIMEOUT_S = 300                  # the workers' limit, then the phase fails
+MESH_TRIO_SEEDS = LINK_SEEDS                  # the trio walk's seeds: phase 11's record k-mers
+
+
+def process_mesh_phase(dev, out, ref) -> dict:
+    """Phase 15: the hash-sharded graph across MESH_PROCESSES processes
+    (corticall_tpu_torch/tools/dryrun_multihost.py's workers, a
+    torch.distributed group: gloo, since NCCL cannot put two ranks on the
+    one card), MESH_PROCESS_SHARDS shards each.  Phase 4's trio graph is
+    written as a .ctx and its links as .ctp files; each worker loads its
+    byte range, sends the records to their owners and walks its block of
+    phase 12's trio walk (MESH_TRIO_SEEDS x SPEC_STEPS), runs FindROIs and
+    its block of phase 12's linked ROI walks (both ways, PF_MAX_WALK steps).
+    Every output must equal phase 12's single-process mesh's bit for bit
+    (trio_reference), every sharding kernel must have launched in the
+    workers (their counts reset at their start), and a worker's failure or
+    timeout fails the phase."""
+    from corticall_tpu_torch.io import ctx as ctxio, links as lkio
+    from corticall_tpu_torch.tools import dryrun_multihost as dm
+
+    t_phase = time.perf_counter()
+    graph, links = out["graph"], out["links"]
+    child = graph.color_for_sample(out["rois"].sample_name(0))
+    parents = [graph.color_for_sample(p) for p in ("mom", "dad")]
+    shards = MESH_PROCESSES * MESH_PROCESS_SHARDS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as wd:
+        t0 = time.perf_counter()
+        ctx_path = os.path.join(wd, "trio.ctx")
+        ctxio.write_ctx(ctx_path, graph.data)
+        link_paths = []
+        for i, ld in enumerate(links):
+            link_paths.append(os.path.join(wd, f"trio_{i}.ctp"))
+            lkio.write_links(link_paths[-1], ld)
+        seeds = {}
+        for name in ("walk_seeds", "linked_seeds"):
+            words = np.asarray(ref[name], dtype=np.uint32)
+            pad = (-len(words)) % shards
+            seeds[name] = os.path.join(wd, f"{name}.npy")
+            np.save(seeds[name], np.concatenate([words, np.repeat(words[:1], pad, axis=0)]))
+        write_s = time.perf_counter() - t0
+        spec = {"ctx": ctx_path, "links": link_paths, "shards": shards,
+                "walk": {"seeds": seeds["walk_seeds"], "colors": [child], "steps": SPEC_STEPS},
+                "rois": {"child": child, "parents": parents},
+                "linked": {"seeds": seeds["linked_seeds"], "colors": [child],
+                           "steps": PF_MAX_WALK},
+                "check_shards": True, "out": os.path.join(wd, "result.npz")}
+        t0 = time.perf_counter()
+        workers = dm.run_workers(spec, MESH_PROCESSES, dev.type, wd,
+                                 timeout=MESH_PROCESS_TIMEOUT_S)
+        workers_s = time.perf_counter() - t0
+        got = dm.gather(spec)
+    b, b2 = len(ref["walk_seeds"]), ref["linked_emitted"].shape[1]
+    for name, a, want in (
+            ("walk bases", got["walk_bases"][:, :b], ref["walk_bases"]),
+            ("walk cycled", got["walk_cycled"][:b], ref["walk_cycled"]),
+            ("walk steps", got["walk_steps"][:b], ref["walk_steps"]),
+            ("ROI records", got["roi_records"], ref["roi_records"]),
+            ("linked emitted", got["linked_emitted"][:, :b2], ref["linked_emitted"]),
+            ("linked overflow", got["linked_overflow"][:b2], ref["linked_overflow"]),
+            ("linked junctions", got["linked_junctions"][:b2], ref["linked_junctions"])):
+        if a.shape != want.shape or not np.array_equal(a, want):
+            raise AssertionError(f"the cross-process mesh's {name} differ from phase 12's")
+    if int(got["roi_total"]) != ref["roi_total"]:
+        raise AssertionError("the cross-process FindROIs count differs from phase 12's")
+    if not all(w["shards_identical"] for w in workers):
+        raise AssertionError("an owned shard differs from ShardedGraph.from_graph's")
+    launches = {name: sum(w["launches"][name] for w in workers) for name in sh.LAUNCHES}
+    if dev.type == "cuda":
+        if not all(launches.values()):
+            raise AssertionError(f"a sharding kernel never launched in the workers: {launches}")
+        if launches["route"] != launches["shard_walk_step"] + launches["link_step"]:
+            raise AssertionError(f"a worker's step is not one route a step: {launches}")
+    parts = sorted({part for w in workers for part in w["seconds"]})
+    fields = {
+        "processes": MESH_PROCESSES, "global_shards": shards,
+        "shards_a_process": MESH_PROCESS_SHARDS, "backend": workers[0]["backend"],
+        "devices": [w["device"] for w in workers],
+        "records": graph.num_records,
+        "byte_range_records": [w["records_read"] for w in workers],
+        "owned_records": [w["records_owned"] for w in workers],
+        "walk_seeds": b, "max_steps": SPEC_STEPS, "steps": int(got["walk_steps"][:b].sum()),
+        "rois": int(got["roi_total"]), "linked_walks": b2, "linked_max_steps": PF_MAX_WALK,
+        "seconds": {part: max(w["seconds"].get(part, 0.0) for w in workers) for part in parts},
+        "bytes": {"load": sum(w["load_exchange"]["bytes"] for w in workers),
+                  "walk": sum(w["walk_exchange_bytes"] for w in workers),
+                  "linked": sum(w["linked_exchange_bytes"] for w in workers),
+                  "all": sum(w["exchange"]["bytes"] for w in workers)},
+        "collectives": sum(w["exchange"]["collectives"] for w in workers),
+        "launches": launches, "shards_identical": True, "identical_to_phase_12": True,
+        "write_s": round(write_s, 2), "workers_s": round(workers_s, 2),
+        "phase_s": round(time.perf_counter() - t_phase, 2)}
+    log(f"mesh across processes: {fields['backend']}, {workers_s:.1f} s, {fields['bytes']}, "
+        f"launches {launches}")
+    return fields
 
 
 # ---- phases 13-14: the cross and the command line ---------------------------
@@ -2805,7 +2954,8 @@ def main() -> int:
     emit("link_walk_vs_plain", identical=True, **lp)
 
     # ---- 12. the hash-sharded graph on four shards of the card -------------
-    hp = mesh_phase(dev, out, bench, mp)
+    trio_ref = {}
+    hp = mesh_phase(dev, out, bench, mp, trio_ref)
     emit("mesh_vs_plain", identical=True, **hp)
     del bench
 
@@ -2814,6 +2964,11 @@ def main() -> int:
         xp, kid2 = cross_phase(dev, mp, wd)
         emit("cross", **xp)
         emit("cli", **cli_phase(dev, mp, kid2, wd))
+
+    # ---- 15. the sharded graph across two processes on the card ----------
+    xp_mesh = process_mesh_phase(dev, out, trio_ref)
+    emit("mesh_across_processes", identical=True, **xp_mesh)
+    del trio_ref
 
     prod, full, rp_sw, rp_ts = sw_times[0], sp["shapes"][0], rp["sw"], rp["tesserae"]
     replayed, chunk = pp["replay"], bp["chunk"]
@@ -2904,7 +3059,8 @@ def main() -> int:
          "library_ms": None, "plain_lanes": lp["twin_lanes"]},
         *({"name": name, "route": "cuda", "source": source,
            "replaces": f"corticall_tpu/parallel/mesh.py:{line}",
-           "launches": hp["launches"][name], **hp["kernels"][name]}
+           "launches": hp["launches"][name], **hp["kernels"][name],
+           "process_mesh_launches": xp_mesh["launches"][name]}
           for name, source, line in (
               ("route", "corticall_tpu_torch/csrc/shard.cu", 111),
               ("shard_answer", "corticall_tpu_torch/csrc/shard.cu", 182),

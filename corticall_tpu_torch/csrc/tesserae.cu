@@ -71,6 +71,18 @@ __device__ __forceinline__ long long pack(int who, int state, int pos) {
   return ((long long)who << 25) | ((long long)state << 23) | (long long)pos;
 }
 
+// the delete state's constant term ldel + leps*(j-1), rounded once as XLA's
+// CPU backend contracts it into an FMA (tesserae_jax.py:63); the one FMA of
+// the kernel: --fmad=false keeps every other line two roundings, as in JAX
+__device__ __forceinline__ float delete_term(float ldel, float leps, int j) {
+  return __fmaf_rn(leps, (float)(j - 1), ldel);
+}
+
+__global__ void delete_term_kernel(const float* params, int W, float* out) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j < W) out[j] = delete_term(params[0], params[1], j);
+}
+
 // better (value, flat index): larger value, then smaller index (first argmax)
 __device__ __forceinline__ void take_better(float& v, int& idx, float ov, int oi) {
   if (ov > v || (ov == v && oi < idx)) {
@@ -357,7 +369,7 @@ tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
           const float adj = (j >= min_j - 1) ? m - leps * (float)j : kSmall;
           if (j == 0) run = -INFINITY;
           const float run_prev = (j == 0) ? kSmall : run;
-          const float d = (j >= min_j) ? (ldel + leps * (float)(j - 1)) + run_prev : kSmall;
+          const float d = (j >= min_j) ? delete_term(ldel, leps, j) + run_prev : kSmall;
           run = fmaxf(run, adj);
           if (i > 0) {
             const float mb = (j == 0 ? kSmall : vm[i > 0 ? i - 1 : 0]) + ldel;
@@ -499,4 +511,14 @@ extern "C" int ctk_tesserae(const int* q, const int* t_codes,
     case 16: return launch<16>(q, t_codes, valid, params, L, S, W, npad, cluster, threads, codes, rec, out, cap, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The delete term of ctk_tesserae for j = 0 .. W-1 (out float32[W]), from
+// the same params (ldel, leps first), for the tests that hold it to the
+// plain twin's tesserae_torch.delete_term.
+extern "C" int ctk_tesserae_delete_term(const float* params, int W, float* out,
+                                        cudaStream_t stream) {
+  if (W < 1) return (int)cudaErrorInvalidValue;
+  delete_term_kernel<<<(W + 255) / 256, 256, 0, stream>>>(params, W, out);
+  return (int)cudaGetLastError();
 }

@@ -73,6 +73,31 @@ def _pack(who, state, pos):
     return (who << 25) | (state << 23) | pos
 
 
+def delete_term(ldel: torch.Tensor, leps: torch.Tensor, width: int) -> torch.Tensor:
+    """The delete state's constant term ldel + leps * (j - 1) for j < width,
+    float32 [1, W], rounded once as a fused multiply-add rounds it: XLA's CPU
+    backend contracts tesserae_jax.py:63 into an FMA (jax 0.9.0), and the
+    kernel computes it with __fmaf_rn (csrc/tesserae.cu).  The product and
+    the sum are taken in float64 and rounded once to float32.  The product
+    is exact there: leps has 24 significant bits and |j - 1| < MAX_CELLS =
+    2^17 (kernel_config's largest width), 41 bits in all.  The sum is exact
+    while its bits span at most 53, which the caller's parameters decide
+    (the Caller's span 41); its rounding error, found by TwoSum, must be
+    zero, or this raises rather than round twice."""
+    if width > MAX_CELLS:
+        raise ValueError(f"width {width} over the {MAX_CELLS} the exact product holds")
+    a = ldel.to(torch.float64)
+    b = leps.to(torch.float64) * (torch.arange(width, dtype=torch.float64,
+                                               device=ldel.device) - 1)
+    s = a + b
+    bv = s - a
+    err = (a - (s - bv)) + (b - bv)
+    if bool((err != 0).any()):
+        raise ArithmeticError("ldel + leps * (j - 1) is not exact in float64 for these "
+                              "parameters: it cannot be rounded once")
+    return s.to(torch.float32)[None, :]
+
+
 def tesserae_scan(q_codes: torch.Tensor, t_codes: torch.Tensor,
                   valid: torch.Tensor, params):
     """Plain twin of tesserae_jax._tesserae_scan (unpadded: q_len = L).
@@ -97,6 +122,7 @@ def tesserae_scan(q_codes: torch.Tensor, t_codes: torch.Tensor,
     small_col = torch.full((s_count, 1), SMALL, dtype=torch.float32, device=dev)
     flat_ids = torch.arange(s_count * width * 2, device=dev)
     t_long = t_codes.long()
+    dconst = delete_term(ldel, leps, width)
 
     def shift(x):
         return torch.cat([small_col, x[:, :-1]], dim=1)
@@ -105,7 +131,7 @@ def tesserae_scan(q_codes: torch.Tensor, t_codes: torch.Tensor,
         adj = vm - leps * jf
         adj = torch.where(jj >= min_j - 1, adj, SMALL)
         run = torch.cummax(adj, dim=1).values
-        vd = ldel + leps * (jj - 1).to(torch.float32) + shift(run)
+        vd = dconst + shift(run)
         vd = torch.where(jj >= min_j, vd, SMALL)
         state = torch.where(shift(vm) + ldel >= shift(vd) + leps, M, D)
         return vd, state.to(torch.int32)
@@ -346,6 +372,22 @@ def tesserae_fused(q_codes: torch.Tensor, t_codes: torch.Tensor,
     _kernels.check(err, "tesserae")
     LAUNCHES += 1
     return out[1:2].view(torch.float32)[0], out[2:].view(cap, 3), out[0]
+
+
+def delete_term_on_card(params, width: int) -> torch.Tensor:
+    """ctk_tesserae's delete term for j < width (float32 [width] on the
+    card), from one launch of ctk_tesserae_delete_term on the same device
+    function the DP calls; held bit for bit against delete_term."""
+    scal = params[0]
+    if scal.device.type != "cuda":
+        raise ValueError("delete_term_on_card takes the parameters on a CUDA device")
+    out = torch.empty(width, dtype=torch.float32, device=scal.device)
+    prm = scal.reshape(-1).to(torch.float32).contiguous()
+    with torch.cuda.device(scal.device):
+        err = _kernels.library().ctk_tesserae_delete_term(
+            prm.data_ptr(), width, out.data_ptr(), _kernels.stream(scal.device))
+    _kernels.check(err, "tesserae_delete_term")
+    return out
 
 
 def section_inputs(query: str, seqs: list, hmm: tuple, device=None):

@@ -29,6 +29,21 @@ virtual devices share the host.
 - FindROIs scans each shard's coverages and sums the counts; Call runs one
   `Caller` a shard over round-robin partitions and merges in partition
   order.
+- Across processes (`ShardMesh.across`, the counterpart of the JAX
+  package's global mesh under jax.distributed, tools/dryrun_multihost.py):
+  the shards split over the ranks of a torch.distributed group in
+  contiguous blocks, each rank's on one device of its own.  A rank loads
+  only its byte range of the .ctx and sends each record to its owner
+  (`ShardedGraph.from_ctx_range`).  A step routes the rank's walks over
+  the global shard count, reads its owner offsets once, sends the counts
+  with one all_to_all_single and the queries with one more at those split
+  sizes (no fixed capacity), answers its owners' blocks with one
+  `sh.shard_answer` and returns the answers the same way, in each asker's
+  send order; the routed total is all-reduced, so that every rank runs the
+  same steps.  The backend is the caller's: NCCL where each rank has a
+  card of its own, gloo otherwise (its collectives take host tensors, so
+  the exchange is staged through pinned host buffers; the kernels stay on
+  the card).
 
 Not ported: the capacity-bounded exchange rounds (`_lookup_cap`, `pmax`,
 the `q_pad` guard, `pcast`), which exist for XLA's static shapes, and the
@@ -43,8 +58,10 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import kmer as km
+from ..io import ctx as ctxio
 from ..ops import cuckoo as ck
 from ..ops import kmer as tk
 from ..ops import sharding as sh
@@ -59,7 +76,11 @@ END_TEST_LAG = 2         # steps between a step and the host's test of its route
 class ShardMesh:
     """An ordered list of shard devices, one a shard; repeats allowed.
     `devices=None`: `num_shards` shards (default: one a card) round-robin
-    over the visible CUDA cards, RuntimeError without one."""
+    over the visible CUDA cards, RuntimeError without one.
+
+    A mesh across processes (`ShardMesh.across`) holds this rank's shards
+    only: `devices` and the shard-indexed lists of a ShardedGraph are
+    this rank's, `shards` their global ids, `size` the global count."""
 
     def __init__(self, devices=None, num_shards: int | None = None):
         if devices is None:
@@ -71,6 +92,44 @@ class ShardMesh:
         self.devices = [self._indexed(torch.device(d)) for d in devices]
         if not self.devices or (num_shards is not None and num_shards != len(self.devices)):
             raise ValueError(f"ShardMesh: {len(self.devices)} devices for {num_shards} shards")
+        self.num_shards = len(self.devices)
+        self.shards = list(range(self.num_shards))
+        self.group = self.backend = None
+        self.rank, self.world = 0, 1
+        self.stats = {"collectives": 0, "bytes": 0}     # what this rank sent
+        self._pinned: dict = {}
+
+    @classmethod
+    def across(cls, num_shards: int, device, group=None) -> "ShardMesh":
+        """The mesh of `num_shards` global shards over the ranks of a
+        torch.distributed group (default: the world), in contiguous equal
+        blocks, rank r holding shards r*m .. r*m + m - 1 (m = num_shards /
+        ranks), all on this rank's `device`.  The group's backend carries
+        the exchange: gloo (host tensors, staged through pinned buffers when
+        the device is a card) or nccl (a card a rank).  Raises past
+        sh.MAX_SHARDS global shards, whose per-owner tables ctk_route keeps
+        in shared memory."""
+        if not 1 <= num_shards <= sh.MAX_SHARDS:
+            raise ValueError(f"ShardMesh.across: {num_shards} shards; the route kernel's "
+                             f"per-owner tables hold at most MAX_SHARDS = {sh.MAX_SHARDS}")
+        if not dist.is_initialized():
+            raise RuntimeError("ShardMesh.across: torch.distributed is not initialized")
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+        if num_shards % world:
+            raise ValueError(f"ShardMesh.across: {num_shards} shards do not split evenly "
+                             f"over {world} ranks")
+        backend = dist.get_backend(group)
+        dev = cls._indexed(torch.device(device))
+        if backend == "nccl" and dev.type != "cuda":
+            raise ValueError("ShardMesh.across: the nccl backend needs a card a rank")
+        if backend not in ("nccl", "gloo"):
+            raise ValueError(f"ShardMesh.across: backend {backend!r} (nccl or gloo)")
+        m = num_shards // world
+        mesh = cls([dev] * m)
+        mesh.num_shards, mesh.shards = num_shards, list(range(rank * m, rank * m + m))
+        mesh.group = dist.group.WORLD if group is None else group
+        mesh.backend, mesh.rank, mesh.world = backend, rank, world
+        return mesh
 
     @staticmethod
     def _indexed(dev: torch.device) -> torch.device:
@@ -80,18 +139,115 @@ class ShardMesh:
 
     @property
     def size(self) -> int:
+        """The global shard count (every shard's owner modulus)."""
+        return self.num_shards
+
+    @property
+    def local(self) -> int:
+        """This process's shards."""
         return len(self.devices)
 
     def groups(self) -> list:
         """Each device once, in the order of its first shard, with the
-        shards it holds: [(device, [shard, ...])]."""
+        shards it holds (this process's, by their index among them):
+        [(device, [shard, ...])]."""
         held: dict = {}
         for s, dev in enumerate(self.devices):
             held.setdefault(dev, []).append(s)
         return list(held.items())
 
     def __repr__(self) -> str:
-        return f"ShardMesh({[str(d) for d in self.devices]})"
+        if self.group is None:
+            return f"ShardMesh({[str(d) for d in self.devices]})"
+        return (f"ShardMesh(rank {self.rank} of {self.world}, shards {self.shards} of "
+                f"{self.size} on {self.devices[0]}, {self.backend})")
+
+    # -- the collectives of a mesh across processes ---------------------------
+
+    def _host_buffer(self, role: str, shape, dtype) -> torch.Tensor:
+        """A view of this mesh's pinned host buffer for `role`, grown as
+        needed (reused by the next call of the same role)."""
+        need = int(np.prod(shape)) * torch.empty(0, dtype=dtype).element_size()
+        buf = self._pinned.get(role)
+        if buf is None or buf.numel() < need:
+            buf = torch.empty(max(need, 2 * (0 if buf is None else buf.numel()), 1 << 16),
+                              dtype=torch.uint8, pin_memory=True)
+            self._pinned[role] = buf
+        return buf[:need].view(dtype).view(shape)
+
+    def _staged(self, role: str, x: torch.Tensor) -> torch.Tensor:
+        """x on the host: itself, or copied into the pinned buffer for
+        `role` when it lies on a card."""
+        if x.device.type == "cpu":
+            return x.contiguous()
+        view = self._host_buffer(role, x.shape, x.dtype)
+        view.copy_(x)
+        return view
+
+    def _sent(self, nbytes: int) -> None:
+        self.stats["collectives"] += 1
+        self.stats["bytes"] += int(nbytes)
+
+    def all_to_all(self, role: str, x: torch.Tensor, out_splits: list,
+                   in_splits: list) -> torch.Tensor:
+        """One all_to_all_single of x's rows: in_splits[q] rows to rank q,
+        out_splits[q] from it, in rank order.  Returns the rows received on
+        x's device (gloo: through pinned host buffers; nccl: on the card)."""
+        dev = x.device
+        shape = (sum(out_splits), *x.shape[1:])
+        if self.backend == "gloo":
+            src = self._staged(role + ":in", x)
+            out = (torch.empty(shape, dtype=x.dtype) if dev.type == "cpu"
+                   else self._host_buffer(role + ":out", shape, x.dtype))
+        else:
+            src = x.to(self.devices[0]).contiguous()
+            out = torch.empty(shape, dtype=x.dtype, device=self.devices[0])
+        dist.all_to_all_single(out, src, list(out_splits), list(in_splits), group=self.group)
+        self._sent(src.numel() * src.element_size())
+        return out if out.device == dev else out.to(dev)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """x summed over the group, on the device the backend reduces on
+        (the host for gloo)."""
+        x = x.to("cpu" if self.backend == "gloo" else self.devices[0]).clone()
+        dist.all_reduce(x, group=self.group)
+        self._sent(x.numel() * x.element_size())
+        return x
+
+    def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's x (one shape on every rank) concatenated along
+        `dim` in rank order, on x's device; x itself in one process."""
+        if self.group is None:
+            return x
+        y = x.to("cpu" if self.backend == "gloo" else self.devices[0]).contiguous()
+        if y.dtype == torch.bool:
+            y = y.to(torch.uint8)
+        parts = [torch.empty_like(y) for _ in range(self.world)]
+        dist.all_gather(parts, y, group=self.group)
+        self._sent(y.numel() * y.element_size())
+        return torch.cat(parts, dim=dim).to(device=x.device, dtype=x.dtype)
+
+
+def choose_backend(device, world: int) -> str:
+    """The exchange's backend for `world` ranks on `device`: nccl when the
+    device is a card and every rank can have a card of its own, gloo
+    otherwise (the CPU, or ranks sharing a card: NCCL cannot put two ranks
+    on one device)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dist.is_nccl_available() and \
+            world <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def init_process_mesh(rank: int, world: int, address: str, device,
+                      backend: str | None = None) -> str:
+    """torch.distributed.init_process_group for a mesh across processes:
+    `address` as tcp://host:port, the backend `backend` or
+    choose_backend's.  Returns the backend."""
+    backend = backend or choose_backend(device, world)
+    dist.init_process_group(backend, init_method=address, world_size=world, rank=rank)
+    return backend
 
 
 def shard_of(kmers: np.ndarray, num_shards: int) -> np.ndarray:
@@ -120,23 +276,78 @@ class ShardedGraph:
 
     @classmethod
     def from_graph(cls, g, mesh: ShardMesh) -> "ShardedGraph":
-        n = mesh.size
-        shard = shard_of(g.kmers, n)
-        counts = np.bincount(shard, minlength=n)
-        nb = 4                               # one bucket count for every shard (mesh.py:68-70)
+        """Every shard of the mesh (this rank's, across processes) from the
+        whole graph."""
+        shard = shard_of(g.kmers, mesh.size)
+        counts = np.bincount(shard, minlength=mesh.size)
+        return cls._placed(g.kmer_size, mesh, counts, [
+            (sel, g.kmers[sel], g.coverages[sel], g.edges[sel])
+            for sel in (np.nonzero(shard == s)[0] for s in mesh.shards)])
+
+    @classmethod
+    def _placed(cls, k: int, mesh: ShardMesh, counts: np.ndarray, parts: list):
+        """The shards of `parts`, (records, kmers, coverages, edges) for each
+        of this process's shards, at one bucket count for every shard of the
+        mesh, from its largest (mesh.py:68-70)."""
+        nb = 4
         while nb * ck.BUCKET_SIZE * 0.5 < max(int(counts.max()), 1):
             nb *= 2
         kmers, edges, covs, buckets, records = [], [], [], [], []
-        for s, dev in enumerate(mesh.devices):
-            sel = np.nonzero(shard == s)[0]
-            words = np.ascontiguousarray(g.kmers[sel])
+        for (sel, words, cov, edge), dev in zip(parts, mesh.devices):
+            words = np.ascontiguousarray(words)
             records.append(sel)
             kmers.append(tk.words_tensor(words, dev))
-            edges.append(torch.from_numpy(np.ascontiguousarray(g.edges[sel])).to(dev))
-            covs.append(tk.words_tensor(g.coverages[sel], dev))
+            edges.append(torch.from_numpy(np.ascontiguousarray(edge)).to(dev))
+            covs.append(tk.words_tensor(np.ascontiguousarray(cov), dev))
             buckets.append(ck.build_cuckoo(words, np.arange(len(sel), dtype=np.uint32) + 1,
                                            num_buckets=nb, device=dev).buckets)
-        return cls(g.kmer_size, mesh, kmers, edges, covs, buckets, records, counts)
+        return cls(k, mesh, kmers, edges, covs, buckets, records, counts)
+
+    @classmethod
+    def from_ctx_range(cls, path, mesh: ShardMesh) -> "ShardedGraph":
+        """This rank's shards of the graph in the .ctx at `path`, loading only
+        the rank's byte range of its records (io.ctx.read_ctx_range, rank r
+        of R reading records r*N/R .. (r+1)*N/R) and sending each record to
+        its owner's rank: owners by shard_of, a stable sort by owner, the
+        per-owner counts with one all_to_all_single and the records
+        (words, coverages, edges and graph index as int32 columns) with one
+        more, received in rank order; the shard sizes all-reduced, so that
+        every shard takes the bucket count of the largest.  Each shard
+        equals from_graph's on the whole file: its records in the graph's
+        order, the same buckets.  One process (a mesh of one rank) reads the
+        whole file."""
+        n, m, world = mesh.size, mesh.local, mesh.world
+        total = ctxio.ctx_num_records(path)
+        lo, hi = mesh.rank * total // world, (mesh.rank + 1) * total // world
+        data = ctxio.read_ctx_range(path, lo, hi - lo)
+        k, w, c = data.header.kmer_size, data.kmers.shape[1], data.coverages.shape[1]
+        owner = shard_of(data.kmers, n)
+        order = np.argsort(owner, kind="stable")
+        rows = np.empty((hi - lo, w + 2 * c + 1), dtype=np.uint32)
+        rows[:, :w], rows[:, w:w + c] = data.kmers, data.coverages
+        rows[:, w + c:w + 2 * c], rows[:, -1] = data.edges, np.arange(lo, hi)
+        per_owner = np.bincount(owner, minlength=n)
+        if mesh.group is None:
+            got, counts = rows[order], per_owner.reshape(1, n)
+        else:
+            counts = mesh.all_to_all("load_counts", torch.from_numpy(per_owner), [m] * world,
+                                     [m] * world).reshape(world, m).numpy()
+            sent = per_owner.reshape(world, m).sum(1).tolist()
+            got = mesh.all_to_all("load_rows", torch.from_numpy(rows[order].view(np.int32)),
+                                  counts.sum(1).tolist(), sent).numpy().view(np.uint32)
+        # owner j's records: its block of every sender's rows, senders in rank order
+        starts = np.concatenate([[0], np.cumsum(counts.reshape(-1))])
+        parts = []
+        for j in range(m):
+            mine = np.concatenate([got[starts[q * m + j]:starts[q * m + j + 1]]
+                                   for q in range(counts.shape[0])])
+            parts.append((mine[:, -1].astype(np.int64), mine[:, :w], mine[:, w:w + c],
+                          mine[:, w + c:w + 2 * c].astype(np.uint8)))
+        sizes = np.zeros(n, dtype=np.int64)
+        sizes[mesh.shards] = [len(p[0]) for p in parts]
+        if mesh.group is not None:
+            sizes = mesh.all_reduce(torch.from_numpy(sizes)).cpu().numpy()
+        return cls._placed(k, mesh, sizes, parts)
 
 
 @dataclass
@@ -195,12 +406,41 @@ def routed_exchange(mesh: ShardMesh, sg: ShardedGraph, cur: list, colors, links=
     groups = mesh.groups()
     routes = [sh.route(c, a, k, n, [c.shape[0] // len(held)] * len(held))
               for c, a, (_, held) in zip(cur, active or [None] * len(groups), groups)]
+    if mesh.group is not None:
+        return _exchange_processes(mesh, sg, routes[0], colors, links)
     if len(groups) > 1:
         return _exchange_across(mesh, sg, routes, colors, links)
     r = routes[0]
     ans = sh.shard_answer(r.send, r.offsets, sg.buckets, sg.edges, colors,
                           None if links is None else [links.csr(t) for t in range(n)])
     return routes, [ans], r.offsets[n:]
+
+
+def _exchange_processes(mesh: ShardMesh, sg: ShardedGraph, r, colors, links):
+    """The exchange of a mesh across processes, on every rank: one host read
+    of the route's owner offsets; the counts of each rank's owners to that
+    rank (one all_to_all_single), then the queries at those split sizes
+    (one more), received rank after rank, each rank's block its owners'
+    blocks in turn; one shard_answer over them (an owner descriptor for
+    every (rank, owner) block); the answers back the same way, so that
+    they arrive in this rank's send order.  The routed total is summed over
+    the group (every rank runs the step the others run)."""
+    n, m, world = mesh.size, mesh.local, mesh.world
+    offs = r.offsets.cpu().to(torch.int64)
+    per_owner = offs[1:] - offs[:-1]
+    sent = (offs[m::m] - offs[:-1:m]).tolist()           # rows to each rank
+    counts = mesh.all_to_all("counts", per_owner, [m] * world, [m] * world)
+    got = counts.reshape(world, m).sum(1).tolist()          # rows from each rank
+    recv = mesh.all_to_all("queries", r.send[:int(offs[n])], got, sent)
+    starts = torch.zeros(world * m + 1, dtype=torch.int64)
+    torch.cumsum(counts, 0, out=starts[1:])
+    dev = mesh.devices[0]
+    ans = sh.shard_answer(recv, starts.to(torch.int32).to(dev), sg.buckets * world,
+                          sg.edges * world, colors,
+                          None if links is None else [links.csr(j) for j in range(m)] * world)
+    back = mesh.all_to_all("answers", ans, sent, got)
+    routed = mesh.all_reduce(offs[n:].to(torch.int32))
+    return [r], [back], routed
 
 
 def _exchange_across(mesh: ShardMesh, sg: ShardedGraph, routes: list, colors, links):
@@ -285,7 +525,7 @@ def _split(mesh: ShardMesh, x) -> list:
     blocks, gathered a device: the blocks of its shards in mesh order, on
     it (one tensor a device of mesh.groups())."""
     x = _tensor(x)
-    n = mesh.size
+    n = mesh.local
     if x.shape[0] % n:
         raise ValueError(f"{x.shape[0]} rows do not split over {n} shards")
     per = x.shape[0] // n
@@ -306,7 +546,7 @@ def _gather(mesh: ShardMesh, parts: list, dim: int = 0) -> torch.Tensor:
     for part, (_, held) in zip(parts, groups):
         for s, block in zip(held, part.chunk(len(held), dim)):
             blocks[s] = block.to(first)
-    return torch.cat([blocks[s] for s in range(mesh.size)], dim=dim)
+    return torch.cat([blocks[s] for s in range(mesh.local)], dim=dim)
 
 
 def _lookup(mesh, sg, queries, colors, links=None):
@@ -386,7 +626,8 @@ def make_sharded_walk_step(mesh: ShardMesh, sg: ShardedGraph, colors, k: int):
     def run(cur, active):
         states = _walk(mesh, sg, cur, active, colors, 1, cycle_check=False)
         advanced = _gather(mesh, [st.active for st in states]).to(torch.bool)
-        return _gather(mesh, [st.cur for st in states]), advanced, int(advanced.sum())
+        return (_gather(mesh, [st.cur for st in states]), advanced,
+                _group_sum(mesh, int(advanced.sum())))
 
     return run
 
@@ -428,17 +669,28 @@ def make_sharded_linked_walk_run(mesh: ShardMesh, sg: ShardedGraph, sl: ShardedL
     return run
 
 
+def _group_sum(mesh: ShardMesh, x: int) -> int:
+    """x summed over a mesh's ranks (x itself in one process)."""
+    if mesh.group is None:
+        return x
+    return int(mesh.all_reduce(torch.tensor([x], dtype=torch.int64))[0])
+
+
 def _both_ways(mesh: ShardMesh, run, seeds: list, k: int):
     """run() over the seeds and over their reverse complements, each batch
     padded to a multiple of the shard count with its first seed (mesh.py
     :483-484): ((outputs of the forward batch), (of the reverse), the
-    reverse complements), each output cut to the seeds as numpy."""
+    reverse complements), each output cut to the seeds as numpy.  Across
+    processes each rank walks its shards' blocks of the batch and every
+    rank gets every output (all-gathered in rank order)."""
     rc = [km.revcomp(s) for s in seeds]
 
     def batch(strs):
         padded = strs + [strs[0]] * ((-len(strs)) % mesh.size)
-        out = run(km.pack_codes(km.strings_to_codes(padded), k),
-                  np.ones(len(padded), dtype=bool))
+        per = len(padded) // mesh.world
+        mine = padded[mesh.rank * per:(mesh.rank + 1) * per]
+        out = run(km.pack_codes(km.strings_to_codes(mine), k), np.ones(len(mine), dtype=bool))
+        out = [mesh.all_gather(out[0], dim=1), *(mesh.all_gather(x) for x in out[1:])]
         rows = out[0].t().cpu().numpy()[:len(strs)]
         return (rows, *(x.cpu().numpy()[:len(strs)] for x in out[1:]))
 
@@ -489,7 +741,8 @@ def make_sharded_find_rois(mesh: ShardMesh, sg: ShardedGraph, child_color: int,
                            parent_colors: list):
     """Sharded FindROIs scan (mesh.py:502; FindROIs.java:72-82: novel iff
     the child's coverage is > 0 and every parent's is 0): fn() -> (a bool
-    mask of each shard's records, the total)."""
+    mask of each shard's records, the total over every shard; across
+    processes, this rank's masks and the total summed over the group)."""
     parents = list(parent_colors)
 
     def run():
@@ -499,7 +752,7 @@ def make_sharded_find_rois(mesh: ShardMesh, sg: ShardedGraph, child_color: int,
             for p in parents:
                 mask &= covs[:, p] == 0
             masks.append(mask)
-        return masks, sum(int(m.sum()) for m in masks)
+        return masks, _group_sum(mesh, sum(int(m.sum()) for m in masks))
 
     return run
 
@@ -507,7 +760,8 @@ def make_sharded_find_rois(mesh: ShardMesh, sg: ShardedGraph, child_color: int,
 def sharded_find_rois_kmers(mesh: ShardMesh, sg: ShardedGraph, child_color: int,
                             parent_colors: list) -> np.ndarray:
     """ROI k-mers (canonical uint32 words, lexicographically sorted, the
-    order FindROIs writes records in) from the sharded scan (mesh.py:533)."""
+    order FindROIs writes records in) from the sharded scan (mesh.py:533);
+    across processes, those of this rank's shards."""
     masks, _ = make_sharded_find_rois(mesh, sg, child_color, parent_colors)()
     kmers = np.concatenate([km_s[m].cpu().numpy().view(np.uint32)
                             for km_s, m in zip(sg.kmers, masks)])
@@ -528,6 +782,8 @@ def sharded_call(mesh: ShardMesh, graph, rois, partitions: list, backgrounds, re
     from ..caller.call import Caller
     from ..caller.variants import VariantSorterSet
 
+    if mesh.group is not None:
+        raise ValueError("sharded_call runs its Callers in one process, on a mesh of devices")
     n = mesh.size
     opts = dict(caller_opts or {})
     tagged = []

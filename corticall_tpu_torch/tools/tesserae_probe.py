@@ -3,6 +3,7 @@
 
     python3 corticall_tpu_torch/tools/tesserae_probe.py barriers
     python3 corticall_tpu_torch/tools/tesserae_probe.py ablate
+    python3 corticall_tpu_torch/tools/tesserae_probe.py turns DIR
 
 barriers: the cost of one iteration of __syncthreads(), cluster.sync()
 (release/acquire), a relaxed cluster barrier and a five-step warp-shuffle
@@ -13,6 +14,11 @@ ablate: csrc/tesserae.cu rebuilt with parts of its column loop compiled out
 the smoke run's largest section and on a synthetic 16 x 64 section, each at
 a few (cells a thread, cluster, threads) shapes.  Each variant runs in its
 own process, since an ablated kernel may fault.
+
+turns DIR: ctk_tesserae of this checkout and of the checkout at DIR (built
+there by its own _kernels.build; the two share the entry point's ABI), timed
+in turns (DIR, this, this, DIR) on chip_smoke.py's phase-3 sections: each
+turn the sum of every section's CUDA-event time (3 launches each).
 
 JSON lines on stdout, then the card's name and power limit.  Builds go to
 the git-ignored build/probe/.
@@ -232,6 +238,39 @@ def ablate() -> None:
             print(json.dumps({"variant": list(ABLATIONS)[index], "failed": proc.returncode}))
 
 
+def turns(other: str) -> None:
+    """This checkout's ctk_tesserae and `other`'s, in turns, on the smoke
+    sections (see the module docstring)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "from corticall_tpu_torch.ops import _kernels; print(_kernels.build()['path'])",
+         os.path.abspath(other)], capture_output=True, text=True, check=True)
+    theirs = ctypes.CDLL(proc.stdout.strip().splitlines()[-1])
+    for name in ("ctk_tesserae", "ctk_error_string"):
+        getattr(theirs, name).restype = (ctypes.c_int if name == "ctk_tesserae"
+                                         else ctypes.c_char_p)
+    theirs.ctk_tesserae.argtypes = list(_kernels._SIGNATURES["ctk_tesserae"])
+    theirs.ctk_error_string.argtypes = [ctypes.c_int]
+    ours = _kernels.library()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20260)
+    sections = [tt.section_inputs(q, list(t.values()), cs.CALLER_PARAMS, dev)
+                for q, t in cs.tesserae_sections(rng) + [cs.wide_section(rng)]]
+    real = _kernels.library
+    try:
+        for turn, (label, lib) in enumerate([(other, theirs), (".", ours), (".", ours),
+                                             (other, theirs)]):
+            _kernels.library = lambda lib=lib: lib
+            for args in sections[:1]:
+                tt.tesserae_fused(*args)              # warm
+            ms = [cs.event_ms(lambda: tt.tesserae_fused(*args), 3) for args in sections]
+            print(json.dumps({"turn": turn, "repo": label, "sections": len(sections),
+                              "ms": round(sum(ms), 3), "section_ms": [round(x, 3) for x in ms]}),
+                  flush=True)
+    finally:
+        _kernels.library = real
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("tesserae_probe needs a CUDA device")
@@ -243,6 +282,8 @@ def main() -> int:
     elif what == "ablate-one":
         ablate_one(int(sys.argv[2]))
         return 0
+    elif what == "turns":
+        turns(sys.argv[2])
     else:
         raise SystemExit(__doc__)
     print(cs.nvidia_smi())

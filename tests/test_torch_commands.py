@@ -2,9 +2,10 @@
 JAX package's, twin by twin: the same inputs into both packages, equal
 outputs.  Twins of tests/test_commands.py (FindShared, FindUnanchored, the
 command-line round trip), test_extra_commands.py, test_more_commands.py
-(test_walk_checkpoint_resume's twin is in test_torch_walk_table.py; XMFA is
-not ported yet), test_inheritance.py, test_bam_index.py and test_utils.py's
-statistics, GFF, table, GFA and visualizer tests."""
+(test_walk_checkpoint_resume's twin is in test_torch_walk_table.py,
+test_xmfa's in test_torch_library.py), test_inheritance.py,
+test_bam_index.py and test_utils.py's statistics, GFF, table, GFA and
+visualizer tests (test_containers' twin is in test_torch_library.py)."""
 
 import json
 import os

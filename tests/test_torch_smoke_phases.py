@@ -673,3 +673,110 @@ def test_cross_and_cli_phases_rehearse_on_cpu(tmp_path):
     assert cli["launches"]["Call"]["sw_banded"] > 0 and cli["launches"]["Call"]["tesserae"] > 0
     assert set(cli["seconds"]) >= {"Build", "Clean", "Partition", "AlignContigs", "Call",
                                    "FilterCalls", "subprocess_align_contigs"}
+
+
+# ---- phase 15: the sharded graph across processes ---------------------------
+
+def install_mesh_fakes() -> None:
+    """The four sharding wrappers replaced by fakes that run their plain
+    twins (chip_smoke.MESH_TWINS) and count a launch, as rehearse_mesh's;
+    in a worker process of dryrun_multihost."""
+    sys.path.insert(0, os.path.dirname(TESTS))
+    import torch
+
+    import chip_smoke as cs
+    from corticall_tpu_torch.ops import sharding as sh
+
+    torch.set_num_threads(1)
+
+    def fake(name):
+        def launch(*args):
+            sh.LAUNCHES[name] += 1
+            return cs.MESH_TWINS[name](*args)
+        return launch
+
+    for name in cs.MESH_TWINS:
+        setattr(sh, name, fake(name))
+
+
+def worker_shim(fail_rank) -> str:
+    """The worker command's code: the fakes installed, then the dry run's
+    worker; rank `fail_rank` exits with code 3 before it joins the group."""
+    return (f"import json, sys; sys.path.insert(0, {TESTS!r}); "
+            "import test_torch_smoke_phases as t; t.install_mesh_fakes(); "
+            f"sys.exit(3) if int(sys.argv[2]) == {fail_rank!r} else None; "
+            "from corticall_tpu_torch.tools import dryrun_multihost as dm; "
+            "print(json.dumps(dm.worker(int(sys.argv[2]), int(sys.argv[3]), "
+            "int(sys.argv[4]), sys.argv[5])))")
+
+
+def rehearse_process_mesh(fail_rank=None) -> dict:
+    """Phase 15 at a tiny size on the CPU: the link trio's reference from
+    chip_smoke.trio_reference on four in-process CPU shards (512 walks of 64
+    steps, the ROI seeds' linked walks of 256), then process_mesh_phase's
+    two workers (eight global shards, gloo) with the fakes installed in
+    each.  Returns the phase's fields."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(TESTS))
+    import chip_smoke as cs
+    from corticall_tpu_torch import kmer as km
+    from corticall_tpu_torch.parallel import mesh as pm
+    from corticall_tpu_torch.tools import dryrun_multihost as dm
+
+    torch.set_num_threads(1)
+    cs.SPEC_STEPS, cs.PF_MAX_WALK, cs.MESH_TRIO_SEEDS = 64, 256, 512
+    out = link_trio()
+    graph, rois = out["graph"], out["rois"]
+    child = graph.color_for_sample(rois.sample_name(0))
+    parents = [graph.color_for_sample(p) for p in ("mom", "dad")]
+    mesh = pm.ShardMesh(["cpu"] * cs.MESH_SHARDS)
+    sgt = pm.ShardedGraph.from_graph(graph, mesh)
+    slt = pm.ShardedLinks.from_graph(graph, out["links"], sgt)
+    cks = sorted(rois.kmer_string(i) for i in range(rois.num_records))
+    both = cks + [km.revcomp(s) for s in cks]
+    b2 = len(both)
+    both = km.pack_codes(km.strings_to_codes(both + both[:(-b2) % cs.MESH_SHARDS]),
+                         graph.kmer_size)
+    run = pm.make_sharded_linked_walk_run(mesh, sgt, slt, [child], graph.kmer_size,
+                                          cs.PF_MAX_WALK)
+    linked = run(both, np.ones(len(both), dtype=bool))
+    ref = cs.trio_reference(mesh, sgt, graph, child, parents, both, linked, b2)
+    dm.WORKER_COMMAND = [sys.executable, "-c", worker_shim(fail_rank)]
+    return cs.process_mesh_phase(torch.device("cpu"), out, ref)
+
+
+def test_process_mesh_phase_rehearses_on_cpu(tmp_path):
+    """The phase's fields: gloo, two processes of four shards, every part's
+    seconds, the bytes it exchanged and the fakes' launches summed over the
+    workers (one route a step), its outputs equal to the reference."""
+    code = (f"import json, sys; sys.path.insert(0, {TESTS!r}); "
+            "import test_torch_smoke_phases as t; print(json.dumps(t.rehearse_process_mesh()))")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["backend"] == "gloo" and out["processes"] == 2 and out["global_shards"] == 8
+    assert out["devices"] == ["cpu", "cpu"] and out["shards_a_process"] == 4
+    assert out["identical_to_phase_12"] and out["shards_identical"]
+    assert sum(out["byte_range_records"]) == out["records"] == sum(out["owned_records"])
+    assert out["walk_seeds"] == 512 and out["steps"] > 0 and out["rois"] > 0
+    for part in ("init", "load", "full_load", "walk", "rois", "links_build", "links"):
+        assert out["seconds"][part] >= 0
+    assert all(out["bytes"][part] > 0 for part in ("load", "walk", "linked", "all"))
+    assert out["bytes"]["all"] >= out["bytes"]["walk"] + out["bytes"]["linked"]
+    launches = out["launches"]
+    assert all(launches.values())
+    assert launches["route"] == launches["shard_walk_step"] + launches["link_step"]
+    assert launches["shard_answer"] <= launches["route"]
+
+
+def test_process_mesh_phase_fails_with_a_worker(tmp_path):
+    """A worker that exits with an error fails the phase (and so the run)."""
+    code = (f"import json, sys; sys.path.insert(0, {TESTS!r}); "
+            "import test_torch_smoke_phases as t; t.rehearse_process_mesh(fail_rank=1)")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600, cwd=str(tmp_path))
+    assert proc.returncode != 0
+    assert "worker 1 failed (exit 3)" in proc.stderr

@@ -3,7 +3,9 @@ JAX package's _tesserae_full on CPU XLA and its own CUDA kernel against the
 plain twin: traceback cells identical, max_r within 1e-6 relative (equal in
 bits on the card, where both sides run the same float32 operations)."""
 
+import json
 import math
+import os
 
 import numpy as np
 import pytest
@@ -308,3 +310,157 @@ def test_kernel_configs_match_plain_on_card(cuda, case, config):
                                   want_cells[:want_n].cpu().numpy())
     assert np.float32(max_r.item()).view(np.int32) == \
         np.float32(want_r.item()).view(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# the delete state's FMA: ldel + leps * (j - 1) rounded once
+#
+# These tests pin XLA's CPU contraction at this jax version (0.9.0): its CPU
+# backend fuses tesserae_jax.py:63's multiply and add into one FMA, and the
+# port rounds that term once to match.  A jax upgrade that stops (or widens)
+# the contraction fails them here, and the port's rounding must follow it.
+# ---------------------------------------------------------------------------
+
+CROSS_SECTION = os.path.join(os.path.dirname(__file__), "data", "tesserae_cross_section.json")
+
+
+def _cross_section():
+    """The 820 bp, 8-target Call section of tests/test_torch_cross.py's
+    kid1 (recorded from that cross), where a twice-rounded delete term puts
+    an 8-base deletion one base from the JAX package's."""
+    with open(CROSS_SECTION) as f:
+        sec = json.load(f)
+    return sec["query"], sec["targets"]
+
+
+def tie_prone_sections(seed: int = 7, count: int = 60) -> list:
+    """`count` seeded sections of 80-300 bp built around a C run, 2-5
+    targets each with 2% substitutions and a deletion or a duplication next
+    to the run, and a query with a 1-8 base deletion at the run's end: gaps
+    among equal bases, whose placement a float32 tie decides."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        n = int(rng.integers(80, 301))
+        run = "C" * int(rng.integers(4, 10))
+        at = int(rng.integers(20, n - 30))
+        base = _genome(rng, at) + run + _genome(rng, n - at - len(run))
+
+        def variant(s):
+            b = list(s)
+            for i in np.nonzero(rng.random(len(b)) < 0.02)[0]:
+                b[i] = "ACGT"[int(rng.integers(0, 4))]
+            s = "".join(b)
+            kind = int(rng.integers(0, 3))
+            if kind == 1:
+                d, p = int(rng.integers(1, 9)), at + len(run) - int(rng.integers(0, 3))
+                s = s[:p] + s[p + d:]
+            elif kind == 2:
+                lo = max(0, at - int(rng.integers(2, 10)))
+                hi = at + len(run) + int(rng.integers(1, 8))
+                s = s[:hi] + s[lo:hi] + s[hi:]
+            return s
+
+        targets = {f"t{i}": variant(base) for i in range(int(rng.integers(2, 6)))}
+        d, p = int(rng.integers(1, 9)), at + len(run) - int(rng.integers(0, 3))
+        out.append((base[:p] + base[p + d:], targets))
+    return out
+
+
+@pytest.mark.parametrize("prm", PARAMS)
+def test_delete_term_is_xla_cpus_contraction(prm):
+    """delete_term equals XLA's CPU FMA of the same expression bit for bit
+    at every j of the widest section the kernel takes, and differs from the
+    twice-rounded float32 expression at some j (so the rounding matters)."""
+    jax = pytest.importorskip("jax")
+    jnp = pytest.importorskip("jax.numpy")
+    scal, _, _ = tt.tesserae_params(*prm, 1234.0)
+    width = tt.MAX_CELLS
+    ldel, leps = np.float32(scal[0]), np.float32(scal[1])
+    xla = jax.jit(lambda a, b: a + b * (jnp.arange(width, dtype=jnp.int32) - 1).astype(
+        jnp.float32))(ldel, leps)
+    got = tt.delete_term(scal[0], scal[1], width)
+    assert got.shape == (1, width) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy()[0].view(np.int32),
+                                  np.asarray(xla).view(np.int32))
+    exact = np.float64(ldel) + np.float64(leps) * (np.arange(width, dtype=np.float64) - 1)
+    np.testing.assert_array_equal(got.numpy()[0], exact.astype(np.float32))
+    twice = ldel + leps * (np.arange(width, dtype=np.float32) - 1)
+    assert (got.numpy()[0] != twice).any()
+
+
+def test_delete_term_refuses_a_sum_it_cannot_round_once():
+    """A term whose float64 sum is inexact raises instead of rounding twice,
+    and a width past the kernel's largest raises."""
+    with pytest.raises(ArithmeticError):
+        tt.delete_term(torch.tensor(1.0), torch.tensor(2.0 ** -60), 8)
+    with pytest.raises(ValueError):
+        tt.delete_term(torch.tensor(-1.0), torch.tensor(-0.1), tt.MAX_CELLS + 1)
+
+
+def test_twin_matches_jax_on_the_cross_section():
+    """The 820 bp cross section: the plain twin's cells equal
+    _tesserae_full's (unpadded), and the port's TesseraeDevice gives the
+    JAX package's device path and float32 llk exactly."""
+    pytest.importorskip("jax")
+    from corticall_tpu.ops import tesserae_jax as tj
+    query, targets = _cross_section()
+    prm = PARAMS[1]
+    args = _inputs(query, targets, prm)
+    q, t_codes, valid = (x.numpy() for x in args[:3])
+    size_l = float(sum(map(len, targets.values())))
+    want_r, want_cells, want_n = tj._tesserae_full(
+        q, t_codes, valid, _jax_params(*prm, size_l), t_codes.shape[0], t_codes.shape[1] + 1,
+        np.int32(len(q)))
+    max_r, cells, n = tt.tesserae_full(*args)
+    assert n == int(want_n)
+    np.testing.assert_array_equal(cells.numpy()[:n], np.asarray(want_cells)[:n])
+    assert float(max_r) == float(want_r)
+    dev, ref = tt.TesseraeDevice(*prm, device="cpu"), tj.TesseraeDevice(*prm)
+    got = dev.align(query, targets)
+    assert got == ref.align(query, targets)
+    assert dev.llk == ref.llk
+    assert any("CCAAGAG" in seg[1] and "--------" in seg[1] for seg in got)
+
+
+def test_twin_matches_jax_on_tie_prone_sections():
+    """60 seeded tie-prone sections: the port's TesseraeDevice gives the
+    JAX package's device path and float32 llk on every one."""
+    pytest.importorskip("jax")
+    from corticall_tpu.ops import tesserae_jax as tj
+    prm = PARAMS[1]
+    dev, ref = tt.TesseraeDevice(*prm, device="cpu"), tj.TesseraeDevice(*prm)
+    differ = []
+    for i, (query, targets) in enumerate(tie_prone_sections()):
+        got, want = dev.align(query, targets), ref.align(query, targets)
+        if got != want or dev.llk != ref.llk:
+            differ.append(i)
+    assert not differ, f"sections {differ} differ from the JAX package's"
+
+
+@pytest.mark.cuda
+def test_kernel_delete_term_matches_plain_on_card(cuda):
+    """The kernel's delete term (the device function ctk_tesserae calls)
+    equals the twin's bit for bit at every j up to the widest section the
+    kernel takes."""
+    for prm in PARAMS:
+        params = tt.tesserae_params(*prm, 1234.0, cuda)
+        got = tt.delete_term_on_card(params, tt.MAX_CELLS)
+        want = tt.delete_term(params[0][0].cpu(), params[0][1].cpu(), tt.MAX_CELLS)[0]
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
+                                      want.numpy().view(np.int32))
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_fma_sections_on_card(cuda):
+    """The cross section and the tie-prone sections through the kernel
+    against the twin: cells and max_r bit for bit."""
+    for query, targets in [_cross_section(), *tie_prone_sections()]:
+        args = _inputs(query, targets, PARAMS[1], cuda)
+        max_r, cells, n = tt.tesserae_fused(*args)
+        want_r, want_cells, want_n = tt.tesserae_full(*args)
+        assert int(n) == want_n
+        np.testing.assert_array_equal(cells[:want_n].cpu().numpy(),
+                                      want_cells[:want_n].cpu().numpy())
+        assert np.float32(max_r.item()).view(np.int32) == \
+            np.float32(want_r.item()).view(np.int32)

@@ -15,14 +15,20 @@ Phases, one JSON line each (progress goes to stderr):
    (B=8, Q=336, S=464, band 512); Tesserae on 8 recombinant sections of
    2-16 targets of 500-4000 bp and one of 80 targets of 200-300 bp (past
    the JAX package's 63-target word; its path also held against the host
-   oracle), with the cluster each ran on.  Outputs must be bit-identical;
+   oracle), with the cluster each ran on; then the kernel's wide form on
+   three sections past the register form's 131,072 cells that the budget
+   gate sends to the device (256 targets of 512 bases with a 500 bp query,
+   600 targets of 150-256 bases, and the gate's largest, 16,384 x 64
+   bases), each beside its bound.  Outputs must be bit-identical;
    the times are CUDA-event kernel times and synchronized host times of the
    twin, beside each kernel's bound;
 4. the main path: a 2 Mbp / 2-chromosome / 20-DNM trio (the port's
-   demo.make_cross, 20x reads of 150 bp) through corticall_tpu_torch
-   .pipeline.run_pipeline, with every kernel launch counted, the target
-   counts of the sections Call aligned, and the calls scored against the
-   simulation truth (demo.evaluate's k-mer Venn);
+   demo.simulate_cross, 20x reads of 150 bp) through the flagship demo's
+   reads mode (demo.reads_pipeline, which run_reads_pipeline runs:
+   corticall_tpu_torch.pipeline.run_pipeline and the scoring), with every
+   kernel launch counted, the target counts of the sections Call aligned,
+   and the calls scored against the simulation truth (demo.evaluate's
+   k-mer Venn);
 5. every SW batch and Tesserae section that the pipeline sent to a kernel,
    replayed through the plain twin on the card (any difference fails), and
    the kernels timed at those shapes; and the Tesserae delete state's FMA
@@ -130,7 +136,10 @@ Phases, one JSON line each (progress goes to stderr):
    FindROIs and the linked ROI walks of phase 12, every output bit-identical
    to phase 12's single-process mesh; the backend, each part's seconds, the
    bytes exchanged and the sharding kernels' launches summed over the
-   workers.
+   workers;
+16. haplotype_flow: the flagship demo's haplotype mode
+   (demo.run_haplotype_flow) on phase 4's cross, Call on the card, with the
+   SW and Tesserae launches counted.
 
 Then one JSON line with each kernel's route, source, launches, error,
 times and bound (fifteen kernels), the nvidia-smi line, and the result line.
@@ -364,6 +373,30 @@ def wide_section(rng):
             {f"t{i}": lut[c].tobytes().decode() for i, c in enumerate(seqs)})
 
 
+def wide_form_sections(rng):
+    """Sections past the register form that TesseraeDevice's budget gate
+    sends to the device: 256 targets of 512 bases with a 500 bp query, 600
+    targets of 150-256 bases with a 256 bp query, and the gate's largest,
+    16,384 targets of 64 bases with a 64 bp query; each query a mosaic of
+    two or three targets with 0.5% substitutions."""
+    lut = np.frombuffer(b"ACGT", np.uint8)
+    out = []
+    for s_count, lens, qlen in ((256, (512, 512), 500), (600, (150, 256), 256),
+                                (16_384, (64, 64), 64)):
+        seqs = [rng.integers(0, 4, int(rng.integers(lens[0], lens[1] + 1)))
+                for _ in range(s_count)]
+        pick = rng.choice(s_count, 3, replace=False)
+        for i in pick:
+            seqs[i] = rng.integers(0, 4, lens[1])
+        cut = sorted(int(x) for x in rng.integers(qlen // 5, 4 * qlen // 5, 2))
+        query = mutate(rng, np.concatenate([seqs[pick[0]][:cut[0]],
+                                            seqs[pick[1]][cut[0]:cut[1]],
+                                            seqs[pick[2]][cut[1]:qlen]]), 0.005)
+        out.append((lut[query].tobytes().decode(),
+                    {f"t{i}": lut[c].tobytes().decode() for i, c in enumerate(seqs)}))
+    return out
+
+
 def event_ms(fn, reps):
     """Mean CUDA-event time of fn() over reps launches, after a warm-up."""
     fn()
@@ -581,29 +614,16 @@ def oracle_check(query, targets, dev) -> list:
 
 
 def run_main_path(dev, mbp):
-    """Simulate the trio, run the port's pipeline with every kernel launch
-    counted and every kernel input recorded, and score the calls."""
-    from corticall_tpu_torch import simulate as sim
-    from corticall_tpu_torch.demo import evaluate, make_cross
-    from corticall_tpu_torch.models.reference_index import IndexedReference
-    from corticall_tpu_torch.pipeline import run_pipeline
+    """Simulate the trio and run the port's flagship demo in reads mode
+    (demo.reads_pipeline, what run_reads_pipeline runs) with every kernel
+    launch counted and every kernel input recorded; the demo scores the
+    calls."""
+    from corticall_tpu_torch.demo import reads_pipeline, simulate_cross
 
     t0 = time.perf_counter()
-    prng = np.random.default_rng(42)
-    mom, dad = make_cross(prng, mbp, PF_CHROMS, PF_DIVERGENCE)
-    res = sim.simulate_haploid_child(mom, dad, parents=("mom", "dad"), mu=2.0,
-                                     num_variants=PF_DNMS, k=PF_K, seed=7)
-    reads = {
-        "kid": sim.simulate_reads(list(res["child"].values()), PF_COVERAGE,
-                                  PF_READLEN, PF_ERR, seed=11),
-        "mom": sim.simulate_reads(list(mom.values()), PF_COVERAGE, PF_READLEN,
-                                  PF_ERR, seed=12),
-        "dad": sim.simulate_reads(list(dad.values()), PF_COVERAGE, PF_READLEN,
-                                  PF_ERR, seed=13),
-    }
-    refs = {"mom": IndexedReference(mom), "dad": IndexedReference(dad)}
+    mom, dad, res = simulate_cross(mbp, PF_CHROMS, PF_DNMS, PF_K, PF_DIVERGENCE)
     simulate_s = time.perf_counter() - t0
-    log(f"simulated the trio in {simulate_s:.1f} s")
+    log(f"simulated the cross in {simulate_s:.1f} s")
 
     sw_sent, ts_sent, section_targets = [], [], []
     sw_kernel, ts_kernel = tsw.sw_banded, tt.tesserae_fused
@@ -625,30 +645,29 @@ def run_main_path(dev, mbp):
 
     tsw.sw_banded, tt.tesserae_fused = sw_recorded, ts_recorded
     tt.TesseraeDevice.align = align_recorded
-    tsw.LAUNCHES = tt.LAUNCHES = 0
+    stages = {}
+    tsw.LAUNCHES = tt.LAUNCHES = tt.WIDE_LAUNCHES = 0
     try:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
-            t0 = time.perf_counter()
-            out = run_pipeline(wd, reads, child="kid", parents=["mom", "dad"],
-                               references=refs, k=PF_K, min_coverage=2,
-                               max_walk=PF_MAX_WALK, resume=False, device=dev,
-                               log=lambda *a: log(" ".join(map(str, a))))
+            demo, run = reads_pipeline(res, mom, dad, res["truth_vcf"], PF_K, PF_COVERAGE,
+                                         PF_READLEN, PF_ERR, wd, stages, device=dev,
+                                         log=lambda *a: log(" ".join(map(str, a))))
             torch.cuda.synchronize()
-            pipeline_s = time.perf_counter() - t0
             with open(os.path.join(wd, "calls.vcf"), "rb") as f:
                 calls_vcf = f.read()
             # the parents' graphs, for phase 13's cross to be held against
             clean_sha = {s: sha256(os.path.join(wd, f"{s}.clean.ctx")) for s in ("mom", "dad")}
-        launches = {"sw_banded": tsw.LAUNCHES, "tesserae": tt.LAUNCHES}
+        launches = {"sw_banded": tsw.LAUNCHES, "tesserae": tt.LAUNCHES,
+                    "tesserae_wide": tt.WIDE_LAUNCHES}
     finally:
         tsw.sw_banded, tt.tesserae_fused = sw_kernel, ts_kernel
         tt.TesseraeDevice.align = align
-    ev = evaluate(out["variants"], res["truth_vcf"], mom, dad, PF_K,
-                  recombs=res.get("recombs"))
-    return {"out": out, "res": res, "ev": ev, "launches": launches, "reads": reads,
-            "sw_sent": sw_sent, "ts_sent": ts_sent, "section_targets": section_targets,
-            "simulate_s": simulate_s, "refs": refs, "calls_vcf": calls_vcf,
-            "pipeline_s": pipeline_s, "parents": (mom, dad), "clean_sha": clean_sha}
+    return {"out": run["result"], "res": res, "ev": run["ev"], "launches": launches,
+            "reads": run["reads"], "sw_sent": sw_sent, "ts_sent": ts_sent,
+            "section_targets": section_targets, "demo": demo,
+            "simulate_s": simulate_s + stages["simulate_reads_s"], "refs": run["refs"],
+            "calls_vcf": calls_vcf, "pipeline_s": run["pipeline_s"], "parents": (mom, dad),
+            "clean_sha": clean_sha}
 
 
 def check_main_path(mp) -> None:
@@ -690,8 +709,9 @@ def replay(mp) -> dict:
         ts["plain_ms"] += p_ms
         b_ms, ts["bound_by"] = tesserae_bound(args)
         ts["bound_ms"] += b_ms
-        cluster = tt.kernel_config(args[1].shape[0], args[1].shape[1] + 1)[1]
-        ts["clusters"][cluster] = ts["clusters"].get(cluster, 0) + 1
+        wide, _, cluster, _ = tt.launch_config(args[1].shape[0], args[1].shape[1] + 1)
+        form = f"wide {cluster}" if wide else cluster
+        ts["clusters"][form] = ts["clusters"].get(form, 0) + 1
     # the delete state's FMA term (ldel + leps * (j - 1), rounded once) of the
     # kernel's device function against the twin's, every j of the widest section
     widest = max(int(a[1].shape[1]) + 1 for a, _ in mp["ts_sent"])
@@ -2825,6 +2845,30 @@ def cli_phase(dev, mp, cross, wd) -> dict:
             "subprocess_exit": proc.returncode}
 
 
+def haplotype_phase(dev, mp) -> dict:
+    """Phase 16: the demo's haplotype mode (demo.run_haplotype_flow) on
+    phase 4's simulated cross: whole-haplotype graphs, FindROIs, Partition
+    without links, Call on the card.  The SW and Tesserae counts are set to
+    0 just before it and read just after; the phase raises unless Tesserae
+    launched and calls were made."""
+    from corticall_tpu_torch.demo import run_haplotype_flow
+
+    mom, dad = mp["parents"]
+    res = mp["res"]
+    stages = {}
+    tsw.LAUNCHES = tt.LAUNCHES = tt.WIDE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = run_haplotype_flow(res, mom, dad, res["truth_vcf"], PF_K, stages, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"sw_banded": tsw.LAUNCHES, "tesserae": tt.LAUNCHES,
+                "tesserae_wide": tt.WIDE_LAUNCHES}
+    if not launches["tesserae"] or not out["calls"]:
+        raise AssertionError(f"the haplotype flow made {out['calls']} calls with "
+                             f"{launches} launches")
+    return {"seconds": round(seconds, 2), "stage_s": stages, "launches": launches, **out}
+
+
 def main() -> int:
     dev = require_cuda()
     t_all = time.perf_counter()
@@ -2893,7 +2937,34 @@ def main() -> int:
         ts_rows.append(row)
         log(f"tesserae S={len(targets)} L={len(query)}: kernel {k_ms:.2f} ms, "
             f"plain {p_ms:.0f} ms")
-    emit("tesserae_vs_plain", identical=True, max_abs_err=ts_err, sections=ts_rows)
+    # the wide form, on sections the register form cannot hold
+    wide_rows = []
+    for query, targets in wide_form_sections(rng):
+        args = tt.section_inputs(query, list(targets.values()), CALLER_PARAMS, dev)
+        s_count, width = args[1].shape[0], args[1].shape[1] + 1
+        wide, per, cluster, threads = tt.launch_config(s_count, width)
+        gate = tt.section_bytes(len(query), [len(t) for t in targets.values()])
+        if not wide or gate > tt.TesseraeDevice.HBM_BUDGET_BYTES:
+            raise AssertionError(f"{s_count} x {width}: not a wide section the gate admits")
+        before = tt.WIDE_LAUNCHES
+        got = tt.tesserae_fused(*args)
+        torch.cuda.synchronize()
+        if tt.WIDE_LAUNCHES != before + 1:
+            raise AssertionError("the wide section did not take the wide form")
+        p_ms, want = host_ms(lambda: tt.tesserae_full(*args))
+        ts_err = max(ts_err, tesserae_diff(got, want))
+        del want
+        k_ms = event_ms(lambda: tt.tesserae_fused(*args), 3)
+        wide_rows.append({"targets": s_count, "query": len(query), "width": width,
+                          "cells": s_count * width, "kernel_ms": round(k_ms, 3),
+                          "us_per_column": round(k_ms * 1e3 / len(query), 3),
+                          "plain_ms": round(p_ms, 1), "path_cells": int(got[2]),
+                          "cluster": cluster, "threads": threads, "cells_per_thread": per,
+                          "gate_bytes": gate, **bound_fields(tesserae_bound(args))})
+        log(f"tesserae wide S={s_count} W={width} L={len(query)}: kernel {k_ms:.2f} ms, "
+            f"plain {p_ms:.0f} ms")
+    emit("tesserae_vs_plain", identical=True, max_abs_err=ts_err, sections=ts_rows,
+         wide_form=wide_rows)
 
     # ---- 4. the main path --------------------------------------------------
     mp = run_main_path(dev, PF_MBP)
@@ -2914,7 +2985,8 @@ def main() -> int:
          tesserae_sections=len(sizes), largest_section_targets=max(sizes, default=0),
          sections_over_63_targets=sum(n > tz.INT32_TARGETS for n in sizes),
          kmer_venn=ev["kmer_venn"], strict_recovered=ev["strict_recovered"],
-         truth=len(res["truth_vcf"]))
+         truth=len(res["truth_vcf"]),
+         demo={key: v for key, v in mp["demo"].items() if key != "stages"})
     check_main_path(mp)
 
     # ---- 5. what the pipeline sent to the kernels, through the twins -------
@@ -2970,6 +3042,9 @@ def main() -> int:
     emit("mesh_across_processes", identical=True, **xp_mesh)
     del trio_ref
 
+    # ---- 16. the demo's haplotype mode on the main path's cross ---------
+    emit("haplotype_flow", **haplotype_phase(dev, mp))
+
     prod, full, rp_sw, rp_ts = sw_times[0], sp["shapes"][0], rp["sw"], rp["tesserae"]
     replayed, chunk = pp["replay"], bp["chunk"]
     # no single PyTorch call computes any of these functions (banded or
@@ -2997,7 +3072,12 @@ def main() -> int:
          "bound_ms": round(sum(r["bound_ms"] for r in ts_rows), 6),
          "bound_by": ts_rows[0]["bound_by"], "library_ms": None,
          "main_path_ms": round(rp_ts["ms"], 3), "main_path_plain_ms": round(rp_ts["plain_ms"], 1),
-         "main_path_bound_ms": round(rp_ts["bound_ms"], 5)},
+         "main_path_bound_ms": round(rp_ts["bound_ms"], 5),
+         "wide_form": {"sections": len(wide_rows),
+                       "ms": round(sum(r["kernel_ms"] for r in wide_rows), 3),
+                       "plain_ms": round(sum(r["plain_ms"] for r in wide_rows), 1),
+                       "bound_ms": round(sum(r["bound_ms"] for r in wide_rows), 6),
+                       "main_path_launches": launches["tesserae_wide"]}},
         {"name": "jump_walk", "route": "cuda",
          "source": "corticall_tpu_torch/csrc/jump.cu",
          "replaces": "corticall_tpu/ops/cuckoo.py:1096",

@@ -27,7 +27,8 @@ models/{sw,tesserae,reference_index}, caller/{variants,filter}):
     caller/call.py              Caller using the SW and Tesserae kernels
     commands/core.py            graph algebra, FindROIs, prefilters, Partition
     pipeline.py                 Pipeline runner, run_pipeline
-    demo.py                     the smoke run's simulated cross and scoring
+    demo.py                     the flagship cross demo (python -m
+                                corticall_tpu_torch.demo), its simulation and scoring
     tools/tesserae_probe.py     barrier and ablation probes of the Tesserae kernel
 """
 

@@ -50,6 +50,19 @@
 // reaches the sign bit at 64); up to 63 targets its value is the int32 word's.
 // After the last column one thread walks the path, decoding each step into
 // the packed word the plain twin reads, and writes (n, max_r, cells[cap, 3]).
+//
+// The wide form (tesserae_wide_kernel) takes the sections past the register
+// form's 16 x 512 x 16 = 131,072 cells, up to the most that
+// TesseraeDevice.align's budget gate sends to the device (1,064,960 cells:
+// 16,384 targets of at most 64 bases; ops/tesserae_torch.gate_max_cells).
+// It is a repair, not a redesign: the same cluster, passes, barriers and
+// arithmetic in the same order, but each thread owns C = ceil(S*W / 8192)
+// consecutive cells of any number of targets, and their M/I/D state lives in
+// global memory (at most 12.8 MB, which stays in the 50 MB L2).  The state,
+// each cell's target code and validity, and a column's traceback bytes are
+// stored cell-major across the threads (thread g's i-th cell at i*NT + g),
+// so that a warp's loads and stores of its lanes' i-th cells are coalesced;
+// the traceback walk maps a flat cell f to (f % C) * NT + f / C.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -166,6 +179,180 @@ __device__ __forceinline__ void cluster_barrier(bool publishes) {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// Shared memory of the column loop: the warps' and the CTA's summaries and
+// argmax candidates, and each thread's last cell (M, I, D) of the column.
+struct Column {
+  Seg warp_sum[kMaxWarps];
+  Seg warp_carry[kMaxWarps];
+  float warp_bv[kMaxWarps];
+  int warp_bi[kMaxWarps];
+  Seg cta_sum;
+  float cta_bv;
+  int cta_bi;
+  float edge[3][kMaxThreads];
+};
+
+// The lanes the CTA-level and cluster-level passes span, and the threads'
+// places, for the column loop of either form.
+struct Layout {
+  int rank, K, T, tid, lane, warp, nwarps, wpow2, kpow2;
+};
+
+__device__ __forceinline__ Layout layout(cg::cluster_group& cluster) {
+  Layout y;
+  y.rank = (int)cluster.block_rank();
+  y.K = (int)cluster.num_blocks();
+  y.T = blockDim.x;
+  y.tid = threadIdx.x;
+  y.lane = y.tid & 31;
+  y.warp = y.tid >> 5;
+  y.nwarps = y.T >> 5;
+  y.wpow2 = 1;
+  y.kpow2 = 1;
+  while (y.wpow2 < y.nwarps) y.wpow2 <<= 1;
+  while (y.kpow2 < y.K) y.kpow2 <<= 1;
+  return y;
+}
+
+// End of pass A: from each thread's run summary `mine` and argmax candidate
+// (bv, bi), the summary of every cell before the thread's (the segmented
+// exclusive prefix of the delete-scan input) and the column's argmax
+// (max_r, best, identical in every thread): warp scans and reductions by
+// shuffles, warp 0 of each CTA over its warps (one __syncthreads), then
+// cluster barrier 1 and every warp over the CTAs' summaries through
+// distributed shared memory, lane r reading CTA r.
+__device__ __forceinline__ Seg reduce_column(cg::cluster_group& cluster, Column& sh,
+                                             const Layout& y, Seg mine, float bv, int bi,
+                                             float& max_r, int& best) {
+  const Seg incl = warp_scan(mine, y.lane);
+  Seg excl = shfl_up(incl, 1);
+  if (y.lane == 0) excl = empty_seg();
+  warp_best(bv, bi);
+  if (y.lane == 31) sh.warp_sum[y.warp] = incl;
+  if (y.lane == 0) {
+    sh.warp_bv[y.warp] = bv;
+    sh.warp_bi[y.warp] = bi;
+  }
+  __syncthreads();
+  if (y.warp == 0) {
+    const Seg x = warp_scan(y.lane < y.nwarps ? sh.warp_sum[y.lane] : empty_seg(), y.lane,
+                            y.wpow2);
+    Seg before = shfl_up(x, 1);
+    if (y.lane == 0) before = empty_seg();
+    if (y.lane < y.nwarps) sh.warp_carry[y.lane] = before;
+    if (y.lane == y.nwarps - 1) sh.cta_sum = x;
+    float v = y.lane < y.nwarps ? sh.warp_bv[y.lane] : -INFINITY;
+    int idx = y.lane < y.nwarps ? sh.warp_bi[y.lane] : 0x7fffffff;
+    warp_best(v, idx, y.wpow2);
+    if (y.lane == 0) {
+      sh.cta_bv = v;
+      sh.cta_bi = idx;
+    }
+  }
+  cluster_barrier(y.warp == 0);
+
+  Seg x = empty_seg();
+  float v = -INFINITY;
+  int idx = 0x7fffffff;
+  if (y.lane < y.K) {
+    x = *cluster.map_shared_rank(&sh.cta_sum, y.lane);
+    v = *cluster.map_shared_rank(&sh.cta_bv, y.lane);
+    idx = *cluster.map_shared_rank(&sh.cta_bi, y.lane);
+  }
+  x = warp_scan(x, y.lane, y.kpow2);
+  warp_best(v, idx, y.kpow2);
+  v = __shfl_sync(0xffffffffu, v, 0);
+  idx = __shfl_sync(0xffffffffu, idx, 0);
+  max_r = v;
+  best = idx;
+  // the summary of every CTA before this one
+  Seg prev_ctas = {__shfl_sync(0xffffffffu, x.first, max(y.rank - 1, 0)),
+                   __shfl_sync(0xffffffffu, x.last, max(y.rank - 1, 0)),
+                   __shfl_sync(0xffffffffu, x.v, max(y.rank - 1, 0))};
+  if (y.rank == 0) prev_ctas = empty_seg();
+  return combine(combine(prev_ctas, sh.warp_carry[y.warp]), excl);
+}
+
+// End of pass B: publish this thread's last cell (m, i, d), cluster barrier
+// 2, and read the left neighbour's (through distributed shared memory
+// across a CTA edge) into left_*; thread 0 of CTA 0 keeps its own.
+__device__ __forceinline__ void exchange_edges(cg::cluster_group& cluster, Column& sh,
+                                               const Layout& y, float m, float i, float d,
+                                               float& left_m, float& left_i, float& left_d) {
+  sh.edge[0][y.tid] = m;
+  sh.edge[1][y.tid] = i;
+  sh.edge[2][y.tid] = d;
+  cluster_barrier(y.warp == y.nwarps - 1);  // the warp of the edge other CTAs read
+  if (y.tid > 0) {
+    left_m = sh.edge[0][y.tid - 1];
+    left_i = sh.edge[1][y.tid - 1];
+    left_d = sh.edge[2][y.tid - 1];
+  } else if (y.rank > 0) {
+    left_m = cluster.map_shared_rank(&sh.edge[0][0], y.rank - 1)[y.T - 1];
+    left_i = cluster.map_shared_rank(&sh.edge[1][0], y.rank - 1)[y.T - 1];
+    left_d = cluster.map_shared_rank(&sh.edge[2][0], y.rank - 1)[y.T - 1];
+  }
+}
+
+// The traceback (one thread), the while_loop of _tesserae_traceback with
+// each packed word rebuilt from its byte code.  A flat cell f's byte of
+// column pt is codes[pt * npad + f] in the register form (wide_c 0) and
+// codes[pt * npad + (f % wide_c) * nt + f / wide_c] in the wide form.
+__device__ void walk_path(const unsigned char* codes, int npad, const long long* rec,
+                          int L, int S, int W, int best, float max_r, int* out, int cap,
+                          int wide_c, int nt) {
+  const int two_w = 2 * W;
+  const int who = best / two_w + 1;
+  const int cst = (best % two_w) % 2 == 0 ? kM : kI;
+  const int pos = (best % two_w) / 2;
+  int* cells = out + 2;
+  cells[0] = who;
+  cells[1] = cst;
+  cells[2] = pos;
+  int n = 1, pt = L;
+  int w_ = who, s_ = cst, p_ = pos;
+  while (pt >= 1 && n < cap) {
+    // Python's negative indexing, as the plain twin's tb[..., sidx, pos]
+    int sidx = w_ - 1;
+    if (w_ < 1) sidx += S;
+    if (sidx < 0) sidx += S;
+    long long v;
+    if ((s_ == kM || s_ == kI) && pt < 2) {
+      v = 0;
+    } else {
+      const size_t f = (size_t)sidx * W + p_;
+      const size_t at = wide_c ? (f % wide_c) * nt + f / wide_c : f;
+      const unsigned code = codes[(size_t)pt * npad + at];
+      if (s_ == kM) {
+        const int c = code & 3;
+        v = c ? pack(sidx + 1, c, max(p_ - 1, 0)) : rec[pt - 1];
+      } else if (s_ == kI) {
+        const int c = (code >> 2) & 3;
+        v = c ? pack(sidx + 1, c, p_) : rec[pt - 1];
+      } else {
+        v = pack(sidx + 1, (code & 16) ? kD : kM, max(p_ - 1, 0));
+      }
+    }
+    const int wn = (int)(v >> 25), sn = (int)((v >> 23) & 3), pn = (int)(v & ((1 << 23) - 1));
+    cells[3 * n] = wn;
+    cells[3 * n + 1] = sn;
+    cells[3 * n + 2] = pn;
+    ++n;
+    if (s_ != kD) --pt;
+    w_ = wn;
+    s_ = sn;
+    p_ = pn;
+  }
+  out[0] = n;
+  out[1] = __float_as_int(max_r);
+}
+
+// the column's recombination word, from its argmax
+__device__ __forceinline__ long long rec_word(int best, int W) {
+  const int two_w = 2 * W;
+  return pack(best / two_w + 1, (best % two_w) % 2 == 0 ? kM : kI, (best % two_w) / 2);
+}
+
 template <int C>
 __global__ void __launch_bounds__(kMaxThreads)
 tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
@@ -175,26 +362,11 @@ tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
                 int* __restrict__ out, int cap) {
   static_assert(C == 1 || C == 2 || C == 4 || C == 8 || C == 16, "C: 1..16, a power of two");
   __shared__ float prm[kNumParams];
-  __shared__ Seg warp_sum[kMaxWarps];
-  __shared__ Seg warp_carry[kMaxWarps];
-  __shared__ float warp_bv[kMaxWarps];
-  __shared__ int warp_bi[kMaxWarps];
-  __shared__ Seg cta_sum;
-  __shared__ float cta_bv;
-  __shared__ int cta_bi;
-  __shared__ float edge[3][kMaxThreads];  // each thread's last cell: M, I, D
+  __shared__ Column sh;
 
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int K = (int)cluster.num_blocks();
-  const int T = blockDim.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = T >> 5;
-  int wpow2 = 1, kpow2 = 1;  // lanes the CTA-level and cluster-level passes span
-  while (wpow2 < nwarps) wpow2 <<= 1;
-  while (kpow2 < K) kpow2 <<= 1;
+  const Layout y = layout(cluster);
+  const int rank = y.rank, T = y.T, tid = y.tid;
   for (int x = tid; x < kNumParams; x += T) prm[x] = params[x];
   __syncthreads();
   const float ldel = prm[0], leps = prm[1], lrho = prm[2], lpiM = prm[3],
@@ -305,56 +477,7 @@ tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
         mine.v = fmaxf(mine.v, adj);
       }
     }
-    const Seg incl = warp_scan(mine, lane);
-    Seg excl = shfl_up(incl, 1);
-    if (lane == 0) excl = empty_seg();
-    warp_best(bv, bi);
-    if (lane == 31) warp_sum[warp] = incl;
-    if (lane == 0) {
-      warp_bv[warp] = bv;
-      warp_bi[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      const Seg x = warp_scan(lane < nwarps ? warp_sum[lane] : empty_seg(), lane, wpow2);
-      Seg before = shfl_up(x, 1);
-      if (lane == 0) before = empty_seg();
-      if (lane < nwarps) warp_carry[lane] = before;
-      if (lane == nwarps - 1) cta_sum = x;
-      float v = lane < nwarps ? warp_bv[lane] : -INFINITY;
-      int idx = lane < nwarps ? warp_bi[lane] : 0x7fffffff;
-      warp_best(v, idx, wpow2);
-      if (lane == 0) {
-        cta_bv = v;
-        cta_bi = idx;
-      }
-    }
-    cluster_barrier(warp == 0);
-
-    // every warp: the CTAs' summaries and bests through distributed shared
-    // memory, lane r reading CTA r
-    {
-      Seg x = empty_seg();
-      float v = -INFINITY;
-      int idx = 0x7fffffff;
-      if (lane < K) {
-        x = *cluster.map_shared_rank(&cta_sum, lane);
-        v = *cluster.map_shared_rank(&cta_bv, lane);
-        idx = *cluster.map_shared_rank(&cta_bi, lane);
-      }
-      x = warp_scan(x, lane, kpow2);
-      warp_best(v, idx, kpow2);
-      v = __shfl_sync(0xffffffffu, v, 0);
-      idx = __shfl_sync(0xffffffffu, idx, 0);
-      max_r = v;
-      best = idx;
-      // the summary of every CTA before this one
-      Seg prev_ctas = {__shfl_sync(0xffffffffu, x.first, max(rank - 1, 0)),
-                       __shfl_sync(0xffffffffu, x.last, max(rank - 1, 0)),
-                       __shfl_sync(0xffffffffu, x.v, max(rank - 1, 0))};
-      if (rank == 0) prev_ctas = empty_seg();
-      excl = combine(combine(prev_ctas, warp_carry[warp]), excl);
-    }
+    const Seg excl = reduce_column(cluster, sh, y, mine, bv, bi, max_r, best);
 
     // ---- B. delete state vd[j] = ldel + leps*(j-1) + max_{t<j} adj[t] and
     // its branch (M if nvm[j-1] + ldel >= vd[j-1] + leps)
@@ -380,89 +503,207 @@ tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
         }
       }
     }
-    edge[0][tid] = vm[C - 1];
-    edge[1][tid] = vi[C - 1];
-    edge[2][tid] = vd[C - 1];
-    cluster_barrier(warp == nwarps - 1);  // the warp of the edge other CTAs read
-
-    if (tid > 0) {
-      left_m = edge[0][tid - 1];
-      left_i = edge[1][tid - 1];
-      left_d = edge[2][tid - 1];
-    } else if (rank > 0) {
-      left_m = cluster.map_shared_rank(&edge[0][0], rank - 1)[T - 1];
-      left_i = cluster.map_shared_rank(&edge[1][0], rank - 1)[T - 1];
-      left_d = cluster.map_shared_rank(&edge[2][0], rank - 1)[T - 1];
-    }
+    exchange_edges(cluster, sh, y, vm[C - 1], vi[C - 1], vd[C - 1], left_m, left_i, left_d);
     if (ncells > 0) {
       const float mb = (j0 == 0 ? kSmall : left_m) + ldel;
       const float db = (j0 == 0 ? kSmall : left_d) + leps;
       if (!(mb >= db)) w[0] |= 16u;
       store_codes<C>(codes + (size_t)col * npad + f0, w);
     }
-    if (rank == 0 && tid == 0) {
-      const int two_w = 2 * W;
-      rec[col] = pack(best / two_w + 1, (best % two_w) % 2 == 0 ? kM : kI,
-                      (best % two_w) / 2);
-    }
+    if (rank == 0 && tid == 0) rec[col] = rec_word(best, W);
   }
 
-  // ---- traceback (one thread), the while_loop of _tesserae_traceback with
-  // each packed word rebuilt from its byte code
+  // ---- traceback
   __threadfence();
   cluster.sync();
-  if (rank == 0 && tid == 0) {
-    const int two_w = 2 * W;
-    const int who = best / two_w + 1;
-    const int cst = (best % two_w) % 2 == 0 ? kM : kI;
-    const int pos = (best % two_w) / 2;
-    int* cells = out + 2;
-    cells[0] = who;
-    cells[1] = cst;
-    cells[2] = pos;
-    int n = 1, pt = L;
-    int w_ = who, s_ = cst, p_ = pos;
-    while (pt >= 1 && n < cap) {
-      // Python's negative indexing, as the plain twin's tb[..., sidx, pos]
-      int sidx = w_ - 1;
-      if (w_ < 1) sidx += S;
-      if (sidx < 0) sidx += S;
-      long long v;
-      if ((s_ == kM || s_ == kI) && pt < 2) {
-        v = 0;
-      } else {
-        const unsigned code = codes[(size_t)pt * npad + (size_t)sidx * W + p_];
-        if (s_ == kM) {
-          const int c = code & 3;
-          v = c ? pack(sidx + 1, c, max(p_ - 1, 0)) : rec[pt - 1];
-        } else if (s_ == kI) {
-          const int c = (code >> 2) & 3;
-          v = c ? pack(sidx + 1, c, p_) : rec[pt - 1];
-        } else {
-          v = pack(sidx + 1, (code & 16) ? kD : kM, max(p_ - 1, 0));
-        }
-      }
-      const int wn = (int)(v >> 25), sn = (int)((v >> 23) & 3), pn = (int)(v & ((1 << 23) - 1));
-      cells[3 * n] = wn;
-      cells[3 * n + 1] = sn;
-      cells[3 * n + 2] = pn;
-      ++n;
-      if (s_ != kD) --pt;
-      w_ = wn;
-      s_ = sn;
-      p_ = pn;
-    }
-    out[0] = n;
-    out[1] = __float_as_int(max_r);
-  }
+  if (rank == 0 && tid == 0) walk_path(codes, npad, rec, L, S, W, best, max_r, out, cap, 0, 0);
 }
 
-template <int C>
-int launch(const int* q, const int* t_codes, const unsigned char* valid,
-           const float* params, int L, int S, int W, int npad, int cluster,
-           int threads, unsigned char* codes, long long* rec, int* out, int cap,
-           cudaStream_t stream) {
-  auto kernel = tesserae_kernel<C>;
+// The wide form: the register kernel's column loop with each thread's C
+// cells (any number, crossing any number of targets) in global memory,
+// cell-major across the NT = K * T threads.  state float[3][C * NT] (M, I,
+// D), info uint8[C * NT] (target code in bits 0-3, validity in bit 4);
+// codes uint8[L+1, npad] with npad >= C * NT.  Every line of arithmetic is
+// the register kernel's, in the same order.
+__global__ void __launch_bounds__(kMaxThreads)
+tesserae_wide_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
+                     const unsigned char* __restrict__ valid,
+                     const float* __restrict__ params, int L, int S, int W, int C, int npad,
+                     unsigned char* __restrict__ codes, long long* __restrict__ rec,
+                     float* __restrict__ state, unsigned char* __restrict__ info,
+                     int* __restrict__ out, int cap) {
+  __shared__ float prm[kNumParams];
+  __shared__ Column sh;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const Layout y = layout(cluster);
+  const int rank = y.rank, T = y.T, tid = y.tid;
+  for (int x = tid; x < kNumParams; x += T) prm[x] = params[x];
+  __syncthreads();
+  const float ldel = prm[0], leps = prm[1], lrho = prm[2], lpiM = prm[3],
+              lpiI = prm[4], lmm = prm[5], lgm = prm[6], ldm = prm[7],
+              lsize_l = prm[8];
+  const float* lsm = prm + 9;   // [5][5]
+  const float* lsi = prm + 34;  // [5]
+
+  // this thread's cells: flat f0 .. f0 + ncells - 1 of N = S * W, the i-th
+  // at i * NT + g in state, info and a column's codes
+  const int NT = y.K * T;
+  const int g = rank * T + tid;
+  const int N = S * W;
+  const int f0 = g * C;
+  const int s0 = f0 / W, j0 = f0 % W;
+  const int ncells = max(0, min(C, N - f0));
+  float* __restrict__ sm = state;
+  float* __restrict__ si = state + (size_t)C * NT;
+  float* __restrict__ sd = state + 2 * (size_t)C * NT;
+  {
+    int s = s0, j = j0;
+    for (int i = 0; i < ncells; ++i) {
+      const size_t x = (size_t)i * NT + g;
+      unsigned b = 0;
+      if (j >= 1) {
+        const size_t at = (size_t)s * (W - 1) + (j - 1);
+        b = (unsigned)(t_codes[at] & 15) | (valid[at] ? 16u : 0u);
+      }
+      info[x] = (unsigned char)b;
+      sm[x] = si[x] = sd[x] = kSmall;
+      if (++j == W) {
+        j = 0;
+        ++s;
+      }
+    }
+  }
+
+  float left_m = kSmall, left_i = kSmall, left_d = kSmall;
+  float max_r = 0.0f;
+  int best = 0;
+
+  for (int col = 1; col <= L; ++col) {
+    const int qc = q[col - 1];
+    const bool first = col == 1;
+    const int min_j = first ? 1 : 2;
+    const float recomb = ((max_r + lrho) + lpiM) - lsize_l;
+    const float recomb_i = ((max_r + lrho) + lpiI) - lsize_l;
+    const float* em = lsm + qc * 5;
+    const float emi = lsi[qc];
+    unsigned char* __restrict__ crow = codes + (size_t)col * npad;
+
+    // ---- A. M and I, the delete-scan input's maximum, the argmax candidate
+    float bv = -INFINITY;
+    int bi = 0x7fffffff;
+    float pm_l = left_m, pi_l = left_i, pd_l = left_d;  // previous column, j-1
+    Seg mine = empty_seg();
+    {
+      int s = s0, j = j0;
+#pragma unroll 4
+      for (int i = 0; i < ncells; ++i) {
+        const size_t x = (size_t)i * NT + g;
+        const unsigned b = info[x];
+        const bool ok = (b >> 4) & 1u;
+        const int t = (int)(b & 15);
+        const float om = sm[x], oi = si[x], od = sd[x];
+        float m, v;
+        unsigned code = 0;
+        if (first) {
+          m = ok ? (lpiM - lsize_l) + em[t] : kSmall;
+          v = ok ? (lpiI - lsize_l) + emi : kSmall;
+        } else {
+          const float c0 = (j >= 1 ? pm_l : kSmall) + lmm;
+          const float c1 = (j >= 1 ? pi_l : kSmall) + lgm;
+          const float c2 = (j >= 1 ? pd_l : kSmall) + ldm;
+          float lval = c0;
+          int larg = 0;
+          if (c1 > lval) { lval = c1; larg = 1; }
+          if (c2 > lval) { lval = c2; larg = 2; }
+          const bool use_local = lval > recomb;
+          m = use_local ? lval : recomb;
+          m = (j == 0) ? kSmall : (ok ? m + em[t] : kSmall);
+          const float i0 = om + ldel, i1 = oi + leps;
+          const int iarg = (i1 > i0) ? 1 : 0;
+          const float ival = iarg ? i1 : i0;
+          const bool use_i = ival > recomb_i;
+          v = use_i ? ival : recomb_i;
+          v = (j == 0) ? kSmall : (ok ? v + emi : kSmall);
+          code = (use_local ? (unsigned)(larg + 1) : 0u) |
+                 ((use_i ? (unsigned)(iarg + 1) : 0u) << 2);
+        }
+        pm_l = om;
+        pi_l = oi;
+        pd_l = od;
+        sm[x] = m;
+        si[x] = v;
+        crow[x] = (unsigned char)code;
+        const float cm = ok ? m : kSmall, ci = ok ? v : kSmall;
+        const bool take_i = ci > cm;
+        const float cv = take_i ? ci : cm;
+        if (cv > bv) {
+          bv = cv;
+          bi = 2 * (f0 + i) + (take_i ? 1 : 0);
+        }
+        const float adj = (j >= min_j - 1) ? m - leps * (float)j : kSmall;
+        if (mine.first < 0) mine.first = s;
+        if (s != mine.last) { mine.last = s; mine.v = -INFINITY; }
+        mine.v = fmaxf(mine.v, adj);
+        if (++j == W) {
+          j = 0;
+          ++s;
+        }
+      }
+    }
+    const Seg excl = reduce_column(cluster, sh, y, mine, bv, bi, max_r, best);
+
+    // ---- B. the delete state and its branch, as the register kernel's
+    float last_m = kSmall, last_i = kSmall, last_d = kSmall;
+    {
+      float run = (excl.first >= 0 && excl.last == s0) ? excl.v : -INFINITY;
+      float prev_m = kSmall, prev_d = kSmall;  // this column's M and D at cell i-1
+      int j = j0;
+#pragma unroll 4
+      for (int i = 0; i < ncells; ++i) {
+        const size_t x = (size_t)i * NT + g;
+        const float m = sm[x];
+        const float adj = (j >= min_j - 1) ? m - leps * (float)j : kSmall;
+        if (j == 0) run = -INFINITY;
+        const float run_prev = (j == 0) ? kSmall : run;
+        const float d = (j >= min_j) ? delete_term(ldel, leps, j) + run_prev : kSmall;
+        run = fmaxf(run, adj);
+        if (i > 0) {
+          const float mb = (j == 0 ? kSmall : prev_m) + ldel;
+          const float db = (j == 0 ? kSmall : prev_d) + leps;
+          if (!(mb >= db)) crow[x] |= 16u;
+        }
+        sd[x] = d;
+        prev_m = m;
+        prev_d = d;
+        if (++j == W) j = 0;
+      }
+      // the register kernel publishes its C-th cell, SMALL past the section
+      if (ncells == C) {
+        last_m = prev_m;
+        last_i = si[(size_t)(C - 1) * NT + g];
+        last_d = prev_d;
+      }
+    }
+    exchange_edges(cluster, sh, y, last_m, last_i, last_d, left_m, left_i, left_d);
+    if (ncells > 0) {
+      const float mb = (j0 == 0 ? kSmall : left_m) + ldel;
+      const float db = (j0 == 0 ? kSmall : left_d) + leps;
+      if (!(mb >= db)) crow[g] |= 16u;
+    }
+    if (rank == 0 && tid == 0) rec[col] = rec_word(best, W);
+  }
+
+  __threadfence();
+  cluster.sync();
+  if (rank == 0 && tid == 0) walk_path(codes, npad, rec, L, S, W, best, max_r, out, cap, C, NT);
+}
+
+// One cluster of `cluster` CTAs of `threads` threads (above 8 CTAs the
+// cluster is non-portable) on `stream`.
+template <typename... Exp, typename... Act>
+int launch_cluster(void (*kernel)(Exp...), int cluster, int threads, cudaStream_t stream,
+                   Act... args) {
   if (cluster > 8) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -480,10 +721,16 @@ int launch(const int* q, const int* t_codes, const unsigned char* valid,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, q, t_codes, valid, params, L,
-                                             S, W, npad, codes, rec, out, cap);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+bool bad_shape(int L, int S, int W, int cells, int cluster, int threads, int npad, int cap) {
+  const long long n = (long long)S * W;
+  return threads <= 0 || threads > kMaxThreads || threads % 32 || cluster < 1 ||
+         cluster > kMaxCluster || S < 1 || L < 1 || W < 2 || cells < 1 || cap < 1 ||
+         npad % 16 || (long long)cluster * threads * cells < n;
 }
 
 }  // namespace
@@ -496,21 +743,41 @@ extern "C" int ctk_tesserae(const int* q, const int* t_codes,
                             int L, int S, int W, int cells, int cluster,
                             int threads, unsigned char* codes, int npad,
                             long long* rec, int* out, int cap, cudaStream_t stream) {
-  const long long n = (long long)S * W;
-  if (threads <= 0 || threads > kMaxThreads || threads % 32 || cluster < 1 ||
-      cluster > kMaxCluster || S < 1 || L < 1 || W < 2 ||
-      cells > W || cap < 1 || npad % 16 || npad < n ||
-      (long long)cluster * threads * cells < n) {
+  if (bad_shape(L, S, W, cells, cluster, threads, npad, cap) || cells > W ||
+      npad < (long long)S * W) {
     return (int)cudaErrorInvalidValue;
   }
+#define CTK_TESSERAE_LAUNCH(C)                                                              \
+  launch_cluster(tesserae_kernel<C>, cluster, threads, stream, q, t_codes, valid, params, L, \
+                 S, W, npad, codes, rec, out, cap)
   switch (cells) {
-    case 1: return launch<1>(q, t_codes, valid, params, L, S, W, npad, cluster, threads, codes, rec, out, cap, stream);
-    case 2: return launch<2>(q, t_codes, valid, params, L, S, W, npad, cluster, threads, codes, rec, out, cap, stream);
-    case 4: return launch<4>(q, t_codes, valid, params, L, S, W, npad, cluster, threads, codes, rec, out, cap, stream);
-    case 8: return launch<8>(q, t_codes, valid, params, L, S, W, npad, cluster, threads, codes, rec, out, cap, stream);
-    case 16: return launch<16>(q, t_codes, valid, params, L, S, W, npad, cluster, threads, codes, rec, out, cap, stream);
+    case 1: return CTK_TESSERAE_LAUNCH(1);
+    case 2: return CTK_TESSERAE_LAUNCH(2);
+    case 4: return CTK_TESSERAE_LAUNCH(4);
+    case 8: return CTK_TESSERAE_LAUNCH(8);
+    case 16: return CTK_TESSERAE_LAUNCH(16);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef CTK_TESSERAE_LAUNCH
+}
+
+// The wide form of ctk_tesserae (one section, any `cells` a thread):
+// codes uint8[L+1, npad] with npad a multiple of 16 and at least
+// cluster * threads * cells; state float32[3 * cluster * threads * cells]
+// and info uint8[cluster * threads * cells], scratch; rec and out as
+// ctk_tesserae's.
+extern "C" int ctk_tesserae_wide(const int* q, const int* t_codes,
+                                 const unsigned char* valid, const float* params,
+                                 int L, int S, int W, int cells, int cluster,
+                                 int threads, unsigned char* codes, int npad,
+                                 long long* rec, float* state, unsigned char* info,
+                                 int* out, int cap, cudaStream_t stream) {
+  if (bad_shape(L, S, W, cells, cluster, threads, npad, cap) ||
+      npad < (long long)cluster * threads * cells) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_cluster(tesserae_wide_kernel, cluster, threads, stream, q, t_codes, valid,
+                        params, L, S, W, cells, npad, codes, rec, state, info, out, cap);
 }
 
 // The delete term of ctk_tesserae for j = 0 .. W-1 (out float32[W]), from

@@ -1,12 +1,44 @@
-"""Simulated inputs and scoring for the smoke run: a P. falciparum-like
-cross and the evaluation of calls against its truth (copies of
-demo_pf_cross.make_cross / evaluate), and bench.py's synthetic trio graph
-(a copy of bench.build_bench_graph).
+"""The flagship P. falciparum cross demo of the port, a copy of
+demo_pf_cross.py that runs corticall_tpu_torch.pipeline.run_pipeline:
+
+  simulate cross (recombinant child + injected DNMs)
+  -> shotgun reads with errors per trio sample
+  -> Build+Clean per sample -> Join (k=47, 3 colors)
+  -> Thread reads into links per sample
+  -> FindROIs -> prefilters -> Partition with links -> Trim
+  -> Call with links (banded SW pre-score and Tesserae on the card)
+  -> FilterCalls -> evaluate vs simulation truth
+
+and prints per-stage wall-clock, link-resolution counts, the k-mer Venn and
+strict coordinate+allele concordance per variant type as one JSON line.
+
+    python -m corticall_tpu_torch.demo
+
+The same environment knobs and defaults as demo_pf_cross.py: PF_MBP (total
+genome Mbp, 21), PF_CHROMS (14), PF_DNMS (40), PF_K (47), PF_DIVERGENCE
+(parental SNP rate, 0.003), PF_COVERAGE (read depth a sample, 20),
+PF_READLEN (150), PF_ERR (read substitution rate, 0.002), PF_MODE ("reads":
+the production pipeline; "haplotype": whole-haplotype graphs without links
+or prefilters), PF_WORKDIR (the pipeline's resumable workdir, default
+pf_demo_work under the temporary directory), PF_DUMP (write the per-call
+detail JSON there).  Every function runs its kernels on `device`: the CUDA
+card by default (RuntimeError without one), "cpu" for the plain twins.
+
+Also here: make_cross and evaluate (the demo's simulation and scoring),
+and bench.py's synthetic trio graph (a copy of bench.build_bench_graph).
 """
 
 from __future__ import annotations
 
+import json
+import os
+import sys
+import tempfile
+import time
+
 import numpy as np
+
+from .device import resolve
 
 
 def make_cross(rng, mbp: float, n_chroms: int, divergence: float,
@@ -291,6 +323,219 @@ def evaluate(variants, truth, mom, dad, k, recombs=None):
     }
 
 
+def simulate_cross(mbp: float, n_chroms: int, n_dnms: int, k: int,
+                   divergence: float):
+    """main's cross: (mom, dad, the simulated child), seeds 42 and 7."""
+    from . import simulate as sim
+    rng = np.random.default_rng(42)
+    mom, dad = make_cross(rng, mbp, n_chroms, divergence)
+    res = sim.simulate_haploid_child(mom, dad, parents=("mom", "dad"),
+                                     mu=2.0, num_variants=n_dnms, k=k, seed=7)
+    return mom, dad, res
+
+
+def main(device=None):
+    device = resolve(device)
+    mbp = float(os.environ.get("PF_MBP", "21"))
+    n_chroms = int(os.environ.get("PF_CHROMS", "14"))
+    n_dnms = int(os.environ.get("PF_DNMS", "40"))
+    k = int(os.environ.get("PF_K", "47"))
+    divergence = float(os.environ.get("PF_DIVERGENCE", "0.003"))
+    coverage = float(os.environ.get("PF_COVERAGE", "20"))
+    read_len = int(os.environ.get("PF_READLEN", "150"))
+    err = float(os.environ.get("PF_ERR", "0.002"))
+    mode = os.environ.get("PF_MODE", "reads")
+    workdir = os.environ.get("PF_WORKDIR",
+                             os.path.join(tempfile.gettempdir(), "pf_demo_work"))
+
+    stages = {}
+    t0 = time.perf_counter()
+    mom, dad, res = simulate_cross(mbp, n_chroms, n_dnms, k, divergence)
+    stages["simulate_s"] = round(time.perf_counter() - t0, 2)
+    truth = res["truth_vcf"]
+
+    if mode == "reads":
+        out = run_reads_pipeline(res, mom, dad, truth, k, coverage, read_len,
+                                 err, workdir, stages, device=device)
+    else:
+        out = run_haplotype_flow(res, mom, dad, truth, k, stages, device=device)
+
+    out["genome_mbp"] = mbp
+    out["k"] = k
+    out["colors"] = 3
+    out["injected_dnms"] = len(truth)
+    out["stages"] = {**stages, **out.get("stages", {})}
+    out["total_pipeline_s"] = round(sum(v for s, v in out["stages"].items()
+                                        if s != "simulate_s"), 2)
+    print(json.dumps(out))
+
+
+def reads_pipeline(res, mom, dad, truth, k, coverage, read_len, err, workdir,
+                   stages, device=None, log=None):
+    """run_reads_pipeline's work: (its JSON dict, and what the run made for
+    a caller that looks further: the pipeline's result, the evaluation, the
+    reads, the indexed references and run_pipeline's seconds).  `log`
+    replaces the pipeline's progress lines on stderr."""
+    from . import pipeline as pl
+    from . import simulate as sim
+    from .commands import more
+    from .models.reference_index import IndexedReference
+
+    t0 = time.perf_counter()
+    reads = {
+        "kid": sim.simulate_reads(list(res["child"].values()), coverage,
+                                  read_len, err, seed=11),
+        "mom": sim.simulate_reads(list(mom.values()), coverage,
+                                  read_len, err, seed=12),
+        "dad": sim.simulate_reads(list(dad.values()), coverage,
+                                  read_len, err, seed=13),
+    }
+    stages["simulate_reads_s"] = round(time.perf_counter() - t0, 2)
+
+    refs = {"mom": IndexedReference(mom), "dad": IndexedReference(dad)}
+    t0 = time.perf_counter()
+    result = pl.run_pipeline(
+        workdir, reads, child="kid", parents=["mom", "dad"],
+        references=refs, k=k, min_coverage=2, max_walk=2000,
+        log=log or (lambda *a: print(*a, file=sys.stderr)), device=device)
+    pipeline_s = time.perf_counter() - t0
+
+    g = result["graph"]
+    rois = result["rois"]
+    variants = result["variants"]
+    stats = result["stats"]
+    roi_stats = more.evaluate_rois(rois, res["kmers"])
+
+    ev = evaluate(variants, truth, mom, dad, k, recombs=res.get("recombs"))
+    out = {
+        "metric": "pf_scale_cross_linked_pipeline_wallclock",
+        "mode": "reads+links+prefilters",
+        "read_coverage": coverage,
+        "read_error_rate": err,
+        "graph_records": g.num_records,
+        "roi_kmers": rois.num_records,
+        "roi_tp": roi_stats["tp"], "roi_fn": roi_stats["fn"],
+        "prefilter": stats.get("prefilter", {}),
+        "links": {s: stats.get(f"thread_{s}", {}).get("kmers_with_links", 0)
+                  for s in ("kid", "mom", "dad")},
+        "partition_links": {kk: vv for kk, vv in stats.get("partition", {}).items()
+                            if kk != "partitions"},
+        "partitions": len(result["partitions"]),
+        "calls": len(variants),
+        "calls_after_fdr_filter": len(result.get("filtered_variants") or []),
+        "filter_calls": stats.get("filter_calls", {}),
+        "truth_recovered": ev["strict_recovered"],
+        "strict_by_type": ev["strict_by_type"],
+        "kmer_venn": ev["kmer_venn"],
+        "venn_by_type": ev["venn_by_type"],
+        "fp_breakdown": ev["fp_breakdown"],
+        "fp_after_fdr_and_crossover_accounting":
+            ev["fp_after_fdr_and_crossover_accounting"],
+        "unmatched_breakends": ev["unmatched_breakends"],
+        "stages": result["stages"],
+    }
+    _maybe_dump(ev, variants)
+    return out, {"result": result, "ev": ev, "reads": reads, "refs": refs,
+                 "pipeline_s": pipeline_s}
+
+
+def run_reads_pipeline(res, mom, dad, truth, k, coverage, read_len, err,
+                       workdir, stages, device=None):
+    """The production configuration: error-bearing shotgun reads through the
+    full linked pipeline (pipeline.run_pipeline == Simulate.wdl stage order).
+    """
+    return reads_pipeline(res, mom, dad, truth, k, coverage, read_len, err,
+                          workdir, stages, device=device)[0]
+
+
+def run_haplotype_flow(res, mom, dad, truth, k, stages, device=None):
+    """Legacy fast configuration: whole-haplotype graph build, no links, no
+    prefilters (kept for wall-clock comparison with round-1 numbers)."""
+    from . import build, evaluation as evl
+    from .caller.call import Caller
+    from .commands import core, more
+    from .models.reference_index import IndexedReference
+
+    t0 = time.perf_counter()
+    gs = [build.build_graph_from_reads(seqs, k, name, device=device)
+          for name, seqs in [("kid", list(res["child"].values())),
+                             ("mom", list(mom.values())),
+                             ("dad", list(dad.values()))]]
+    g = core.join(gs)
+    stages["build_graph_s"] = round(time.perf_counter() - t0, 2)
+
+    t0 = time.perf_counter()
+    rois = core.find_rois(g, "kid", ["mom", "dad"])
+    stages["find_rois_s"] = round(time.perf_counter() - t0, 2)
+    roi_stats = more.evaluate_rois(rois, res["kmers"])
+
+    t0 = time.perf_counter()
+    parts = core.partition(g, rois, max_walk=2000, device=device)
+    stages["partition_s"] = round(time.perf_counter() - t0, 2)
+
+    t0 = time.perf_counter()
+    roi_set = {rois.kmer_string(i) for i in range(rois.num_records)}
+    parts = evl.trim_partitions(parts, roi_set, k)
+    stages["trim_s"] = round(time.perf_counter() - t0, 2)
+
+    t0 = time.perf_counter()
+    refs = {"mom": IndexedReference(mom), "dad": IndexedReference(dad)}
+    stages["index_refs_s"] = round(time.perf_counter() - t0, 2)
+
+    t0 = time.perf_counter()
+    caller = Caller(g, rois, parts, backgrounds=["mom", "dad"],
+                    references=refs, device=device)
+    variants, _ = caller.call()
+    stages["call_s"] = round(time.perf_counter() - t0, 2)
+
+    ev = evaluate(variants, truth, mom, dad, k, recombs=res.get("recombs"))
+    out = {
+        "metric": "pf_scale_cross_call_wallclock",
+        "mode": "haplotype",
+        "graph_records": g.num_records,
+        "roi_kmers": rois.num_records,
+        "roi_tp": roi_stats["tp"], "roi_fn": roi_stats["fn"],
+        "partitions": len(parts),
+        "calls": len(variants),
+        "truth_recovered": ev["strict_recovered"],
+        "strict_by_type": ev["strict_by_type"],
+        "kmer_venn": ev["kmer_venn"],
+        "venn_by_type": ev["venn_by_type"],
+        "fp_breakdown": ev["fp_breakdown"],
+        "fp_after_fdr_and_crossover_accounting":
+            ev["fp_after_fdr_and_crossover_accounting"],
+        "unmatched_breakends": ev["unmatched_breakends"],
+    }
+    _maybe_dump(ev, variants)
+    return out
+
+
+def _maybe_dump(ev, variants):
+    dump = os.environ.get("PF_DUMP")
+    if not dump:
+        return
+    detail = {
+        "truth": [{**t, "matched": ti in ev["matched"]}
+                  for ti, t in enumerate(ev["truth_rows"])],
+        "calls": [{"chrom": cv.chrom, "pos": cv.start,
+                   "alleles": list(cv.alleles),
+                   "background": cv.get_attr("BACKGROUND"),
+                   "mapq": cv.get_attr("flankMappingQuality"),
+                   "symbolic": cv.is_symbolic(),
+                   # breakend provenance, for root-causing unmatched BNDs
+                   # without re-running Call
+                   **({"partition": cv.get_attr("PARTITION_NAME"),
+                       "mateid": cv.get_attr("MATEID"),
+                       "target": cv.get_attr("targetName"),
+                       "novel_kmers": cv.get_attr("NOVEL_KMERS"),
+                       "child_hap_len": len(cv.get_attr("CHILD_HAP") or "")}
+                      if cv.is_symbolic() else {})}
+                  for cv in variants],
+    }
+    with open(dump, "w") as f:
+        json.dump(detail, f, indent=1)
+
+
 def build_bench_graph(k: int, n_bases: int, seed: int = 7):
     from . import fixtures
     rng = np.random.default_rng(seed)
@@ -302,3 +547,7 @@ def build_bench_graph(k: int, n_bases: int, seed: int = 7):
     child = "".join(child)
     g = fixtures.build_graph({"kid": [child], "mom": [genome], "dad": [genome]}, k)
     return g, genome
+
+
+if __name__ == "__main__":
+    main()

@@ -14,7 +14,10 @@ recombination word a column instead of three packed words a cell;
 encoding and of the kernel's walk over it.  The packed word is the JAX
 package's int32 `who << 25 | state << 23 | pos` up to tz.INT32_TARGETS
 targets and the same word in int64 above (models/tesserae.word_dtype); the
-kernel's recombination words are int64 at every size.
+kernel's recombination words are int64 at every size.  Sections past the
+register form's MAX_CELLS take the kernel's wide form (state in global
+memory), up to MAX_WIDE_CELLS, the most that TesseraeDevice's budget gate
+sends to the device (`gate_max_cells`); on the CPU the twin takes any size.
 
 Shapes are the section's own: query int32[L], targets int32[S, W-1] with a
 bool validity mask, W = longest target + 1.  The JAX package pads to
@@ -45,9 +48,16 @@ MAX_THREADS = 512
 MAX_CELLS_PER_THREAD = 16
 MAX_CELLS = MAX_CLUSTER * MAX_THREADS * MAX_CELLS_PER_THREAD
 CTA_THREADS = 256             # threads a CTA before the cluster grows
+# the wide form's limit, the budget gate's largest section: 16,384 targets
+# of at most 64 bases (width 65) with a query of at most 64 bases,
+# section_bytes 16 * (16,384 + 1) * 65^2 = 1,107,626,000 <= 2 GiB, where
+# 32,768 targets would need 2,215,184,400 (gate_max_cells)
+MAX_WIDE_CELLS = 16_384 * 65
 
-# kernel launches (plain integer; chip_smoke.py resets and reads it)
+# kernel launches (plain integers; chip_smoke.py resets and reads them):
+# every launch, and those of the wide form among them
 LAUNCHES = 0
+WIDE_LAUNCHES = 0
 
 
 def tesserae_params(del_: float, eps: float, rho: float, term: float,
@@ -79,13 +89,14 @@ def delete_term(ldel: torch.Tensor, leps: torch.Tensor, width: int) -> torch.Ten
     backend contracts tesserae_jax.py:63 into an FMA (jax 0.9.0), and the
     kernel computes it with __fmaf_rn (csrc/tesserae.cu).  The product and
     the sum are taken in float64 and rounded once to float32.  The product
-    is exact there: leps has 24 significant bits and |j - 1| < MAX_CELLS =
-    2^17 (kernel_config's largest width), 41 bits in all.  The sum is exact
-    while its bits span at most 53, which the caller's parameters decide
-    (the Caller's span 41); its rounding error, found by TwoSum, must be
-    zero, or this raises rather than round twice."""
-    if width > MAX_CELLS:
-        raise ValueError(f"width {width} over the {MAX_CELLS} the exact product holds")
+    is exact there: leps has 24 significant bits and |j - 1| < MAX_WIDE_CELLS
+    < 2^21 (the widest section either form of the kernel takes), 45 bits in
+    all; it would stay exact up to |j - 1| < 2^29.  The sum is exact while
+    its bits span at most 53, which the caller's parameters decide (the
+    Caller's span 45 at that width); its rounding error, found by TwoSum,
+    must be zero, or this raises rather than round twice."""
+    if width > MAX_WIDE_CELLS:
+        raise ValueError(f"width {width} over the {MAX_WIDE_CELLS} the kernel takes")
     a = ldel.to(torch.float64)
     b = leps.to(torch.float64) * (torch.arange(width, dtype=torch.float64,
                                                device=ldel.device) - 1)
@@ -310,12 +321,12 @@ def decode_traceback(codes: torch.Tensor, rec: torch.Tensor, who, state, pos):
 
 
 def kernel_config(s_count: int, width: int):
-    """(cells a thread, CTAs in the cluster, threads a CTA) for a section of
-    S x W cells: at least min(4, W) cells a thread (a power of two, at most
-    W, so a thread meets at most one target boundary), more when the cells
-    would not fit MAX_CLUSTER x MAX_THREADS threads; the cluster doubles
-    while a CTA would hold more than CTA_THREADS threads.  Raises for a
-    section over MAX_CELLS cells."""
+    """(cells a thread, CTAs in the cluster, threads a CTA) of the register
+    form for a section of S x W cells: at least min(4, W) cells a thread (a
+    power of two, at most W, so a thread meets at most one target boundary),
+    more when the cells would not fit MAX_CLUSTER x MAX_THREADS threads; the
+    cluster doubles while a CTA would hold more than CTA_THREADS threads.
+    Raises for a section over MAX_CELLS cells."""
     cells = s_count * width
     if cells > MAX_CELLS:
         raise ValueError(f"tesserae section of {s_count} x {width} = {cells} cells: "
@@ -330,14 +341,37 @@ def kernel_config(s_count: int, width: int):
     return per, cluster, 32 * -(-n_threads // (32 * cluster))
 
 
+def wide_config(s_count: int, width: int):
+    """(cells a thread, CTAs in the cluster, threads a CTA) of the wide form
+    for a section of S x W cells: the whole MAX_CLUSTER x MAX_THREADS
+    cluster, each thread a run of ceil(S*W / its threads) cells, their state
+    in global memory.  Raises for a section over MAX_WIDE_CELLS cells."""
+    cells = s_count * width
+    if cells > MAX_WIDE_CELLS:
+        raise ValueError(f"tesserae section of {s_count} x {width} = {cells} cells: "
+                         f"the wide form holds at most {MAX_WIDE_CELLS}")
+    return -(-cells // (MAX_CLUSTER * MAX_THREADS)), MAX_CLUSTER, MAX_THREADS
+
+
+def launch_config(s_count: int, width: int):
+    """(wide, cells a thread, CTAs, threads a CTA) that tesserae_fused
+    launches for a section of S x W cells: the register form up to
+    MAX_CELLS, the wide form above."""
+    if s_count * width > MAX_CELLS:
+        return (True, *wide_config(s_count, width))
+    return (False, *kernel_config(s_count, width))
+
+
 def tesserae_fused(q_codes: torch.Tensor, t_codes: torch.Tensor,
-                   valid: torch.Tensor, params, config=None):
-    """Tesserae DP + traceback: the plain twin for CPU tensors, one launch
-    of csrc/tesserae.cu for CUDA tensors.  Returns (max_r, cells, n) as
-    tesserae_full does (tensors on the inputs' device on CUDA).  `config`
-    overrides kernel_config's (cells a thread, cluster, threads), so that
-    the kernel tests can place CTA edges inside targets."""
-    global LAUNCHES
+                   valid: torch.Tensor, params, config=None, wide=None):
+    """Tesserae DP + traceback: the plain twin for CPU tensors (any size),
+    one launch of csrc/tesserae.cu for CUDA tensors: the register form up to
+    MAX_CELLS cells, the wide form above.  Returns (max_r, cells, n) as
+    tesserae_full does (tensors on the inputs' device on CUDA).  `wide`
+    forces a form and `config` its (cells a thread, cluster, threads), so
+    that the kernel tests can place CTA edges inside targets and run the
+    wide form on small sections."""
+    global LAUNCHES, WIDE_LAUNCHES
     l1 = q_codes.shape[0]
     s_count, w1 = t_codes.shape
     if l1 < 1 or s_count < 1 or w1 < 1:
@@ -346,15 +380,18 @@ def tesserae_fused(q_codes: torch.Tensor, t_codes: torch.Tensor,
         raise ValueError("valid must have t_codes' shape")
     if q_codes.dtype != torch.int32 or t_codes.dtype != torch.int32:
         raise TypeError("codes must be int32")
-    width = w1 + 1
-    per, cluster, threads = config or kernel_config(s_count, width)
     if q_codes.device.type == "cpu":
         return tesserae_full(q_codes, t_codes, valid, params)
     if q_codes.device.type != "cuda":
         raise ValueError(f"unsupported device {q_codes.device}")
+    width = w1 + 1
+    if wide is None:
+        wide = launch_config(s_count, width)[0]
+    per, cluster, threads = config or (wide_config if wide else kernel_config)(s_count, width)
     dev = q_codes.device
     cap = l1 + width + 4
-    npad = -(-s_count * width // 16) * 16
+    slots = cluster * threads * per if wide else s_count * width
+    npad = -(-slots // 16) * 16
     scal, lsm, lsi = params
     prm = torch.cat([scal.reshape(-1), lsm.reshape(-1), lsi.reshape(-1)]).to(
         device=dev, dtype=torch.float32).contiguous()
@@ -365,12 +402,22 @@ def tesserae_fused(q_codes: torch.Tensor, t_codes: torch.Tensor,
     rec = torch.empty(l1 + 1, dtype=torch.int64, device=dev)
     out = torch.empty(2 + 3 * cap, dtype=torch.int32, device=dev)
     lib = _kernels.library()
-    err = lib.ctk_tesserae(q.data_ptr(), t.data_ptr(), vmask.data_ptr(),
-                           prm.data_ptr(), l1, s_count, width, per, cluster,
-                           threads, codes.data_ptr(), npad, rec.data_ptr(),
-                           out.data_ptr(), cap, _kernels.stream(dev))
-    _kernels.check(err, "tesserae")
+    if wide:
+        state = torch.empty(3 * slots, dtype=torch.float32, device=dev)
+        info = torch.empty(slots, dtype=torch.uint8, device=dev)
+        err = lib.ctk_tesserae_wide(q.data_ptr(), t.data_ptr(), vmask.data_ptr(),
+                                    prm.data_ptr(), l1, s_count, width, per, cluster,
+                                    threads, codes.data_ptr(), npad, rec.data_ptr(),
+                                    state.data_ptr(), info.data_ptr(), out.data_ptr(),
+                                    cap, _kernels.stream(dev))
+    else:
+        err = lib.ctk_tesserae(q.data_ptr(), t.data_ptr(), vmask.data_ptr(),
+                               prm.data_ptr(), l1, s_count, width, per, cluster,
+                               threads, codes.data_ptr(), npad, rec.data_ptr(),
+                               out.data_ptr(), cap, _kernels.stream(dev))
+    _kernels.check(err, "tesserae_wide" if wide else "tesserae")
     LAUNCHES += 1
+    WIDE_LAUNCHES += bool(wide)
     return out[1:2].view(torch.float32)[0], out[2:].view(cap, 3), out[0]
 
 
@@ -414,6 +461,29 @@ def _bucket(n: int, lo: int = 64) -> int:
     return b
 
 
+def section_bytes(query_len: int, target_lens) -> int:
+    """TesseraeDevice.align's estimate of a section's device bytes, on the
+    JAX package's padded shapes (tesserae_jax.py:264-266): 16 bytes a cell
+    of (bucket(S, 2) + 1) x (bucket(longest of query and targets) + 1)^2."""
+    est_maxl = _bucket(max([query_len] + list(target_lens)))
+    return 4 * 4 * (_bucket(len(target_lens), 2) + 1) * (est_maxl + 1) ** 2
+
+
+def gate_max_cells(budget: int) -> int:
+    """The most cells S x W of a section whose section_bytes are within
+    `budget`: for each padded length b (64, 128, ...), the largest
+    power-of-two target bucket that fits, its S targets of up to b bases
+    (W = b + 1).  1,064,960 at the 2 GiB budget (16,384 x 65)."""
+    most, maxl = 0, 64
+    while section_bytes(1, [maxl] * 2) <= budget:
+        s = 2
+        while section_bytes(1, [maxl] * (2 * s)) <= budget:
+            s *= 2
+        most = max(most, s * (maxl + 1))
+        maxl *= 2
+    return most
+
+
 class TesseraeDevice(tz.Tesserae):
     """Tesserae with the DP and the traceback walk on the device; segment
     reconstruction on the host.  `device` defaults to the CUDA card (and
@@ -441,10 +511,7 @@ class TesseraeDevice(tz.Tesserae):
         t_start = time.perf_counter()
         names = list(targets.keys())
         seqs = [targets[n] for n in names]
-        l1 = len(query)
-        est_maxl = _bucket(max([l1] + [len(t) for t in seqs]))
-        est_bytes = 4 * 4 * (_bucket(len(seqs), 2) + 1) * (est_maxl + 1) ** 2
-        if est_bytes > self.HBM_BUDGET_BYTES:
+        if section_bytes(len(query), [len(t) for t in seqs]) > self.HBM_BUDGET_BYTES:
             host = tz.Tesserae(self.del_, self.eps, self.rho, self.term)
             out = host.align(query, targets)
             self.llk = host.llk

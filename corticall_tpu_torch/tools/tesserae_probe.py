@@ -106,7 +106,11 @@ BARRIER_MODES = ["__syncthreads", "cluster.sync", "cluster barrier, relaxed arri
 BARRIER_SHAPES = [(1, 32), (1, 512), (2, 256), (8, 256), (16, 448)]
 
 # (exact line of csrc/tesserae.cu, replacement): each hook compiles a part of
-# the column loop out under its macro
+# the register form's column loop out under its macro.  The hooks apply from
+# the cluster barrier to the wide form (ABLATE_SPAN), where each line is
+# unique: the shared helpers and the register kernel.
+ABLATE_SPAN = ("__device__ __forceinline__ void cluster_barrier(bool publishes) {\n",
+               "// The wide form: the register kernel's column loop")
 HOOKS = [
     ("  for (int col = 1; col <= L; ++col) {\n",
      "  for (int col = 1; col <= L; ++col) {\n#ifdef ABL_EMPTY\n    if (col > 0) continue;\n#endif\n"),
@@ -114,18 +118,18 @@ HOOKS = [
      "#ifdef ABL_NOQ\n    const int qc = col & 3;\n#else\n    const int qc = q[col - 1];\n#endif\n"),
     ("      store_codes<C>(codes + (size_t)col * npad + f0, w);\n",
      "#ifndef ABL_NOSTORE\n      store_codes<C>(codes + (size_t)col * npad + f0, w);\n#endif\n"),
-    ("    if (rank == 0 && tid == 0) {\n      const int two_w",
-     "#ifndef ABL_NOSTORE\n    if (rank == 0 && tid == 0) {\n#else\n    if (false) {\n#endif\n"
-     "      const int two_w"),
-    ("    if (warp == 0) {\n      const Seg x",
-     "#ifdef ABL_NOEXCH\n    if (false) {\n#else\n    if (warp == 0) {\n#endif\n      const Seg x"),
-    ("      if (lane < K) {\n",
-     "#ifdef ABL_NOEXCH\n      if (false) {\n#else\n      if (lane < K) {\n#endif\n"),
+    ("    if (rank == 0 && tid == 0) rec[col] = rec_word(best, W);\n",
+     "#ifndef ABL_NOSTORE\n    if (rank == 0 && tid == 0) rec[col] = rec_word(best, W);\n#endif\n"),
+    ("  if (y.warp == 0) {\n    const Seg x",
+     "#ifdef ABL_NOEXCH\n  if (false) {\n#else\n  if (y.warp == 0) {\n#endif\n    const Seg x"),
+    ("  if (y.lane < y.K) {\n",
+     "#ifdef ABL_NOEXCH\n  if (false) {\n#else\n  if (y.lane < y.K) {\n#endif\n"),
     ("    int bi = 0x7fffffff;\n",
      "    int bi = 0x7fffffff;\n#ifdef ABL_NOCOMPUTE\n    ncells = 0;\n#endif\n"),
-    ("  if (rank == 0 && tid == 0) {\n    const int two_w = 2 * W;\n    const int who",
-     "#ifdef ABL_NOTB\n  if (false) {\n#else\n  if (rank == 0 && tid == 0) {\n#endif\n"
-     "    const int two_w = 2 * W;\n    const int who"),
+    ("  if (rank == 0 && tid == 0) walk_path(codes, npad, rec, L, S, W, best, max_r, out, cap, 0, 0);\n",
+     "#ifndef ABL_NOTB\n"
+     "  if (rank == 0 && tid == 0) walk_path(codes, npad, rec, L, S, W, best, max_r, out, cap, 0, 0);\n"
+     "#endif\n"),
     ("__device__ __forceinline__ void cluster_barrier(bool publishes) {\n",
      "__device__ __forceinline__ void cluster_barrier(bool publishes) {\n"
      "#ifdef ABL_NOBAR\n  return;\n#endif\n"),
@@ -175,10 +179,13 @@ def barriers() -> None:
 def ablated_source() -> str:
     with open(os.path.join(_kernels.CSRC_DIR, "tesserae.cu")) as f:
         src = f.read()
+    a, b = src.index(ABLATE_SPAN[0]), src.index(ABLATE_SPAN[1])
+    span = src[a:b]
     for line, hooked in HOOKS:
-        if src.count(line) != 1:
+        if span.count(line) != 1:
             raise RuntimeError(f"tesserae.cu no longer has the hook line {line!r}")
-        src = src.replace(line, hooked)
+        span = span.replace(line, hooked)
+    src = src[:a] + span + src[b:]
     path = os.path.join(OUT, "tesserae_ablate.cu")
     with open(path, "w") as f:
         f.write(src)

@@ -38,6 +38,9 @@ def test_sources_found():
     assert "chip_smoke.py" in names
     assert os.path.join("corticall_tpu_torch", "caller", "call.py") in names
     assert os.path.join("corticall_tpu_torch", "native.py") in names
+    # the flagship demo (python -m corticall_tpu_torch.demo) and its tool
+    assert os.path.join("corticall_tpu_torch", "demo.py") in names
+    assert os.path.join("corticall_tpu_torch", "tools", "flagship.py") in names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))

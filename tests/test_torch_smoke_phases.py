@@ -645,7 +645,8 @@ def rehearse_cross(workdir) -> dict:
     cs.check_main_path(mp)
     cross, kid2 = cs.cross_phase(cpu, mp, workdir)
     return {"main_launches": mp["launches"], "cross": cross,
-            "cli": cs.cli_phase(cpu, mp, kid2, workdir)}
+            "cli": cs.cli_phase(cpu, mp, kid2, workdir),
+            "demo": mp["demo"], "haplotype": cs.haplotype_phase(cpu, mp)}
 
 
 def test_cross_and_cli_phases_rehearse_on_cpu(tmp_path):
@@ -673,6 +674,33 @@ def test_cross_and_cli_phases_rehearse_on_cpu(tmp_path):
     assert cli["launches"]["Call"]["sw_banded"] > 0 and cli["launches"]["Call"]["tesserae"] > 0
     assert set(cli["seconds"]) >= {"Build", "Clean", "Partition", "AlignContigs", "Call",
                                    "FilterCalls", "subprocess_align_contigs"}
+    # phase 4 through the flagship demo, and phase 16's haplotype mode
+    assert out["demo"]["metric"] == "pf_scale_cross_linked_pipeline_wallclock"
+    assert out["demo"]["calls"] > 0 and out["main_launches"]["tesserae"] > 0
+    hap = out["haplotype"]
+    assert hap["mode"] == "haplotype" and hap["calls"] > 0
+    assert hap["launches"]["tesserae"] > 0
+    assert {"build_graph_s", "partition_s", "call_s"} <= set(hap["stage_s"])
+
+
+def test_wide_form_sections_are_ones_the_gate_sends_past_the_register_form():
+    """chip_smoke's phase-3 sections for the kernel's wide form: each past
+    the register form's cells, admitted by TesseraeDevice's budget gate, the
+    last the gate's largest."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.dirname(TESTS))
+    import chip_smoke as cs
+    from corticall_tpu_torch.ops import tesserae_torch as tt
+
+    cells = []
+    for query, targets in cs.wide_form_sections(np.random.default_rng(3)):
+        lens = [len(t) for t in targets.values()]
+        width = max(lens) + 1
+        assert tt.launch_config(len(lens), width)[0]
+        assert tt.section_bytes(len(query), lens) <= tt.TesseraeDevice.HBM_BUDGET_BYTES
+        cells.append(len(lens) * width)
+    assert cells == [256 * 513, 600 * 257, tt.MAX_WIDE_CELLS]
 
 
 # ---- phase 15: the sharded graph across processes ---------------------------

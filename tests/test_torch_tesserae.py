@@ -255,8 +255,13 @@ def test_kernel_config(s_count, width, want):
 
 
 def test_kernel_config_names_its_limit():
+    """The register form names its limit; past it the wide form takes the
+    section, up to its own limit."""
     with pytest.raises(ValueError, match=str(tt.MAX_CELLS)):
         tt.kernel_config(63, 2100)
+    assert tt.launch_config(63, 2100)[0]
+    with pytest.raises(ValueError, match=str(tt.MAX_WIDE_CELLS)):
+        tt.wide_config(16_385, 65)
 
 
 def test_wrapper_validates_and_counts_no_cpu_launch():
@@ -268,9 +273,11 @@ def test_wrapper_validates_and_counts_no_cpu_launch():
         tt.tesserae_fused(args[0], args[1], args[2][:, :-1], args[3])
     many = torch.zeros((64, 5), dtype=torch.int32)
     assert int(tt.tesserae_fused(args[0], many, many.bool(), args[3])[2]) >= 2
+    # past the register form's cells, the plain twin answers on the CPU
     big = torch.zeros((64, 2100), dtype=torch.int32)
-    with pytest.raises(ValueError, match=str(tt.MAX_CELLS)):
-        tt.tesserae_fused(args[0], big, big.bool(), args[3])
+    assert 64 * 2101 > tt.MAX_CELLS
+    assert int(tt.tesserae_fused(args[0], big, big.bool(), args[3])[2]) >= 2
+    assert tt.LAUNCHES == before
 
 
 @pytest.mark.cuda
@@ -370,12 +377,13 @@ def tie_prone_sections(seed: int = 7, count: int = 60) -> list:
 @pytest.mark.parametrize("prm", PARAMS)
 def test_delete_term_is_xla_cpus_contraction(prm):
     """delete_term equals XLA's CPU FMA of the same expression bit for bit
-    at every j of the widest section the kernel takes, and differs from the
-    twice-rounded float32 expression at some j (so the rounding matters)."""
+    at every j of the widest section the kernel takes (either form), and
+    differs from the twice-rounded float32 expression at some j (so the
+    rounding matters)."""
     jax = pytest.importorskip("jax")
     jnp = pytest.importorskip("jax.numpy")
     scal, _, _ = tt.tesserae_params(*prm, 1234.0)
-    width = tt.MAX_CELLS
+    width = tt.MAX_WIDE_CELLS
     ldel, leps = np.float32(scal[0]), np.float32(scal[1])
     xla = jax.jit(lambda a, b: a + b * (jnp.arange(width, dtype=jnp.int32) - 1).astype(
         jnp.float32))(ldel, leps)
@@ -395,7 +403,7 @@ def test_delete_term_refuses_a_sum_it_cannot_round_once():
     with pytest.raises(ArithmeticError):
         tt.delete_term(torch.tensor(1.0), torch.tensor(2.0 ** -60), 8)
     with pytest.raises(ValueError):
-        tt.delete_term(torch.tensor(-1.0), torch.tensor(-0.1), tt.MAX_CELLS + 1)
+        tt.delete_term(torch.tensor(-1.0), torch.tensor(-0.1), tt.MAX_WIDE_CELLS + 1)
 
 
 def test_twin_matches_jax_on_the_cross_section():
@@ -440,13 +448,13 @@ def test_twin_matches_jax_on_tie_prone_sections():
 
 @pytest.mark.cuda
 def test_kernel_delete_term_matches_plain_on_card(cuda):
-    """The kernel's delete term (the device function ctk_tesserae calls)
-    equals the twin's bit for bit at every j up to the widest section the
-    kernel takes."""
+    """The kernel's delete term (the device function both forms of
+    ctk_tesserae call) equals the twin's bit for bit at every j up to the
+    widest section the kernel takes."""
     for prm in PARAMS:
         params = tt.tesserae_params(*prm, 1234.0, cuda)
-        got = tt.delete_term_on_card(params, tt.MAX_CELLS)
-        want = tt.delete_term(params[0][0].cpu(), params[0][1].cpu(), tt.MAX_CELLS)[0]
+        got = tt.delete_term_on_card(params, tt.MAX_WIDE_CELLS)
+        want = tt.delete_term(params[0][0].cpu(), params[0][1].cpu(), tt.MAX_WIDE_CELLS)[0]
         np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
                                       want.numpy().view(np.int32))
 
@@ -464,3 +472,129 @@ def test_kernel_matches_plain_on_fma_sections_on_card(cuda):
                                       want_cells[:want_n].cpu().numpy())
         assert np.float32(max_r.item()).view(np.int32) == \
             np.float32(want_r.item()).view(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# sections past the register form's cells: TesseraeDevice's budget gate sends
+# sections of up to MAX_WIDE_CELLS cells to the device, and the kernel's wide
+# form takes each of them.  All have 256 or more targets, so the reference is
+# the widened host oracle (the JAX package's int32 word breaks at 64).
+# ---------------------------------------------------------------------------
+
+def wide_case(name):
+    """256 targets of 512 bases with a 500 bp query (a section the register
+    form refused), 600 targets of 150-256 bases, and 16,384 targets of 64
+    bases with a 64 bp query (the gate's largest section); each query a
+    mosaic of two or three targets with 0.5% substitutions."""
+    if name == "256x512":
+        rng = np.random.default_rng(256)
+        targets = {f"t{i}": _genome(rng, 512) for i in range(256)}
+        query = targets["t200"][:250] + targets["t7"][250:500]
+    elif name == "600x256":
+        rng = np.random.default_rng(600)
+        targets = {f"t{i}": _genome(rng, 256 if i in (0, 64, 301, 599)
+                                    else int(rng.integers(150, 257)))
+                   for i in range(600)}
+        query = targets["t599"][:90] + targets["t64"][90:180] + targets["t301"][180:]
+    else:
+        rng = np.random.default_rng(16_384)
+        targets = {f"t{i}": _genome(rng, 64) for i in range(16_384)}
+        query = targets["t5000"][:32] + targets["t12000"][32:]
+    return _mutate(rng, query, 0.005), targets
+
+
+WIDE_CASES = {"256x512": 256 * 513, "600x256": 600 * 257, "gate_max": tt.MAX_WIDE_CELLS}
+
+
+def test_gate_maximum_is_the_wide_forms_limit():
+    """MAX_WIDE_CELLS is the most cells of a section that TesseraeDevice's
+    budget gate sends to the device: 16,384 targets of 64 bases (width 65)
+    with a 64 bp query pass it, one more target does not, and every padded
+    length's largest admitted section is within the wide form."""
+    budget = tt.TesseraeDevice.HBM_BUDGET_BYTES
+    assert tt.gate_max_cells(budget) == tt.MAX_WIDE_CELLS == 16_384 * 65
+    assert tt.section_bytes(64, [64] * 16_384) <= budget < tt.section_bytes(64, [64] * 16_385)
+    assert tt.wide_config(16_384, 65) == (130, 16, 512)
+    maxl = 64
+    while tt.section_bytes(1, [maxl] * 2) <= budget:
+        s = 2
+        while tt.section_bytes(maxl, [maxl] * (2 * s)) <= budget:
+            s *= 2
+        assert s * (maxl + 1) <= tt.MAX_WIDE_CELLS
+        assert tt.launch_config(s, maxl + 1)[1:] in (tt.kernel_config(s, maxl + 1)
+                                                     if s * (maxl + 1) <= tt.MAX_CELLS
+                                                     else tt.wide_config(s, maxl + 1),)
+        maxl *= 2
+
+
+@pytest.mark.parametrize("name", list(WIDE_CASES))
+def test_wide_sections_answer_on_the_device_path(name):
+    """Sections the budget gate admits past the register form's cells: the
+    port's TesseraeDevice answers on its device path (the plain twin on the
+    CPU) and gives the widened oracle's path, llk within 1e-4 relative."""
+    query, targets = wide_case(name)
+    lens = [len(t) for t in targets.values()]
+    assert len(targets) * (max(lens) + 1) == WIDE_CASES[name] > tt.MAX_CELLS
+    assert tt.section_bytes(len(query), lens) <= tt.TesseraeDevice.HBM_BUDGET_BYTES
+    prm = PARAMS[1]
+    host = ptz.Tesserae(*prm)
+    want = host.align(query, targets)
+    dev = tt.TesseraeDevice(*prm, device="cpu")
+    assert dev.align(query, targets) == want
+    assert abs(dev.llk - host.llk) <= 1e-4 * abs(host.llk)
+    assert dev.device_sections == 1 and dev.host_sections == 0
+    assert len(want) >= 2
+
+
+# small sections forced through the wide form: runs of cells that cross many
+# targets, partial and empty threads, one thread, one CTA, CTA edges inside
+# targets
+FORCED_WIDE = [("w2_63", (5, 1, 32)), ("w2_100", (16, 1, 32)), ("targets16", (33, 2, 64)),
+               ("targets16", None), ("many100", (23, 3, 96)), ("recombinant0", (800, 1, 32)),
+               ("small", (1, 2, 32)), ("tiny", (1, 1, 32)), ("indels", (40, 3, 64))]
+
+
+def test_forced_wide_configs_cover_their_sections():
+    """Every forced wide config has a slot for each cell of its section."""
+    for case, config in FORCED_WIDE:
+        _, t_codes, _, _ = _inputs(*_case(case), PARAMS[1])
+        cells = t_codes.shape[0] * (t_codes.shape[1] + 1)
+        per, cluster, threads = config or tt.wide_config(t_codes.shape[0], t_codes.shape[1] + 1)
+        assert per * cluster * threads >= cells and threads % 32 == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, config", FORCED_WIDE)
+def test_wide_form_matches_plain_on_small_sections_on_card(cuda, case, config):
+    args = _inputs(*_case(case), PARAMS[1], cuda)
+    before, wide_before = tt.LAUNCHES, tt.WIDE_LAUNCHES
+    max_r, cells, n = tt.tesserae_fused(*args, config=config, wide=True)
+    torch.cuda.synchronize()
+    assert (tt.LAUNCHES, tt.WIDE_LAUNCHES) == (before + 1, wide_before + 1)
+    want_r, want_cells, want_n = tt.tesserae_full(*args)
+    assert int(n) == want_n
+    np.testing.assert_array_equal(cells[:want_n].cpu().numpy(),
+                                  want_cells[:want_n].cpu().numpy())
+    assert np.float32(max_r.item()).view(np.int32) == \
+        np.float32(want_r.item()).view(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(WIDE_CASES))
+def test_wide_form_matches_plain_on_card(cuda, name):
+    """The gate's sections past the register form, through the wide form on
+    the card against the plain twin on the card: cells and max_r bit for
+    bit."""
+    query, targets = wide_case(name)
+    args = _inputs(query, targets, PARAMS[1], cuda)
+    assert tt.launch_config(args[1].shape[0], args[1].shape[1] + 1)[0]
+    wide_before = tt.WIDE_LAUNCHES
+    max_r, cells, n = tt.tesserae_fused(*args)
+    torch.cuda.synchronize()
+    assert tt.WIDE_LAUNCHES == wide_before + 1
+    want_r, want_cells, want_n = tt.tesserae_full(*args)
+    assert int(n) == want_n
+    np.testing.assert_array_equal(cells[:want_n].cpu().numpy(),
+                                  want_cells[:want_n].cpu().numpy())
+    assert np.float32(max_r.item()).view(np.int32) == \
+        np.float32(want_r.item()).view(np.int32)

@@ -19,7 +19,9 @@ Phases, one JSON line each (progress goes to stderr):
    three sections past the register form's 131,072 cells that the budget
    gate sends to the device (256 targets of 512 bases with a 500 bp query,
    600 targets of 150-256 bases, and the gate's largest, 16,384 x 64
-   bases), each beside its bound.  Outputs must be bit-identical;
+   bases), each beside its bound with its grid (clusters, CTAs a cluster,
+   threads, cells a thread, registers, spills), and the check that the
+   gate's largest section's grid co-resides.  Outputs must be bit-identical;
    the times are CUDA-event kernel times and synchronized host times of the
    twin, beside each kernel's bound;
 4. the main path: a 2 Mbp / 2-chromosome / 20-DNM trio (the port's
@@ -709,8 +711,8 @@ def replay(mp) -> dict:
         ts["plain_ms"] += p_ms
         b_ms, ts["bound_by"] = tesserae_bound(args)
         ts["bound_ms"] += b_ms
-        wide, _, cluster, _ = tt.launch_config(args[1].shape[0], args[1].shape[1] + 1)
-        form = f"wide {cluster}" if wide else cluster
+        wide, *shape = tt.launch_config(args[1].shape[0], args[1].shape[1] + 1)
+        form = f"wide {shape[1]} x {shape[2]}" if wide else shape[1]
         ts["clusters"][form] = ts["clusters"].get(form, 0) + 1
     # the delete state's FMA term (ldel + leps * (j - 1), rounded once) of the
     # kernel's device function against the twin's, every j of the widest section
@@ -2942,10 +2944,12 @@ def main() -> int:
     for query, targets in wide_form_sections(rng):
         args = tt.section_inputs(query, list(targets.values()), CALLER_PARAMS, dev)
         s_count, width = args[1].shape[0], args[1].shape[1] + 1
-        wide, per, cluster, threads = tt.launch_config(s_count, width)
+        wide, *shape = tt.launch_config(s_count, width)
         gate = tt.section_bytes(len(query), [len(t) for t in targets.values()])
         if not wide or gate > tt.TesseraeDevice.HBM_BUDGET_BYTES:
             raise AssertionError(f"{s_count} x {width}: not a wide section the gate admits")
+        per, clusters, cluster, threads = shape
+        info = tt.wide_kernel_info(dev, per, cluster, threads)
         before = tt.WIDE_LAUNCHES
         got = tt.tesserae_fused(*args)
         torch.cuda.synchronize()
@@ -2959,12 +2963,23 @@ def main() -> int:
                           "cells": s_count * width, "kernel_ms": round(k_ms, 3),
                           "us_per_column": round(k_ms * 1e3 / len(query), 3),
                           "plain_ms": round(p_ms, 1), "path_cells": int(got[2]),
-                          "cluster": cluster, "threads": threads, "cells_per_thread": per,
+                          "clusters": clusters, "ctas_per_cluster": cluster, "threads": threads,
+                          "cells_per_thread": per, "registers": info["registers"],
+                          "spill_bytes": info["local_bytes"],
+                          "max_clusters": info["max_clusters"],
                           "gate_bytes": gate, **bound_fields(tesserae_bound(args))})
         log(f"tesserae wide S={s_count} W={width} L={len(query)}: kernel {k_ms:.2f} ms, "
             f"plain {p_ms:.0f} ms")
+    # the gate's largest section must co-schedule: its grid barrier needs
+    # every cluster resident at once, and it has the most clusters of any
+    # section the wide form's one shape admits
+    per, clusters, cluster, threads = tt.wide_config(16_384, 65)
+    room = tt.wide_kernel_info(dev, per, cluster, threads)["max_clusters"]
+    if clusters > room:
+        raise AssertionError(f"the gate's largest section needs {clusters} clusters of "
+                             f"{cluster} x {threads} threads; the card holds {room}")
     emit("tesserae_vs_plain", identical=True, max_abs_err=ts_err, sections=ts_rows,
-         wide_form=wide_rows)
+         wide_form=wide_rows, gate_max_clusters={"needed": clusters, "resident": room})
 
     # ---- 4. the main path --------------------------------------------------
     mp = run_main_path(dev, PF_MBP)
@@ -3075,6 +3090,7 @@ def main() -> int:
          "main_path_bound_ms": round(rp_ts["bound_ms"], 5),
          "wide_form": {"sections": len(wide_rows),
                        "ms": round(sum(r["kernel_ms"] for r in wide_rows), 3),
+                       "section_ms": [r["kernel_ms"] for r in wide_rows],
                        "plain_ms": round(sum(r["plain_ms"] for r in wide_rows), 1),
                        "bound_ms": round(sum(r["bound_ms"] for r in wide_rows), 6),
                        "main_path_launches": launches["tesserae_wide"]}},

@@ -1,5 +1,6 @@
 // Tesserae mosaic-alignment Viterbi DP + traceback, one launch per section,
-// on one thread-block cluster.
+// on one thread-block cluster (the register form) or on a grid of clusters
+// (the wide form, below).
 //
 // Replaces the device code of corticall_tpu/ops/tesserae_jax.py:
 // _tesserae_scan (the lax.scan over query columns), _tesserae_traceback (the
@@ -51,22 +52,45 @@
 // After the last column one thread walks the path, decoding each step into
 // the packed word the plain twin reads, and writes (n, max_r, cells[cap, 3]).
 //
-// The wide form (tesserae_wide_kernel) takes the sections past the register
-// form's 16 x 512 x 16 = 131,072 cells, up to the most that
-// TesseraeDevice.align's budget gate sends to the device (1,064,960 cells:
-// 16,384 targets of at most 64 bases; ops/tesserae_torch.gate_max_cells).
-// It is a repair, not a redesign: the same cluster, passes, barriers and
-// arithmetic in the same order, but each thread owns C = ceil(S*W / 8192)
-// consecutive cells of any number of targets, and their M/I/D state lives in
-// global memory (at most 12.8 MB, which stays in the 50 MB L2).  The state,
-// each cell's target code and validity, and a column's traceback bytes are
-// stored cell-major across the threads (thread g's i-th cell at i*NT + g),
-// so that a warp's loads and stores of its lanes' i-th cells are coalesced;
-// the traceback walk maps a flat cell f to (f % C) * NT + f / C.
+// The wide form (the same kernel template with GRID true, entry point
+// ctk_tesserae_wide) takes the sections past the register form's 16 x 512 x
+// 16 = 131,072 cells, up to the most that TesseraeDevice.align's budget gate
+// sends to the device (1,064,960 cells: 16,384 targets of at most 64 bases;
+// ops/tesserae_torch.gate_max_cells).  The section is spread over a grid of
+// G clusters of K CTAs of T threads, every thread kWideCells = 16
+// consecutive cells of the flat order held in registers as the register form
+// holds them (a run may now cross any number of targets: the Seg summary
+// composes across them unchanged), G the fewest clusters that hold the
+// section.  The column loop is the register form's, line for line, with two
+// global steps:
+//   A. after cluster barrier 1 one thread a cluster writes the cluster's Seg
+//      and argmax candidate to a slot indexed [col & 1][cluster] and arrives
+//      at a grid barrier (a counter in global memory, one release add a
+//      cluster, each CTA's thread 0 spinning on an acquire load towards the
+//      monotone target col * G); every warp then reads the G summaries and
+//      composes the prefix of the clusters before its own and the column's
+//      argmax itself (fmaxf and a first-index argmax: exact and associative,
+//      so bit-identical to the twin for any G);
+//   B. the last thread of each cluster publishes its last cell (M, I, D) to
+//      its cluster's edge slot under a release store of the column number,
+//      and the first thread of the next cluster spins on it (acquire) after
+//      cluster barrier 2: a point-to-point wait, not a second grid barrier.
+// The summaries are double-buffered by column parity, so a fast cluster
+// cannot overwrite one a slow cluster has not read.  An edge slot needs no
+// second buffer: the thread that reads it arrives at the next column's grid
+// barrier after the read, and its writer overwrites it only past that
+// barrier.  A grid barrier needs every CTA resident: the wrapper sizes the
+// launch against cudaOccupancyMaxActiveClusters (ctk_tesserae_wide_info) and
+// refuses a grid past it, and every spin traps after kMaxPolls polls, so
+// that a co-residency mistake fails the launch rather than hanging it.  The
+// traceback layout, the recombination word and the
+// walk are the register form's.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <cstdint>
 
 namespace cg = cooperative_groups;
 
@@ -78,6 +102,18 @@ constexpr int kMaxThreads = 512;
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kMaxCluster = 16;
 constexpr int kNumParams = 9 + 25 + 5;
+
+// The wide form's shape: kWideCells cells a thread, at most kWideThreads
+// threads a CTA, and kWideBlocks CTAs an SM under its register cap (65,536
+// registers over 3 x 256 threads: 80 a thread); with clusters of 8 CTAs
+// (ops/tesserae_torch.wide_config) the fastest shape on the gate's largest
+// section (tools/tesserae_probe.py ablate).
+constexpr int kWideCells = 16;
+constexpr int kWideThreads = 256;
+constexpr int kWideBlocks = 3;
+// polls of a grid-level spin before it traps: each is an L2 round trip, so
+// seconds, where a column waits microseconds
+constexpr unsigned kMaxPolls = 1u << 24;
 
 // the packed traceback word of the plain twin (models/tesserae.py)
 __device__ __forceinline__ long long pack(int who, int state, int pos) {
@@ -137,6 +173,11 @@ __device__ __forceinline__ Seg shfl_up(Seg x, int d) {
           __shfl_up_sync(0xffffffffu, x.v, d)};
 }
 
+__device__ __forceinline__ Seg shfl(Seg x, int lane) {
+  return {__shfl_sync(0xffffffffu, x.first, lane), __shfl_sync(0xffffffffu, x.last, lane),
+          __shfl_sync(0xffffffffu, x.v, lane)};
+}
+
 // inclusive scan over the first `width` lanes of a warp
 __device__ __forceinline__ Seg warp_scan(Seg x, int lane, int width = 32) {
   for (int d = 1; d < width; d <<= 1) {
@@ -179,6 +220,46 @@ __device__ __forceinline__ void cluster_barrier(bool publishes) {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// GPU-scope release add, acquire load and release store: the wide form's
+// grid barrier and edge slots
+__device__ __forceinline__ void red_release_add(unsigned* p, unsigned v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// Spin until *p >= target (a monotone count: no reset between columns or
+// launches of one scratch).  A grid whose CTAs do not all co-reside never
+// gets there: the spin traps after kMaxPolls polls instead of hanging.
+__device__ __forceinline__ void spin_until(const unsigned* p, unsigned target) {
+  unsigned polls = 0;
+  while (ld_acquire(p) < target) {
+    if (++polls == kMaxPolls) __trap();
+  }
+}
+
+// The wide form's grid: this CTA's cluster and the number of clusters, and
+// the scratch, zero before the launch (int4 blocks; ctk_tesserae_wide_scratch):
+// [0].x the barrier's count; [1, 1 + 2G) each cluster's summary (first,
+// last, v, argmax value as bits) by column parity, [col & 1][cluster];
+// [1 + 2G, 1 + 3G) each cluster's edge into the next (M, I, D as bits, .w
+// the column that wrote it); then 2G ints, the argmax indices.
+struct Grid {
+  int cid, G;
+  unsigned* count;
+  int4* sum;
+  int4* edge;
+  int* arg;
+};
+
 // Shared memory of the column loop: the warps' and the CTA's summaries and
 // argmax candidates, and each thread's last cell (M, I, D) of the column.
 struct Column {
@@ -220,10 +301,14 @@ __device__ __forceinline__ Layout layout(cg::cluster_group& cluster) {
 // (max_r, best, identical in every thread): warp scans and reductions by
 // shuffles, warp 0 of each CTA over its warps (one __syncthreads), then
 // cluster barrier 1 and every warp over the CTAs' summaries through
-// distributed shared memory, lane r reading CTA r.
+// distributed shared memory, lane r reading CTA r.  The wide form then
+// publishes the cluster's summary, passes the grid barrier of column `col`
+// and has every warp compose the G clusters' summaries, lane r a run of
+// ceil(G / 32) of them.
+template <bool GRID>
 __device__ __forceinline__ Seg reduce_column(cg::cluster_group& cluster, Column& sh,
                                              const Layout& y, Seg mine, float bv, int bi,
-                                             float& max_r, int& best) {
+                                             float& max_r, int& best, const Grid& gr, int col) {
   const Seg incl = warp_scan(mine, y.lane);
   Seg excl = shfl_up(incl, 1);
   if (y.lane == 0) excl = empty_seg();
@@ -270,18 +355,62 @@ __device__ __forceinline__ Seg reduce_column(cg::cluster_group& cluster, Column&
                    __shfl_sync(0xffffffffu, x.last, max(y.rank - 1, 0)),
                    __shfl_sync(0xffffffffu, x.v, max(y.rank - 1, 0))};
   if (y.rank == 0) prev_ctas = empty_seg();
+  if constexpr (GRID) {
+    const int par = (col & 1) * gr.G;
+    if (y.rank == 0 && y.warp == 0) {
+      const Seg total = shfl(x, y.K - 1);
+      if (y.lane == 0) {
+        gr.sum[par + gr.cid] =
+            make_int4(total.first, total.last, __float_as_int(total.v), __float_as_int(v));
+        gr.arg[par + gr.cid] = idx;
+        red_release_add(gr.count, 1u);
+      }
+    }
+    if (y.tid == 0) spin_until(gr.count, (unsigned)col * (unsigned)gr.G);
+    __syncthreads();
+    const int per = (gr.G + 31) >> 5;
+    Seg s = empty_seg();
+    float cv = -INFINITY;
+    int ci = 0x7fffffff;
+    for (int k = 0; k < per; ++k) {
+      const int c = y.lane * per + k;
+      if (c < gr.G) {
+        const int4 r = __ldcg(&gr.sum[par + c]);
+        if (c < gr.cid) s = combine(s, {r.x, r.y, __int_as_float(r.z)});
+        take_better(cv, ci, __int_as_float(r.w), __ldcg(&gr.arg[par + c]));
+      }
+    }
+    s = warp_scan(s, y.lane);
+    warp_best(cv, ci);
+    max_r = cv;
+    best = ci;
+    prev_ctas = combine(shfl(s, 31), prev_ctas);
+  }
   return combine(combine(prev_ctas, sh.warp_carry[y.warp]), excl);
 }
 
 // End of pass B: publish this thread's last cell (m, i, d), cluster barrier
 // 2, and read the left neighbour's (through distributed shared memory
-// across a CTA edge) into left_*; thread 0 of CTA 0 keeps its own.
+// across a CTA edge) into left_*; thread 0 of CTA 0 keeps its own.  In the
+// wide form the cluster's last thread also publishes its cell to the next
+// cluster's edge slot, whose first thread waits for it.
+template <bool GRID>
 __device__ __forceinline__ void exchange_edges(cg::cluster_group& cluster, Column& sh,
                                                const Layout& y, float m, float i, float d,
-                                               float& left_m, float& left_i, float& left_d) {
+                                               float& left_m, float& left_i, float& left_d,
+                                               const Grid& gr, int col) {
   sh.edge[0][y.tid] = m;
   sh.edge[1][y.tid] = i;
   sh.edge[2][y.tid] = d;
+  if constexpr (GRID) {
+    if (y.rank == y.K - 1 && y.tid == y.T - 1 && gr.cid + 1 < gr.G) {
+      int4* e = &gr.edge[gr.cid];
+      e->x = __float_as_int(m);
+      e->y = __float_as_int(i);
+      e->z = __float_as_int(d);
+      st_release(reinterpret_cast<unsigned*>(&e->w), (unsigned)col);
+    }
+  }
   cluster_barrier(y.warp == y.nwarps - 1);  // the warp of the edge other CTAs read
   if (y.tid > 0) {
     left_m = sh.edge[0][y.tid - 1];
@@ -291,16 +420,23 @@ __device__ __forceinline__ void exchange_edges(cg::cluster_group& cluster, Colum
     left_m = cluster.map_shared_rank(&sh.edge[0][0], y.rank - 1)[y.T - 1];
     left_i = cluster.map_shared_rank(&sh.edge[1][0], y.rank - 1)[y.T - 1];
     left_d = cluster.map_shared_rank(&sh.edge[2][0], y.rank - 1)[y.T - 1];
+  } else if constexpr (GRID) {
+    if (gr.cid > 0) {
+      const int4* e = &gr.edge[gr.cid - 1];
+      spin_until(reinterpret_cast<const unsigned*>(&e->w), (unsigned)col);
+      const int4 v = __ldcg(e);
+      left_m = __int_as_float(v.x);
+      left_i = __int_as_float(v.y);
+      left_d = __int_as_float(v.z);
+    }
   }
 }
 
 // The traceback (one thread), the while_loop of _tesserae_traceback with
-// each packed word rebuilt from its byte code.  A flat cell f's byte of
-// column pt is codes[pt * npad + f] in the register form (wide_c 0) and
-// codes[pt * npad + (f % wide_c) * nt + f / wide_c] in the wide form.
+// each packed word rebuilt from its byte code: a flat cell f's byte of
+// column pt is codes[pt * npad + f].
 __device__ void walk_path(const unsigned char* codes, int npad, const long long* rec,
-                          int L, int S, int W, int best, float max_r, int* out, int cap,
-                          int wide_c, int nt) {
+                          int L, int S, int W, int best, float max_r, int* out, int cap) {
   const int two_w = 2 * W;
   const int who = best / two_w + 1;
   const int cst = (best % two_w) % 2 == 0 ? kM : kI;
@@ -320,9 +456,7 @@ __device__ void walk_path(const unsigned char* codes, int npad, const long long*
     if ((s_ == kM || s_ == kI) && pt < 2) {
       v = 0;
     } else {
-      const size_t f = (size_t)sidx * W + p_;
-      const size_t at = wide_c ? (f % wide_c) * nt + f / wide_c : f;
-      const unsigned code = codes[(size_t)pt * npad + at];
+      const unsigned code = codes[(size_t)pt * npad + (size_t)sidx * W + p_];
       if (s_ == kM) {
         const int c = code & 3;
         v = c ? pack(sidx + 1, c, max(p_ - 1, 0)) : rec[pt - 1];
@@ -353,13 +487,18 @@ __device__ __forceinline__ long long rec_word(int best, int W) {
   return pack(best / two_w + 1, (best % two_w) % 2 == 0 ? kM : kI, (best % two_w) / 2);
 }
 
-template <int C>
-__global__ void __launch_bounds__(kMaxThreads)
+// Both forms: GRID false is the register form (one cluster, C <= W, so a
+// thread's run meets at most one target boundary), GRID true the wide form
+// (a grid of clusters; a run may cross any number of targets, so a cell's
+// position steps a cell at a time).  The per-cell arithmetic is the same
+// lines in the same order in both.
+template <int C, bool GRID>
+__global__ void __launch_bounds__(GRID ? kWideThreads : kMaxThreads, GRID ? kWideBlocks : 1)
 tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
                 const unsigned char* __restrict__ valid,
                 const float* __restrict__ params, int L, int S, int W, int npad,
                 unsigned char* __restrict__ codes, long long* __restrict__ rec,
-                int* __restrict__ out, int cap) {
+                int* __restrict__ out, int cap, int4* __restrict__ scratch) {
   static_assert(C == 1 || C == 2 || C == 4 || C == 8 || C == 16, "C: 1..16, a power of two");
   __shared__ float prm[kNumParams];
   __shared__ Column sh;
@@ -367,6 +506,17 @@ tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
   cg::cluster_group cluster = cg::this_cluster();
   const Layout y = layout(cluster);
   const int rank = y.rank, T = y.T, tid = y.tid;
+  Grid gr = {0, 1, nullptr, nullptr, nullptr, nullptr};
+  if constexpr (GRID) {
+    gr.G = (int)gridDim.x / y.K;
+    gr.cid = (int)blockIdx.x / y.K;
+    gr.count = reinterpret_cast<unsigned*>(scratch);
+    gr.sum = scratch + 1;
+    gr.edge = scratch + 1 + 2 * gr.G;
+    gr.arg = reinterpret_cast<int*>(scratch + 1 + 3 * gr.G);
+  }
+  // the thread that writes the recombination words and walks the path
+  const bool lead = gr.cid == 0 && rank == 0 && tid == 0;
   for (int x = tid; x < kNumParams; x += T) prm[x] = params[x];
   __syncthreads();
   const float ldel = prm[0], leps = prm[1], lrho = prm[2], lpiM = prm[3],
@@ -377,21 +527,30 @@ tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
 
   // this thread's cells: flat f0 .. f0 + C - 1 of N = S * W
   const int N = S * W;
-  const int f0 = (rank * T + tid) * C;
+  const int f0 = ((gr.cid * y.K + rank) * T + tid) * C;
   const int s0 = f0 / W, j0 = f0 % W;
   unsigned vbits = 0;              // cell i valid: j >= 1 and valid[s][j-1]
   unsigned long long tbits = 0;    // cell i's target code, 4 bits a cell
   int ncells = 0;                  // cells below N
+  {
+    int s = s0, j = j0;            // the wide form's position, a cell at a time
 #pragma unroll
-  for (int i = 0; i < C; ++i) {
-    int j = j0 + i, s = s0;
-    if (j >= W) { j -= W; ++s; }
-    if (f0 + i < N) {
-      ncells = i + 1;
-      if (j >= 1) {
-        const size_t at = (size_t)s * (W - 1) + (j - 1);
-        if (valid[at]) vbits |= 1u << i;
-        tbits |= (unsigned long long)(t_codes[at] & 15) << (4 * i);
+    for (int i = 0; i < C; ++i) {
+      if constexpr (!GRID) {
+        j = j0 + i;
+        s = s0;
+        if (j >= W) { j -= W; ++s; }
+      }
+      if (f0 + i < N) {
+        ncells = i + 1;
+        if (j >= 1) {
+          const size_t at = (size_t)s * (W - 1) + (j - 1);
+          if (valid[at]) vbits |= 1u << i;
+          tbits |= (unsigned long long)(t_codes[at] & 15) << (4 * i);
+        }
+      }
+      if constexpr (GRID) {
+        if (++j == W) { j = 0; ++s; }
       }
     }
   }
@@ -422,72 +581,84 @@ tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
     int bi = 0x7fffffff;
     float pm_l = left_m, pi_l = left_i, pd_l = left_d;  // previous column, j-1
     Seg mine = empty_seg();
+    {
+      int s = s0, j = j0;
 #pragma unroll
-    for (int i = 0; i < C; ++i) {
-      if (i < ncells) {
-        int j = j0 + i, s = s0;
-        if (j >= W) { j -= W; ++s; }
-        const bool ok = (vbits >> i) & 1u;
-        const int t = (int)((tbits >> (4 * i)) & 15);
-        const float om = vm[i], oi = vi[i];
-        float m, v;
-        if (first) {
-          m = ok ? (lpiM - lsize_l) + em[t] : kSmall;
-          v = ok ? (lpiI - lsize_l) + emi : kSmall;
-        } else {
-          // local M: (M, I, D) at (j-1, previous column), first max wins
-          const float c0 = (j >= 1 ? pm_l : kSmall) + lmm;
-          const float c1 = (j >= 1 ? pi_l : kSmall) + lgm;
-          const float c2 = (j >= 1 ? pd_l : kSmall) + ldm;
-          float lval = c0;
-          int larg = 0;
-          if (c1 > lval) { lval = c1; larg = 1; }
-          if (c2 > lval) { lval = c2; larg = 2; }
-          const bool use_local = lval > recomb;
-          m = use_local ? lval : recomb;
-          m = (j == 0) ? kSmall : (ok ? m + em[t] : kSmall);
-          // I: (M, I) at (j, previous column)
-          const float i0 = om + ldel, i1 = oi + leps;
-          const int iarg = (i1 > i0) ? 1 : 0;
-          const float ival = iarg ? i1 : i0;
-          const bool use_i = ival > recomb_i;
-          v = use_i ? ival : recomb_i;
-          v = (j == 0) ? kSmall : (ok ? v + emi : kSmall);
-          const unsigned code = (use_local ? (unsigned)(larg + 1) : 0u) |
-                                ((use_i ? (unsigned)(iarg + 1) : 0u) << 2);
-          w[i / 4] |= code << (8 * (i % 4));
+      for (int i = 0; i < C; ++i) {
+        if (i < ncells) {
+          if constexpr (!GRID) {
+            j = j0 + i;
+            s = s0;
+            if (j >= W) { j -= W; ++s; }
+          }
+          const bool ok = (vbits >> i) & 1u;
+          const int t = (int)((tbits >> (4 * i)) & 15);
+          const float om = vm[i], oi = vi[i];
+          float m, v;
+          if (first) {
+            m = ok ? (lpiM - lsize_l) + em[t] : kSmall;
+            v = ok ? (lpiI - lsize_l) + emi : kSmall;
+          } else {
+            // local M: (M, I, D) at (j-1, previous column), first max wins
+            const float c0 = (j >= 1 ? pm_l : kSmall) + lmm;
+            const float c1 = (j >= 1 ? pi_l : kSmall) + lgm;
+            const float c2 = (j >= 1 ? pd_l : kSmall) + ldm;
+            float lval = c0;
+            int larg = 0;
+            if (c1 > lval) { lval = c1; larg = 1; }
+            if (c2 > lval) { lval = c2; larg = 2; }
+            const bool use_local = lval > recomb;
+            m = use_local ? lval : recomb;
+            m = (j == 0) ? kSmall : (ok ? m + em[t] : kSmall);
+            // I: (M, I) at (j, previous column)
+            const float i0 = om + ldel, i1 = oi + leps;
+            const int iarg = (i1 > i0) ? 1 : 0;
+            const float ival = iarg ? i1 : i0;
+            const bool use_i = ival > recomb_i;
+            v = use_i ? ival : recomb_i;
+            v = (j == 0) ? kSmall : (ok ? v + emi : kSmall);
+            const unsigned code = (use_local ? (unsigned)(larg + 1) : 0u) |
+                                  ((use_i ? (unsigned)(iarg + 1) : 0u) << 2);
+            w[i / 4] |= code << (8 * (i % 4));
+          }
+          pm_l = om;
+          pi_l = oi;
+          pd_l = vd[i];
+          vm[i] = m;
+          vi[i] = v;
+          // a thread meets its candidates in increasing flat index (M before
+          // I), so a strictly larger value is the only way to replace one
+          const float cm = ok ? m : kSmall, ci = ok ? v : kSmall;
+          const bool take_i = ci > cm;
+          const float cv = take_i ? ci : cm;
+          if (cv > bv) {
+            bv = cv;
+            bi = 2 * (f0 + i) + (take_i ? 1 : 0);
+          }
+          const float adj = (j >= min_j - 1) ? m - leps * (float)j : kSmall;
+          if (mine.first < 0) mine.first = s;
+          if (s != mine.last) { mine.last = s; mine.v = -INFINITY; }
+          mine.v = fmaxf(mine.v, adj);
+          if constexpr (GRID) {
+            if (++j == W) { j = 0; ++s; }
+          }
         }
-        pm_l = om;
-        pi_l = oi;
-        pd_l = vd[i];
-        vm[i] = m;
-        vi[i] = v;
-        // a thread meets its candidates in increasing flat index (M before
-        // I), so a strictly larger value is the only way to replace one
-        const float cm = ok ? m : kSmall, ci = ok ? v : kSmall;
-        const bool take_i = ci > cm;
-        const float cv = take_i ? ci : cm;
-        if (cv > bv) {
-          bv = cv;
-          bi = 2 * (f0 + i) + (take_i ? 1 : 0);
-        }
-        const float adj = (j >= min_j - 1) ? m - leps * (float)j : kSmall;
-        if (mine.first < 0) mine.first = s;
-        if (s != mine.last) { mine.last = s; mine.v = -INFINITY; }
-        mine.v = fmaxf(mine.v, adj);
       }
     }
-    const Seg excl = reduce_column(cluster, sh, y, mine, bv, bi, max_r, best);
+    const Seg excl = reduce_column<GRID>(cluster, sh, y, mine, bv, bi, max_r, best, gr, col);
 
     // ---- B. delete state vd[j] = ldel + leps*(j-1) + max_{t<j} adj[t] and
     // its branch (M if nvm[j-1] + ldel >= vd[j-1] + leps)
     {
       float run = (excl.first >= 0 && excl.last == s0) ? excl.v : -INFINITY;
+      int j = j0;
 #pragma unroll
       for (int i = 0; i < C; ++i) {
         if (i < ncells) {
-          int j = j0 + i;
-          if (j >= W) j -= W;
+          if constexpr (!GRID) {
+            j = j0 + i;
+            if (j >= W) j -= W;
+          }
           const float m = vm[i];
           const float adj = (j >= min_j - 1) ? m - leps * (float)j : kSmall;
           if (j == 0) run = -INFINITY;
@@ -500,237 +671,112 @@ tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
             if (!(mb >= db)) w[i / 4] |= 16u << (8 * (i % 4));
           }
           vd[i] = d;
+          if constexpr (GRID) {
+            if (++j == W) j = 0;
+          }
         }
       }
     }
-    exchange_edges(cluster, sh, y, vm[C - 1], vi[C - 1], vd[C - 1], left_m, left_i, left_d);
+    exchange_edges<GRID>(cluster, sh, y, vm[C - 1], vi[C - 1], vd[C - 1], left_m, left_i,
+                         left_d, gr, col);
     if (ncells > 0) {
       const float mb = (j0 == 0 ? kSmall : left_m) + ldel;
       const float db = (j0 == 0 ? kSmall : left_d) + leps;
       if (!(mb >= db)) w[0] |= 16u;
       store_codes<C>(codes + (size_t)col * npad + f0, w);
     }
-    if (rank == 0 && tid == 0) rec[col] = rec_word(best, W);
+    if (lead) rec[col] = rec_word(best, W);
   }
 
-  // ---- traceback
+  // ---- traceback, once every thread's codes are out: a cluster barrier,
+  // and in the wide form one more grid arrival that only the walker awaits
   __threadfence();
   cluster.sync();
-  if (rank == 0 && tid == 0) walk_path(codes, npad, rec, L, S, W, best, max_r, out, cap, 0, 0);
-}
-
-// The wide form: the register kernel's column loop with each thread's C
-// cells (any number, crossing any number of targets) in global memory,
-// cell-major across the NT = K * T threads.  state float[3][C * NT] (M, I,
-// D), info uint8[C * NT] (target code in bits 0-3, validity in bit 4);
-// codes uint8[L+1, npad] with npad >= C * NT.  Every line of arithmetic is
-// the register kernel's, in the same order.
-__global__ void __launch_bounds__(kMaxThreads)
-tesserae_wide_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
-                     const unsigned char* __restrict__ valid,
-                     const float* __restrict__ params, int L, int S, int W, int C, int npad,
-                     unsigned char* __restrict__ codes, long long* __restrict__ rec,
-                     float* __restrict__ state, unsigned char* __restrict__ info,
-                     int* __restrict__ out, int cap) {
-  __shared__ float prm[kNumParams];
-  __shared__ Column sh;
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const Layout y = layout(cluster);
-  const int rank = y.rank, T = y.T, tid = y.tid;
-  for (int x = tid; x < kNumParams; x += T) prm[x] = params[x];
-  __syncthreads();
-  const float ldel = prm[0], leps = prm[1], lrho = prm[2], lpiM = prm[3],
-              lpiI = prm[4], lmm = prm[5], lgm = prm[6], ldm = prm[7],
-              lsize_l = prm[8];
-  const float* lsm = prm + 9;   // [5][5]
-  const float* lsi = prm + 34;  // [5]
-
-  // this thread's cells: flat f0 .. f0 + ncells - 1 of N = S * W, the i-th
-  // at i * NT + g in state, info and a column's codes
-  const int NT = y.K * T;
-  const int g = rank * T + tid;
-  const int N = S * W;
-  const int f0 = g * C;
-  const int s0 = f0 / W, j0 = f0 % W;
-  const int ncells = max(0, min(C, N - f0));
-  float* __restrict__ sm = state;
-  float* __restrict__ si = state + (size_t)C * NT;
-  float* __restrict__ sd = state + 2 * (size_t)C * NT;
-  {
-    int s = s0, j = j0;
-    for (int i = 0; i < ncells; ++i) {
-      const size_t x = (size_t)i * NT + g;
-      unsigned b = 0;
-      if (j >= 1) {
-        const size_t at = (size_t)s * (W - 1) + (j - 1);
-        b = (unsigned)(t_codes[at] & 15) | (valid[at] ? 16u : 0u);
-      }
-      info[x] = (unsigned char)b;
-      sm[x] = si[x] = sd[x] = kSmall;
-      if (++j == W) {
-        j = 0;
-        ++s;
-      }
+  if constexpr (GRID) {
+    if (rank == 0 && tid == 0) {
+      red_release_add(gr.count, 1u);
+      if (gr.cid == 0) spin_until(gr.count, (unsigned)(L + 1) * (unsigned)gr.G);
     }
   }
-
-  float left_m = kSmall, left_i = kSmall, left_d = kSmall;
-  float max_r = 0.0f;
-  int best = 0;
-
-  for (int col = 1; col <= L; ++col) {
-    const int qc = q[col - 1];
-    const bool first = col == 1;
-    const int min_j = first ? 1 : 2;
-    const float recomb = ((max_r + lrho) + lpiM) - lsize_l;
-    const float recomb_i = ((max_r + lrho) + lpiI) - lsize_l;
-    const float* em = lsm + qc * 5;
-    const float emi = lsi[qc];
-    unsigned char* __restrict__ crow = codes + (size_t)col * npad;
-
-    // ---- A. M and I, the delete-scan input's maximum, the argmax candidate
-    float bv = -INFINITY;
-    int bi = 0x7fffffff;
-    float pm_l = left_m, pi_l = left_i, pd_l = left_d;  // previous column, j-1
-    Seg mine = empty_seg();
-    {
-      int s = s0, j = j0;
-#pragma unroll 4
-      for (int i = 0; i < ncells; ++i) {
-        const size_t x = (size_t)i * NT + g;
-        const unsigned b = info[x];
-        const bool ok = (b >> 4) & 1u;
-        const int t = (int)(b & 15);
-        const float om = sm[x], oi = si[x], od = sd[x];
-        float m, v;
-        unsigned code = 0;
-        if (first) {
-          m = ok ? (lpiM - lsize_l) + em[t] : kSmall;
-          v = ok ? (lpiI - lsize_l) + emi : kSmall;
-        } else {
-          const float c0 = (j >= 1 ? pm_l : kSmall) + lmm;
-          const float c1 = (j >= 1 ? pi_l : kSmall) + lgm;
-          const float c2 = (j >= 1 ? pd_l : kSmall) + ldm;
-          float lval = c0;
-          int larg = 0;
-          if (c1 > lval) { lval = c1; larg = 1; }
-          if (c2 > lval) { lval = c2; larg = 2; }
-          const bool use_local = lval > recomb;
-          m = use_local ? lval : recomb;
-          m = (j == 0) ? kSmall : (ok ? m + em[t] : kSmall);
-          const float i0 = om + ldel, i1 = oi + leps;
-          const int iarg = (i1 > i0) ? 1 : 0;
-          const float ival = iarg ? i1 : i0;
-          const bool use_i = ival > recomb_i;
-          v = use_i ? ival : recomb_i;
-          v = (j == 0) ? kSmall : (ok ? v + emi : kSmall);
-          code = (use_local ? (unsigned)(larg + 1) : 0u) |
-                 ((use_i ? (unsigned)(iarg + 1) : 0u) << 2);
-        }
-        pm_l = om;
-        pi_l = oi;
-        pd_l = od;
-        sm[x] = m;
-        si[x] = v;
-        crow[x] = (unsigned char)code;
-        const float cm = ok ? m : kSmall, ci = ok ? v : kSmall;
-        const bool take_i = ci > cm;
-        const float cv = take_i ? ci : cm;
-        if (cv > bv) {
-          bv = cv;
-          bi = 2 * (f0 + i) + (take_i ? 1 : 0);
-        }
-        const float adj = (j >= min_j - 1) ? m - leps * (float)j : kSmall;
-        if (mine.first < 0) mine.first = s;
-        if (s != mine.last) { mine.last = s; mine.v = -INFINITY; }
-        mine.v = fmaxf(mine.v, adj);
-        if (++j == W) {
-          j = 0;
-          ++s;
-        }
-      }
-    }
-    const Seg excl = reduce_column(cluster, sh, y, mine, bv, bi, max_r, best);
-
-    // ---- B. the delete state and its branch, as the register kernel's
-    float last_m = kSmall, last_i = kSmall, last_d = kSmall;
-    {
-      float run = (excl.first >= 0 && excl.last == s0) ? excl.v : -INFINITY;
-      float prev_m = kSmall, prev_d = kSmall;  // this column's M and D at cell i-1
-      int j = j0;
-#pragma unroll 4
-      for (int i = 0; i < ncells; ++i) {
-        const size_t x = (size_t)i * NT + g;
-        const float m = sm[x];
-        const float adj = (j >= min_j - 1) ? m - leps * (float)j : kSmall;
-        if (j == 0) run = -INFINITY;
-        const float run_prev = (j == 0) ? kSmall : run;
-        const float d = (j >= min_j) ? delete_term(ldel, leps, j) + run_prev : kSmall;
-        run = fmaxf(run, adj);
-        if (i > 0) {
-          const float mb = (j == 0 ? kSmall : prev_m) + ldel;
-          const float db = (j == 0 ? kSmall : prev_d) + leps;
-          if (!(mb >= db)) crow[x] |= 16u;
-        }
-        sd[x] = d;
-        prev_m = m;
-        prev_d = d;
-        if (++j == W) j = 0;
-      }
-      // the register kernel publishes its C-th cell, SMALL past the section
-      if (ncells == C) {
-        last_m = prev_m;
-        last_i = si[(size_t)(C - 1) * NT + g];
-        last_d = prev_d;
-      }
-    }
-    exchange_edges(cluster, sh, y, last_m, last_i, last_d, left_m, left_i, left_d);
-    if (ncells > 0) {
-      const float mb = (j0 == 0 ? kSmall : left_m) + ldel;
-      const float db = (j0 == 0 ? kSmall : left_d) + leps;
-      if (!(mb >= db)) crow[g] |= 16u;
-    }
-    if (rank == 0 && tid == 0) rec[col] = rec_word(best, W);
-  }
-
-  __threadfence();
-  cluster.sync();
-  if (rank == 0 && tid == 0) walk_path(codes, npad, rec, L, S, W, best, max_r, out, cap, C, NT);
+  if (lead) walk_path(codes, npad, rec, L, S, W, best, max_r, out, cap);
 }
 
-// One cluster of `cluster` CTAs of `threads` threads (above 8 CTAs the
-// cluster is non-portable) on `stream`.
-template <typename... Exp, typename... Act>
-int launch_cluster(void (*kernel)(Exp...), int cluster, int threads, cudaStream_t stream,
-                   Act... args) {
+// the kernel of each form for `cells` a thread (null: not one it takes)
+using TesseraeFn = void (*)(const int*, const int*, const unsigned char*, const float*, int, int,
+                            int, int, unsigned char*, long long*, int*, int, int4*);
+
+TesseraeFn register_kernel(int cells) {
+  switch (cells) {
+    case 1: return tesserae_kernel<1, false>;
+    case 2: return tesserae_kernel<2, false>;
+    case 4: return tesserae_kernel<4, false>;
+    case 8: return tesserae_kernel<8, false>;
+    case 16: return tesserae_kernel<16, false>;
+    default: return nullptr;
+  }
+}
+
+TesseraeFn wide_kernel(int cells) {
+  if (cells != kWideCells) return nullptr;
+  return tesserae_kernel<kWideCells, true>;
+}
+
+// a launch configuration of `clusters` clusters of `cluster` CTAs of
+// `threads` threads on `stream` (above 8 CTAs the cluster is non-portable)
+cudaError_t cluster_config(TesseraeFn kernel, int clusters, int cluster, int threads,
+                           cudaStream_t stream, cudaLaunchConfig_t& cfg,
+                           cudaLaunchAttribute& attr) {
   if (cluster > 8) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return err;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg = {};
+  cfg.gridDim = dim3(clusters * cluster, 1, 1);
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return cudaSuccess;
+}
+
+// the clusters of this shape that the card holds at once (0 on an error)
+int max_clusters(TesseraeFn kernel, int cluster, int threads) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int n = 0;
+  if (cluster_config(kernel, 1, cluster, threads, nullptr, cfg, attr) != cudaSuccess ||
+      cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+int launch(TesseraeFn kernel, int clusters, int cluster, int threads, cudaStream_t stream,
+           const int* q, const int* t_codes, const unsigned char* valid, const float* params,
+           int L, int S, int W, int npad, unsigned char* codes, long long* rec, int* out,
+           int cap, int4* scratch) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config(kernel, clusters, cluster, threads, stream, cfg, attr);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, kernel, q, t_codes, valid, params, L, S, W, npad, codes, rec,
+                           out, cap, scratch);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-bool bad_shape(int L, int S, int W, int cells, int cluster, int threads, int npad, int cap) {
+bool bad_shape(int L, int S, int W, int cells, int clusters, int cluster, int threads, int npad,
+               int cap) {
   const long long n = (long long)S * W;
   return threads <= 0 || threads > kMaxThreads || threads % 32 || cluster < 1 ||
-         cluster > kMaxCluster || S < 1 || L < 1 || W < 2 || cells < 1 || cap < 1 ||
-         npad % 16 || (long long)cluster * threads * cells < n;
+         cluster > kMaxCluster || clusters < 1 || S < 1 || L < 1 || W < 2 || cells < 1 ||
+         cap < 1 || npad % 16 || npad < n ||
+         (long long)clusters * cluster * threads * cells < n;
 }
 
 }  // namespace
@@ -743,41 +789,58 @@ extern "C" int ctk_tesserae(const int* q, const int* t_codes,
                             int L, int S, int W, int cells, int cluster,
                             int threads, unsigned char* codes, int npad,
                             long long* rec, int* out, int cap, cudaStream_t stream) {
-  if (bad_shape(L, S, W, cells, cluster, threads, npad, cap) || cells > W ||
-      npad < (long long)S * W) {
+  const TesseraeFn kernel = register_kernel(cells);
+  if (!kernel || bad_shape(L, S, W, cells, 1, cluster, threads, npad, cap) || cells > W)
     return (int)cudaErrorInvalidValue;
-  }
-#define CTK_TESSERAE_LAUNCH(C)                                                              \
-  launch_cluster(tesserae_kernel<C>, cluster, threads, stream, q, t_codes, valid, params, L, \
-                 S, W, npad, codes, rec, out, cap)
-  switch (cells) {
-    case 1: return CTK_TESSERAE_LAUNCH(1);
-    case 2: return CTK_TESSERAE_LAUNCH(2);
-    case 4: return CTK_TESSERAE_LAUNCH(4);
-    case 8: return CTK_TESSERAE_LAUNCH(8);
-    case 16: return CTK_TESSERAE_LAUNCH(16);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef CTK_TESSERAE_LAUNCH
+  return launch(kernel, 1, cluster, threads, stream, q, t_codes, valid, params, L, S, W, npad,
+                codes, rec, out, cap, nullptr);
 }
 
-// The wide form of ctk_tesserae (one section, any `cells` a thread):
-// codes uint8[L+1, npad] with npad a multiple of 16 and at least
-// cluster * threads * cells; state float32[3 * cluster * threads * cells]
-// and info uint8[cluster * threads * cells], scratch; rec and out as
-// ctk_tesserae's.
+// The wide form of ctk_tesserae: `clusters` clusters of `cluster` CTAs of
+// `threads` threads (at most 256), `cells` = 16 cells a thread (any W);
+// codes, rec and out as ctk_tesserae's; scratch: int32 words, as
+// ctk_tesserae_wide_scratch gives them, zero before the launch.  The caller
+// keeps `clusters` within what the card holds at once
+// (ctk_tesserae_wide_info's out[2]); past it the grid barrier cannot open
+// and its spin traps.
 extern "C" int ctk_tesserae_wide(const int* q, const int* t_codes,
                                  const unsigned char* valid, const float* params,
-                                 int L, int S, int W, int cells, int cluster,
+                                 int L, int S, int W, int cells, int clusters, int cluster,
                                  int threads, unsigned char* codes, int npad,
-                                 long long* rec, float* state, unsigned char* info,
-                                 int* out, int cap, cudaStream_t stream) {
-  if (bad_shape(L, S, W, cells, cluster, threads, npad, cap) ||
-      npad < (long long)cluster * threads * cells) {
+                                 long long* rec, int* scratch, int* out, int cap,
+                                 cudaStream_t stream) {
+  const TesseraeFn kernel = wide_kernel(cells);
+  if (!kernel || threads > kWideThreads ||
+      bad_shape(L, S, W, cells, clusters, cluster, threads, npad, cap) ||
+      reinterpret_cast<uintptr_t>(scratch) % 16)
     return (int)cudaErrorInvalidValue;
-  }
-  return launch_cluster(tesserae_wide_kernel, cluster, threads, stream, q, t_codes, valid,
-                        params, L, S, W, cells, npad, codes, rec, state, info, out, cap);
+  return launch(kernel, clusters, cluster, threads, stream, q, t_codes, valid, params, L, S, W,
+                npad, codes, rec, out, cap, reinterpret_cast<int4*>(scratch));
+}
+
+// The scratch ctk_tesserae_wide needs for `clusters` clusters, in int32
+// words (Grid's layout).
+extern "C" int ctk_tesserae_wide_scratch(int clusters) {
+  return 4 * (1 + 3 * clusters) + 2 * clusters;
+}
+
+// How the wide form's kernel for `cells` a thread runs at `cluster` CTAs of
+// `threads` threads: out[0] registers a thread, out[1] local (spilled) bytes
+// a thread, out[2] the clusters the card holds at once, out[3] static shared
+// bytes a CTA.
+extern "C" int ctk_tesserae_wide_info(int cells, int cluster, int threads, int* out) {
+  const TesseraeFn kernel = wide_kernel(cells);
+  if (!kernel || threads < 32 || threads > kWideThreads || threads % 32 || cluster < 1 ||
+      cluster > kMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = max_clusters(kernel, cluster, threads);
+  out[3] = (int)attr.sharedSizeBytes;
+  return (int)cudaGetLastError();
 }
 
 // The delete term of ctk_tesserae for j = 0 .. W-1 (out float32[W]), from

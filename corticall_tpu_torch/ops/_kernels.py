@@ -39,8 +39,10 @@ _SIGNATURES = {
     "ctk_sw_banded": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "ctk_sw_full": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "ctk_tesserae": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P),
-    "ctk_tesserae_wide": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _I,
+    "ctk_tesserae_wide": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _I,
                           _P),
+    "ctk_tesserae_wide_scratch": (_I,),
+    "ctk_tesserae_wide_info": (_I, _I, _I, _P),
     "ctk_tesserae_delete_term": (_P, _I, _P, _P),
     "ctk_jump_stage0": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "ctk_jump_compose": (_P, _P, _I, _I, _I, _P),

@@ -5,7 +5,8 @@ Counterpart of corticall_tpu/ops/tesserae_jax.py.  `tesserae_scan`,
 functions of the same names (a Python loop over query columns of [S, W]
 tensor ops, then the packed-traceback walk); `tesserae_fused` runs them for
 CPU tensors and launches `csrc/tesserae.cu` — the whole DP and the walk in
-one launch on one thread-block cluster — for CUDA tensors.
+one launch on one thread-block cluster, or past one cluster's registers on a
+grid of clusters — for CUDA tensors.
 `TesseraeDevice` is the Call stage's aligner.
 
 The kernel keeps one byte of traceback a cell and column plus one packed
@@ -15,9 +16,10 @@ encoding and of the kernel's walk over it.  The packed word is the JAX
 package's int32 `who << 25 | state << 23 | pos` up to tz.INT32_TARGETS
 targets and the same word in int64 above (models/tesserae.word_dtype); the
 kernel's recombination words are int64 at every size.  Sections past the
-register form's MAX_CELLS take the kernel's wide form (state in global
-memory), up to MAX_WIDE_CELLS, the most that TesseraeDevice's budget gate
-sends to the device (`gate_max_cells`); on the CPU the twin takes any size.
+register form's MAX_CELLS take the kernel's wide form (the section spread
+over a grid of clusters, every cell's state still in registers), up to
+MAX_WIDE_CELLS, the most that TesseraeDevice's budget gate sends to the
+device (`gate_max_cells`); on the CPU the twin takes any size.
 
 Shapes are the section's own: query int32[L], targets int32[S, W-1] with a
 bool validity mask, W = longest target + 1.  The JAX package pads to
@@ -53,6 +55,11 @@ CTA_THREADS = 256             # threads a CTA before the cluster grows
 # section_bytes 16 * (16,384 + 1) * 65^2 = 1,107,626,000 <= 2 GiB, where
 # 32,768 targets would need 2,215,184,400 (gate_max_cells)
 MAX_WIDE_CELLS = 16_384 * 65
+# the wide form: a grid of clusters, each thread its cells in registers.  Its
+# one shape, (cells a thread, CTAs a cluster, threads a CTA), the fastest on
+# the gate's largest section (tools/tesserae_probe.py ablate); the kernel
+# takes WIDE_CELLS cells a thread and at most WIDE_THREADS threads a CTA
+WIDE_CELLS, WIDE_CLUSTER, WIDE_THREADS = 16, 8, 256
 
 # kernel launches (plain integers; chip_smoke.py resets and reads them):
 # every launch, and those of the wide form among them
@@ -342,21 +349,45 @@ def kernel_config(s_count: int, width: int):
 
 
 def wide_config(s_count: int, width: int):
-    """(cells a thread, CTAs in the cluster, threads a CTA) of the wide form
-    for a section of S x W cells: the whole MAX_CLUSTER x MAX_THREADS
-    cluster, each thread a run of ceil(S*W / its threads) cells, their state
-    in global memory.  Raises for a section over MAX_WIDE_CELLS cells."""
+    """(cells a thread, clusters, CTAs a cluster, threads a CTA) of the wide
+    form for a section of S x W cells: its one shape with the fewest
+    clusters that hold the section.  Raises for a section over
+    MAX_WIDE_CELLS cells."""
     cells = s_count * width
     if cells > MAX_WIDE_CELLS:
         raise ValueError(f"tesserae section of {s_count} x {width} = {cells} cells: "
                          f"the wide form holds at most {MAX_WIDE_CELLS}")
-    return -(-cells // (MAX_CLUSTER * MAX_THREADS)), MAX_CLUSTER, MAX_THREADS
+    clusters = -(-cells // (WIDE_CELLS * WIDE_CLUSTER * WIDE_THREADS))
+    return WIDE_CELLS, clusters, WIDE_CLUSTER, WIDE_THREADS
+
+
+_WIDE_INFO: dict = {}
+
+
+def wide_kernel_info(device, cells: int, cluster: int, threads: int) -> dict:
+    """How the wide form's kernel for `cells` a thread runs on `device` at
+    clusters of `cluster` CTAs of `threads` threads: registers and local
+    (spilled) bytes a thread, static shared bytes a CTA, and the clusters the
+    card holds at once (`max_clusters`, cudaOccupancyMaxActiveClusters: a
+    grid barrier needs every cluster resident).  Queried once a shape."""
+    import ctypes
+
+    dev = torch.device(device)
+    key = (dev.index, cells, cluster, threads)
+    if key not in _WIDE_INFO:
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(dev):
+            err = _kernels.library().ctk_tesserae_wide_info(cells, cluster, threads, out)
+        _kernels.check(err, "tesserae_wide_info")
+        _WIDE_INFO[key] = {"registers": out[0], "local_bytes": out[1], "max_clusters": out[2],
+                           "shared_bytes": out[3]}
+    return _WIDE_INFO[key]
 
 
 def launch_config(s_count: int, width: int):
-    """(wide, cells a thread, CTAs, threads a CTA) that tesserae_fused
-    launches for a section of S x W cells: the register form up to
-    MAX_CELLS, the wide form above."""
+    """(wide, *config) that tesserae_fused launches for a section of S x W
+    cells: the register form's kernel_config up to MAX_CELLS, the wide
+    form's wide_config above."""
     if s_count * width > MAX_CELLS:
         return (True, *wide_config(s_count, width))
     return (False, *kernel_config(s_count, width))
@@ -368,9 +399,11 @@ def tesserae_fused(q_codes: torch.Tensor, t_codes: torch.Tensor,
     one launch of csrc/tesserae.cu for CUDA tensors: the register form up to
     MAX_CELLS cells, the wide form above.  Returns (max_r, cells, n) as
     tesserae_full does (tensors on the inputs' device on CUDA).  `wide`
-    forces a form and `config` its (cells a thread, cluster, threads), so
-    that the kernel tests can place CTA edges inside targets and run the
-    wide form on small sections."""
+    forces a form and `config` its shape, (cells a thread, cluster, threads)
+    or the wide form's (cells a thread, clusters, cluster, threads), so that
+    the kernel tests can place CTA and cluster edges inside targets and run
+    the wide form on small sections.  A wide grid of more clusters than the
+    card holds at once raises ValueError: its grid barrier could not open."""
     global LAUNCHES, WIDE_LAUNCHES
     l1 = q_codes.shape[0]
     s_count, w1 = t_codes.shape
@@ -387,11 +420,18 @@ def tesserae_fused(q_codes: torch.Tensor, t_codes: torch.Tensor,
     width = w1 + 1
     if wide is None:
         wide = launch_config(s_count, width)[0]
-    per, cluster, threads = config or (wide_config if wide else kernel_config)(s_count, width)
+    shape = config or (wide_config if wide else kernel_config)(s_count, width)
     dev = q_codes.device
+    if wide:
+        per, clusters, cluster, threads = shape
+        room = wide_kernel_info(dev, per, cluster, threads)["max_clusters"]
+        if clusters > room:
+            raise ValueError(f"tesserae wide form: {clusters} clusters of {cluster} x {threads} "
+                             f"threads, where the card holds {room} at once")
+    else:
+        per, cluster, threads = shape
     cap = l1 + width + 4
-    slots = cluster * threads * per if wide else s_count * width
-    npad = -(-slots // 16) * 16
+    npad = -(-(s_count * width) // 16) * 16
     scal, lsm, lsi = params
     prm = torch.cat([scal.reshape(-1), lsm.reshape(-1), lsi.reshape(-1)]).to(
         device=dev, dtype=torch.float32).contiguous()
@@ -403,13 +443,13 @@ def tesserae_fused(q_codes: torch.Tensor, t_codes: torch.Tensor,
     out = torch.empty(2 + 3 * cap, dtype=torch.int32, device=dev)
     lib = _kernels.library()
     if wide:
-        state = torch.empty(3 * slots, dtype=torch.float32, device=dev)
-        info = torch.empty(slots, dtype=torch.uint8, device=dev)
+        scratch = torch.zeros(lib.ctk_tesserae_wide_scratch(clusters), dtype=torch.int32,
+                              device=dev)
         err = lib.ctk_tesserae_wide(q.data_ptr(), t.data_ptr(), vmask.data_ptr(),
-                                    prm.data_ptr(), l1, s_count, width, per, cluster,
+                                    prm.data_ptr(), l1, s_count, width, per, clusters, cluster,
                                     threads, codes.data_ptr(), npad, rec.data_ptr(),
-                                    state.data_ptr(), info.data_ptr(), out.data_ptr(),
-                                    cap, _kernels.stream(dev))
+                                    scratch.data_ptr(), out.data_ptr(), cap,
+                                    _kernels.stream(dev))
     else:
         err = lib.ctk_tesserae(q.data_ptr(), t.data_ptr(), vmask.data_ptr(),
                                prm.data_ptr(), l1, s_count, width, per, cluster,

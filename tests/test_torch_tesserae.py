@@ -55,11 +55,12 @@ def _case(name):
         return t[:80] + t[90:199], {"t0": t}
     if name == "tiny":
         return "A", {"a": "C", "b": "AG"}
-    if name.startswith("w2_"):
-        # S one-base targets (W = 2) against a 40-base query
-        rng = np.random.default_rng(int(name[3:]))
-        return _genome(rng, 40), {f"t{i}": _genome(rng, 1)
-                                  for i in range(int(name[3:]))}
+    if name.startswith("w") and "_" in name:
+        # "wW_S": S targets of W - 1 bases against a 40-base query
+        width, s_count = (int(x) for x in name[1:].split("_"))
+        rng = np.random.default_rng(s_count if width == 2 else 1000 * width + s_count)
+        return _genome(rng, 40), {f"t{i}": _genome(rng, width - 1)
+                                  for i in range(s_count)}
     if name.startswith("many"):
         return _many(int(name[4:]))
     n_targets = int(name[len("targets"):])
@@ -259,7 +260,10 @@ def test_kernel_config_names_its_limit():
     section, up to its own limit."""
     with pytest.raises(ValueError, match=str(tt.MAX_CELLS)):
         tt.kernel_config(63, 2100)
-    assert tt.launch_config(63, 2100)[0]
+    assert tt.launch_config(63, 2100) == (True, *tt.wide_config(63, 2100))
+    per, clusters, cluster, threads = tt.wide_config(63, 2100)
+    assert (per, cluster, threads) == (tt.WIDE_CELLS, tt.WIDE_CLUSTER, tt.WIDE_THREADS)
+    assert (clusters - 1) * cluster * threads * per < 63 * 2100 <= clusters * cluster * threads * per
     with pytest.raises(ValueError, match=str(tt.MAX_WIDE_CELLS)):
         tt.wide_config(16_385, 65)
 
@@ -514,7 +518,7 @@ def test_gate_maximum_is_the_wide_forms_limit():
     budget = tt.TesseraeDevice.HBM_BUDGET_BYTES
     assert tt.gate_max_cells(budget) == tt.MAX_WIDE_CELLS == 16_384 * 65
     assert tt.section_bytes(64, [64] * 16_384) <= budget < tt.section_bytes(64, [64] * 16_385)
-    assert tt.wide_config(16_384, 65) == (130, 16, 512)
+    assert tt.wide_config(16_384, 65) == (16, 33, 8, 256)
     maxl = 64
     while tt.section_bytes(1, [maxl] * 2) <= budget:
         s = 2
@@ -546,21 +550,229 @@ def test_wide_sections_answer_on_the_device_path(name):
     assert len(want) >= 2
 
 
-# small sections forced through the wide form: runs of cells that cross many
-# targets, partial and empty threads, one thread, one CTA, CTA edges inside
-# targets
-FORCED_WIDE = [("w2_63", (5, 1, 32)), ("w2_100", (16, 1, 32)), ("targets16", (33, 2, 64)),
-               ("targets16", None), ("many100", (23, 3, 96)), ("recombinant0", (800, 1, 32)),
-               ("small", (1, 2, 32)), ("tiny", (1, 1, 32)), ("indels", (40, 3, 64))]
+# small sections forced through the wide form, (cells a thread, clusters,
+# CTAs a cluster, threads a CTA): runs of cells that cross many targets (16
+# cells on targets of 1 and 6 bases), cluster edges inside targets (2-5
+# clusters), partial and empty threads and clusters, one warp's CTA, one
+# cluster, clusters of 1-3 CTAs
+FORCED_WIDE = [("w2_63", (16, 1, 1, 32)), ("w2_100", (16, 1, 1, 32)),
+               ("targets16", (16, 3, 2, 64)), ("targets16", None),
+               ("many100", (16, 2, 2, 96)), ("recombinant0", (16, 2, 1, 32)),
+               ("small", (16, 2, 1, 32)), ("tiny", (16, 1, 1, 32)), ("indels", (16, 1, 1, 32)),
+               ("many100", (16, 4, 3, 32)), ("w7_300", (16, 3, 2, 32)),
+               ("w7_300", (16, 5, 1, 32)), ("targets16", (16, 5, 1, 64))]
 
 
 def test_forced_wide_configs_cover_their_sections():
-    """Every forced wide config has a slot for each cell of its section."""
+    """Every forced wide config is a shape the kernel takes with a slot for
+    each cell of its section, and the multi-cluster ones put cells in every
+    cluster but the one left empty on purpose."""
     for case, config in FORCED_WIDE:
         _, t_codes, _, _ = _inputs(*_case(case), PARAMS[1])
         cells = t_codes.shape[0] * (t_codes.shape[1] + 1)
-        per, cluster, threads = config or tt.wide_config(t_codes.shape[0], t_codes.shape[1] + 1)
-        assert per * cluster * threads >= cells and threads % 32 == 0
+        per, clusters, cluster, threads = config or tt.wide_config(t_codes.shape[0],
+                                                                   t_codes.shape[1] + 1)
+        assert per == tt.WIDE_CELLS and threads % 32 == 0
+        assert threads <= tt.WIDE_THREADS and cluster <= 8
+        assert per * clusters * cluster * threads >= cells
+        if case != "small":
+            assert per * (clusters - 1) * cluster * threads < cells
+
+
+# ---------------------------------------------------------------------------
+# a numpy emulation of the wide form's column: per-thread runs of C cells,
+# their Seg summaries and argmax candidates, each cluster's exclusive prefix
+# and argmax over its threads (the warp, CTA and cluster levels, composed in
+# one scan since the composition is associative), then the prefix of the
+# clusters before each one and the column's argmax over the clusters; the
+# delete state from each thread's prefix, the traceback bytes, the
+# recombination words and the walk.  Float32 throughout, the kernel's lines
+# in the kernel's order.
+# ---------------------------------------------------------------------------
+
+def _seg_combine(a, b):
+    """Seg a then b, elementwise over arrays (first, last, v)."""
+    af, al, av = a
+    bf, bl, bv = b
+    joined = (bf == bl) & (al == bf)
+    v = np.where(af < 0, bv, np.where(bf < 0, av, np.where(joined, np.fmax(av, bv), bv)))
+    return np.where(af < 0, bf, af), np.where(bf < 0, al, bl), v.astype(np.float32)
+
+
+def _seg_exclusive_scan(seg):
+    """Exclusive scan of Segs along the last axis (Hillis-Steele, as the
+    warps' shuffle scans)."""
+    f, l_, v = (x.copy() for x in seg)
+    n = f.shape[-1]
+    d = 1
+    while d < n:
+        pf = np.concatenate([np.full(f.shape[:-1] + (d,), -1), f[..., :-d]], -1)
+        pl = np.concatenate([np.full(l_.shape[:-1] + (d,), -1), l_[..., :-d]], -1)
+        pv = np.concatenate([np.full(v.shape[:-1] + (d,), -np.inf, np.float32), v[..., :-d]], -1)
+        f, l_, v = _seg_combine((pf, pl, pv), (f, l_, v))
+        d *= 2
+    pad = lambda x, e, dt=None: np.concatenate(  # noqa: E731
+        [np.full(x.shape[:-1] + (1,), e, dt), x[..., :-1]], -1)
+    return pad(f, -1), pad(l_, -1), pad(v, -np.inf, np.float32)
+
+
+def emulate_wide(args, config):
+    """(max_r f32, cells, n, codes uint8[L+1, S, W], rec int64[L+1], the
+    columns' max_r) of the wide form at `config` = (cells a thread,
+    clusters, CTAs a cluster, threads a CTA)."""
+    q, t_codes, valid, (scal, lsm, lsi) = args
+    per, clusters, cluster, threads = config
+    f32 = np.float32
+    ldel, leps, lrho, lpim, lpii, lmm, lgm, ldm, lsize = (f32(x) for x in scal.numpy())
+    lsm, lsi = lsm.numpy(), lsi.numpy()
+    small = f32(tt.SMALL)
+    q = q.numpy()
+    s_count, width = t_codes.shape[0], t_codes.shape[1] + 1
+    n_cells = s_count * width
+    n_threads = clusters * cluster * threads
+    slots = n_threads * per
+    assert slots >= n_cells
+    flat = np.arange(slots)
+    live = flat < n_cells
+    s_of, j_of = np.where(live, flat // width, -1), np.where(live, flat % width, 0)
+    ok = np.zeros(slots, bool)
+    tcode = np.zeros(slots, np.int64)
+    inner = live & (j_of >= 1)
+    ok[inner] = valid.numpy()[s_of[inner], j_of[inner] - 1]
+    tcode[inner] = t_codes.numpy()[s_of[inner], j_of[inner] - 1]
+    dterm = tt.delete_term(scal[0], scal[1], width)[0].numpy()
+    jf = j_of.astype(f32)
+    vm = np.full(slots, small, f32)
+    vi, vd = vm.copy(), vm.copy()
+    codes = np.zeros((len(q) + 1, slots), np.uint8)
+    rec = np.zeros(len(q) + 1, np.int64)
+    col_max = []
+    max_r, best = f32(0.0), 0
+    shift = lambda x: np.concatenate([[small], x[:-1]]).astype(f32)  # noqa: E731
+    for col in range(1, len(q) + 1):
+        qc, first = int(q[col - 1]), col == 1
+        min_j = 1 if first else 2
+        recomb = ((max_r + lrho) + lpim) - lsize
+        recomb_i = ((max_r + lrho) + lpii) - lsize
+        em, emi = lsm[qc][tcode], lsi[qc]
+        code = np.zeros(slots, np.uint8)
+        if first:
+            m = np.where(ok, (lpim - lsize) + em, small).astype(f32)
+            v = np.where(ok, (lpii - lsize) + emi, small).astype(f32)
+        else:
+            # a thread's left neighbour is the previous flat cell, across a
+            # thread's, CTA's or cluster's edge alike
+            c0 = np.where(j_of >= 1, shift(vm), small) + lmm
+            c1 = np.where(j_of >= 1, shift(vi), small) + lgm
+            c2 = np.where(j_of >= 1, shift(vd), small) + ldm
+            lval, larg = c0, np.zeros(slots, np.int64)
+            larg = np.where(c1 > lval, 1, larg)
+            lval = np.where(c1 > lval, c1, lval)
+            larg = np.where(c2 > lval, 2, larg)
+            lval = np.where(c2 > lval, c2, lval)
+            use_local = lval > recomb
+            m = np.where(use_local, lval, recomb)
+            m = np.where(j_of == 0, small, np.where(ok, m + em, small)).astype(f32)
+            i0, i1 = vm + ldel, vi + leps
+            iarg = (i1 > i0).astype(np.int64)
+            ival = np.where(iarg == 1, i1, i0)
+            use_i = ival > recomb_i
+            v = np.where(use_i, ival, recomb_i)
+            v = np.where(j_of == 0, small, np.where(ok, v + emi, small)).astype(f32)
+            code = (np.where(use_local, larg + 1, 0) | (np.where(use_i, iarg + 1, 0) << 2)
+                    ).astype(np.uint8)
+        m, v = np.where(live, m, small).astype(f32), np.where(live, v, small).astype(f32)
+        vm, vi = m, v
+        adj = np.where(j_of >= min_j - 1, m - leps * jf, small).astype(f32)
+        # ---- per thread: its run's Seg and argmax candidate
+        run_s = s_of.reshape(n_threads, per)
+        run_live = live.reshape(n_threads, per)
+        last = np.where(run_live, run_s, -1).max(1)
+        firsts = np.where(run_live[:, 0], run_s[:, 0], -1)
+        in_last = run_live & (run_s == last[:, None])
+        seg_v = np.where(in_last, adj.reshape(n_threads, per), -np.inf).max(1).astype(f32)
+        mine = (firsts, np.where(firsts >= 0, last, -1),
+                np.where(firsts >= 0, seg_v, -np.inf).astype(f32))
+        cand = np.stack([np.where(ok, m, small), np.where(ok, v, small)], 1)
+        cand = np.where(live[:, None], cand, -np.inf).reshape(n_threads, 2 * per)
+        t_arg = cand.argmax(1)
+        t_bv = cand[np.arange(n_threads), t_arg]
+        t_bi = np.where(np.isfinite(t_bv), 2 * (np.arange(n_threads) * per) + t_arg, 2 ** 31 - 1)
+        # ---- each cluster over its threads
+        by_cluster = tuple(x.reshape(clusters, cluster * threads) for x in mine)
+        within = _seg_exclusive_scan(by_cluster)
+        totals = _seg_combine(tuple(x[:, -1] for x in within),
+                              tuple(x[:, -1] for x in by_cluster))
+        c_bv = t_bv.reshape(clusters, -1)
+        c_arg = c_bv.argmax(1)            # the first thread of the cluster's best
+        c_best = (c_bv[np.arange(clusters), c_arg], t_bi.reshape(clusters, -1)[
+            np.arange(clusters), c_arg])
+        # ---- the grid: the clusters before each one, the column's argmax
+        before = [(np.array(-1), np.array(-1), np.float32(-np.inf))]
+        for c in range(clusters - 1):
+            before.append(_seg_combine(before[-1], tuple(x[c] for x in totals)))
+        gv, gi = -np.inf, 2 ** 31 - 1
+        for c in range(clusters):
+            if c_best[0][c] > gv or (c_best[0][c] == gv and c_best[1][c] < gi):
+                gv, gi = c_best[0][c], int(c_best[1][c])
+        max_r, best = f32(gv), gi
+        col_max.append(max_r)
+        excl = _seg_combine(tuple(np.repeat([np.asarray(b[k]) for b in before], cluster * threads)
+                                  for k in range(3)),
+                            tuple(x.reshape(-1) for x in within))
+        # ---- pass B: each thread's delete state from its prefix
+        run = np.where((excl[0] >= 0) & (excl[1] == run_s[:, 0]), excl[2], -np.inf).astype(f32)
+        d = np.full(slots, small, f32).reshape(n_threads, per)
+        adj_t, j_t = adj.reshape(n_threads, per), j_of.reshape(n_threads, per)
+        for i in range(per):
+            j = j_t[:, i]
+            run = np.where(j == 0, f32(-np.inf), run)
+            run_prev = np.where(j == 0, small, run)
+            d[:, i] = np.where(j >= min_j, dterm[j] + run_prev, small)
+            run = np.fmax(run, adj_t[:, i])
+        vd = np.where(live, d.reshape(-1), small).astype(f32)
+        mb = np.where(j_of == 0, small, shift(vm)) + ldel
+        db = np.where(j_of == 0, small, shift(vd)) + leps
+        codes[col] = np.where(live, code | np.where(mb >= db, 0, 16), 0)
+        two_w = 2 * width
+        rec[col] = tt._word(best // two_w + 1, tt.M if (best % two_w) % 2 == 0 else tt.I,
+                            (best % two_w) // 2)
+    two_w = 2 * width
+    codes = torch.from_numpy(codes[:, :n_cells].reshape(len(q) + 1, s_count, width).copy())
+    cells, n = tt.decode_traceback(codes, torch.from_numpy(rec), best // two_w + 1,
+                                   tt.M if (best % two_w) % 2 == 0 else tt.I,
+                                   (best % two_w) // 2)
+    return max_r, cells, n, codes, rec, col_max
+
+
+EMULATED = [("w2_100", (16, 1, 1, 32)), ("targets16", (16, 3, 2, 64)),
+            ("many100", (16, 4, 3, 32)), ("w7_300", (16, 3, 2, 32)),
+            ("w7_300", (16, 5, 1, 32)), ("indels", (16, 1, 1, 32)), ("small", (16, 2, 1, 32)),
+            ("tiny", (16, 1, 1, 32))]
+
+
+@pytest.mark.parametrize("case, config", EMULATED)
+def test_wide_composition_emulated_matches_the_twin(case, config):
+    """The emulated wide form (its runs, clusters and grid) gives the twin's
+    path and max_r in bits, every column's traceback bytes, every
+    recombination word the walk can read, and the twin's max_r at the
+    columns where a query prefix ends."""
+    args = _inputs(*_case(case), PARAMS[1])
+    max_r, cells, n, codes, rec, col_max = emulate_wide(args, config)
+    tb, who, state, pos, want_r = tt.tesserae_scan(*args)
+    want_cells, want_n = tt.tesserae_traceback(tb, who, state, pos)
+    assert n == want_n
+    np.testing.assert_array_equal(cells[:n].numpy(), want_cells[:n].numpy())
+    assert np.float32(max_r).view(np.int32) == np.float32(want_r.item()).view(np.int32)
+    want_codes, want_rec = tt.encode_traceback(tb)
+    np.testing.assert_array_equal(codes.numpy(), want_codes.numpy())
+    used = want_rec.numpy() != 0
+    np.testing.assert_array_equal(rec[used], want_rec.numpy()[used])
+    q = args[0]
+    for end in sorted({2, len(q) // 2, len(q) - 1} & set(range(2, len(q) + 1))):
+        part = tt.tesserae_scan(q[:end], *args[1:])[4]
+        assert np.float32(col_max[end - 1]).view(np.int32) == \
+            np.float32(part.item()).view(np.int32)
 
 
 @pytest.mark.cuda
@@ -598,3 +810,18 @@ def test_wide_form_matches_plain_on_card(cuda, name):
                                   want_cells[:want_n].cpu().numpy())
     assert np.float32(max_r.item()).view(np.int32) == \
         np.float32(want_r.item()).view(np.int32)
+
+
+@pytest.mark.cuda
+def test_wide_form_refuses_a_grid_that_does_not_co_reside_on_card(cuda):
+    """A grid of more clusters than the card holds at once raises in the
+    wrapper (no launch, no other form), and the gate's largest section's grid
+    co-resides."""
+    per, clusters, cluster, threads = tt.wide_config(16_384, 65)
+    room = tt.wide_kernel_info(cuda, per, cluster, threads)["max_clusters"]
+    assert room >= clusters
+    args = _inputs(*_case("w2_100"), PARAMS[1], cuda)
+    before = tt.LAUNCHES
+    with pytest.raises(ValueError, match="holds"):
+        tt.tesserae_fused(*args, config=(per, room + 1, cluster, threads), wide=True)
+    assert tt.LAUNCHES == before

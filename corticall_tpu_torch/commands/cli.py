@@ -5,11 +5,14 @@ Main.java:40-64 + per-command @Argument flags) so WDL pipelines can swap the
 jar for this module.  Flag names match the Java fullName/shortName pairs.
 A copy of corticall_tpu/commands/cli.py: the same commands, flags, defaults,
 outputs and exit codes, plus the top-level `--device` (default: the CUDA
-card; "cpu" runs the kernels' plain twins).  Only the commands that reach a
-kernel read it: Partition, AlignContigs and Call resolve it first (and raise
-RuntimeError without a card), and Build hands it to the device count that
-CORTICALL_DEVICE_BUILD=1 selects.  A kernel that fails to build or launch is
-not a user-input error: it leaves `main` with its traceback.
+card; "cpu" runs the kernels' plain twins) and `--trace DIR` (the command
+run inside utils/profiling.torch_trace: one Chrome trace in DIR with Call's
+stages, the program's spans and the kernels on one clock).  Only the
+commands that reach a kernel read `--device`: Partition, AlignContigs and
+Call resolve it first (and raise RuntimeError without a card), and Build
+hands it to the device count that CORTICALL_DEVICE_BUILD=1 selects.  A
+kernel that fails to build or launch is not a user-input error: it leaves
+`main` with its traceback.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from .. import graph as gr
 from ..device import resolve
 from ..io import ctx as ctxio
 from ..io import links as lkio
+from ..utils.profiling import torch_trace
 from . import core
 
 
@@ -717,6 +721,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="the device of the kernels (default: the CUDA card; "
                         "cpu runs their plain twins)")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="write a Chrome trace of the command (torch.profiler: the program's "
+                        "spans and stages, and the kernels) into DIR")
     sub = p.add_subparsers(dest="command", required=True)
 
     def add(name, fn, **kwargs):
@@ -1107,7 +1114,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     try:
-        args.fn(args)
+        with torch_trace(args.trace):
+            args.fn(args)
     except (ValueError, FileNotFoundError) as e:
         # user-input errors: one clear line, no traceback (Module.java-style)
         print(f"error: {e}", file=sys.stderr)

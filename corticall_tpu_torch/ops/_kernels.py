@@ -26,6 +26,8 @@ import time
 
 import torch
 
+from ..utils.profiling import span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -137,14 +139,15 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build()["path"])
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        lib.ctk_error_string.argtypes = [ctypes.c_int]
-        lib.ctk_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        with span("kernels.build"):
+            lib = ctypes.CDLL(build()["path"])
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.ctk_error_string.argtypes = [ctypes.c_int]
+            lib.ctk_error_string.restype = ctypes.c_char_p
+            _lib = lib
     return _lib
 
 

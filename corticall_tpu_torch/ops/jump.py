@@ -38,6 +38,7 @@ from ..device import resolve
 from . import kmer as tk
 from .kmer import words_tensor
 from .placement import GOLDEN, place
+from ..utils.profiling import span
 
 JUMP_MAX = 32                 # bases a row: a power of two, 64 bits of (hi, lo)
 JUMP_END = 0xFFFFFFFF         # next_row of a run that ends the walk
@@ -324,11 +325,16 @@ def build_jump_table(kmers: np.ndarray, edges: np.ndarray, k: int,
     without one; "cpu" runs the plain twins)."""
     device = resolve(device)
     n = kmers.shape[0]
-    buckets, kd = build_buckets(kmers, device)
-    ed = torch.from_numpy(np.ascontiguousarray(edges, dtype=np.uint8)).to(device)
-    fl = np.zeros(n, dtype=bool) if flags is None else np.asarray(flags, dtype=bool)
-    fd = torch.from_numpy(np.ascontiguousarray(fl)).to(device)
-    rows = jump_rows(kd, ed, fd, buckets, k)
+    with span("jump.table"):
+        with span("jump.table.place"):
+            nb, bucket_of, pos_of = place(kmers)
+        with span("jump.table.scatter"):
+            buckets, kd = scatter_buckets(kmers, nb, bucket_of * 2 + pos_of, device)
+            ed = torch.from_numpy(np.ascontiguousarray(edges, dtype=np.uint8)).to(device)
+            fl = np.zeros(n, dtype=bool) if flags is None else np.asarray(flags, dtype=bool)
+            fd = torch.from_numpy(np.ascontiguousarray(fl)).to(device)
+        with span("jump.table.rows"):       # the launches' enqueue; the card's time is traced
+            rows = jump_rows(kd, ed, fd, buckets, k)
     return JumpTable(rows=rows, buckets=buckets)
 
 
@@ -495,17 +501,25 @@ def walk_forward_jumps(buckets: torch.Tensor, rows: torch.Tensor,
     asynchronously on the current stream (the jump slots by one pitched 2-D
     copy that drops the rows' padding), with one synchronize; the arrays are
     views that keep their host tensors alive."""
-    card, *lane = walk_jumps(buckets, rows, words_tensor(seeds, rows.device), k, num_steps)
-    packed = card
-    if card.device.type == "cuda":
-        b, width = card.shape
-        packed = torch.empty((b, width), dtype=torch.int32, pin_memory=True)
-        _kernels.check(_kernels.library().ctk_copy_rows_to_host(
-            packed.data_ptr(), 4 * width, card.data_ptr(), 4 * card.stride(0), 4 * width, b,
-            _kernels.stream(card.device)), "copy_rows_to_host")
-        lane = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x, non_blocking=True)
-                for x in lane]
-        torch.cuda.current_stream(card.device).synchronize()
-    steps, cycled, touched, endj = (x.numpy() for x in lane)
-    saturated = (steps >= num_steps) & ~cycled
-    return (packed.numpy().view(np.uint32), cycled, steps, saturated, touched, endj)
+    with span("jump.walk", seeds=len(seeds)):
+        with span("jump.walk.upload", bytes=4 * seeds.size):
+            sd = words_tensor(seeds, rows.device)
+        with span("jump.walk.launch"):
+            card, *lane = walk_jumps(buckets, rows, sd, k, num_steps)
+        packed = card
+        if card.device.type == "cuda":
+            b, width = card.shape
+            with span("jump.walk.copy") as sp:
+                packed = torch.empty((b, width), dtype=torch.int32, pin_memory=True)
+                _kernels.check(_kernels.library().ctk_copy_rows_to_host(
+                    packed.data_ptr(), 4 * width, card.data_ptr(), 4 * card.stride(0),
+                    4 * width, b, _kernels.stream(card.device)), "copy_rows_to_host")
+                lane = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(
+                    x, non_blocking=True) for x in lane]
+                if sp:
+                    sp.set(bytes=packed.nbytes + sum(x.nbytes for x in lane))
+            with span("jump.walk.wait"):
+                torch.cuda.current_stream(card.device).synchronize()
+        steps, cycled, touched, endj = (x.numpy() for x in lane)
+        saturated = (steps >= num_steps) & ~cycled
+        return (packed.numpy().view(np.uint32), cycled, steps, saturated, touched, endj)

@@ -39,6 +39,7 @@ import torch
 from . import _kernels
 from ..device import resolve
 from ..models import tesserae as tz
+from ..utils.profiling import span
 
 SMALL = -1e32
 M, I, D = 1, 2, 3
@@ -546,33 +547,43 @@ class TesseraeDevice(tz.Tesserae):
         self.host_sections = 0
 
     def align(self, query: str, targets: dict) -> list:
-        if not targets or not query:
-            raise ValueError("Tesserae.align requires a non-empty query and targets")
-        t_start = time.perf_counter()
-        names = list(targets.keys())
-        seqs = [targets[n] for n in names]
-        if section_bytes(len(query), [len(t) for t in seqs]) > self.HBM_BUDGET_BYTES:
-            host = tz.Tesserae(self.del_, self.eps, self.rho, self.term)
-            out = host.align(query, targets)
-            self.llk = host.llk
-            self.combined_llk += host.llk
-            self.host_sections += 1
-            return out
+        with span("tesserae.align"):
+            if not targets or not query:
+                raise ValueError("Tesserae.align requires a non-empty query and targets")
+            t_start = time.perf_counter()
+            names = list(targets.keys())
+            seqs = [targets[n] for n in names]
+            if section_bytes(len(query), [len(t) for t in seqs]) > self.HBM_BUDGET_BYTES:
+                with span("tesserae.host_oracle"):
+                    host = tz.Tesserae(self.del_, self.eps, self.rho, self.term)
+                    out = host.align(query, targets)
+                self.llk = host.llk
+                self.combined_llk += host.llk
+                self.host_sections += 1
+                return out
 
-        max_r, cells, n = tesserae_fused(*section_inputs(
-            query, seqs, (self.del_, self.eps, self.rho, self.term), self.device))
-        n = int(n)
-        cells = cells[:n - 1].cpu().tolist()
-        self.llk = float(max_r) + math.log(self.term)
-        self.combined_llk += self.llk
+            with span("tesserae.pack") as sp:
+                args = section_inputs(query, seqs, (self.del_, self.eps, self.rho, self.term),
+                                      self.device)
+                if sp:
+                    sp.set(bytes=sum(x.nbytes for x in (*args[:3], *args[3])))
+            with span("tesserae.launch"):
+                max_r, cells, n = tesserae_fused(*args)
+            with span("tesserae.wait"):
+                n = int(n)
+            with span("tesserae.fetch"):
+                cells = cells[:n - 1].cpu().tolist()
+                self.llk = float(max_r) + math.log(self.term)
+            self.combined_llk += self.llk
 
-        dt = time.perf_counter() - t_start
-        if self.device_sections:
-            self.dispatch_s += dt
-        else:
-            self.compile_s += dt
-        self.device_sections += 1
+            dt = time.perf_counter() - t_start
+            if self.device_sections:
+                self.dispatch_s += dt
+            else:
+                self.compile_s += dt
+            self.device_sections += 1
 
-        cells = [tuple(c) for c in cells]
-        cells.reverse()
-        return self._build_path(query, names, seqs, cells)
+            with span("tesserae.decode"):
+                cells = [tuple(c) for c in cells]
+                cells.reverse()
+                return self._build_path(query, names, seqs, cells)

@@ -385,12 +385,38 @@ def test_parsers_have_the_same_commands_and_flags():
     for name in jsubs:
         assert _flags(tsubs[name]) == _flags(jsubs[name]), name
         assert tsubs[name].get_default("fn").__name__ == jsubs[name].get_default("fn").__name__
-    top = [a for a in _flags(tp) if a[0] != ("--device",)]
+    top = [a for a in _flags(tp) if a[0] not in (("--device",), ("--trace",))]
     assert top == _flags(jp)
-    device = tp.parse_args(["View", "-g", "x"]).device
-    assert device is None
+    plain = tp.parse_args(["View", "-g", "x"])
+    assert plain.device is None and plain.trace is None
     assert tp.parse_args(["--device", "cpu", "View", "-g", "x"]).device == "cpu"
+    assert tp.parse_args(["--trace", "t", "View", "-g", "x"]).trace == "t"
     assert tp.prog == "corticall_tpu_torch"
+
+
+def test_trace_option_writes_the_commands_spans(inputs, tmp_path, capsys):
+    """--trace DIR: Call runs inside torch_trace, and DIR's one Chrome trace
+    holds Call's stages (SectionTimer's spans, under the breakdown's names)
+    as `cpu_op` events, the assembly's chain walks inside the haplotype
+    assembly that runs them; the command's output is the untraced run's."""
+    from corticall_tpu_torch.utils import profiling
+    d, out, plain = (str(tmp_path / x) for x in ("trace", "out", "plain"))
+    os.makedirs(out)
+    os.makedirs(plain)
+    assert tcli.main(["--device", "cpu", "--trace", d, *_argv("Call", inputs, out)]) == 0
+    profiling.clear()
+    assert tcli.main(["--device", "cpu", *_argv("Call", inputs, plain)]) == 0
+    assert _files(out) == _files(plain)
+    files = os.listdir(d)
+    assert len(files) == 1 and files[0].endswith(".json")
+    with open(os.path.join(d, files[0])) as f:
+        ops = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "cpu_op"]
+    names = {e["name"] for e in ops}
+    assert {"host:load_walk", "mixed:assemble_haplotypes", "host:tesserae"} <= names
+    outer = [e for e in ops if e["name"] == "mixed:assemble_haplotypes"]
+    inner = [e for e in ops if e["name"] == "asm/chain_walks"]
+    assert inner and all(any(o["ts"] <= i["ts"] and i["ts"] + i["dur"] <= o["ts"] + o["dur"]
+                             for o in outer) for i in inner)
 
 
 # ---- the device rule ------------------------------------------------------------

@@ -219,6 +219,8 @@ HBM_BYTES_PER_S = 3.35e12
 # the banded SW kernel's operations are int32 (DPX); the data sheet gives no
 # int32 rate, so they count against the float32 one, like the others
 FP32_OPS_PER_S = 67e12
+# the exact Tesserae form's operations are float64 (not on the tensor cores)
+FP64_OPS_PER_S = 34e12
 SW_OPS_PER_CELL = 12
 TESSERAE_OPS_PER_CELL = 40
 JUMP_ROW_BYTES = 16                          # a wide row, as the walk reads it
@@ -228,10 +230,10 @@ JUMP_ROW_BYTES = 16                          # a wide row, as the walk reads it
 SHFL_SCAN_MS = 75e-6
 
 
-def bound_ms(nbytes: float, ops: float = 0.0):
+def bound_ms(nbytes: float, ops: float = 0.0, ops_per_s: float = FP32_OPS_PER_S):
     """(least time in ms, "bytes" or "operations") for the work."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / FP32_OPS_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
@@ -277,11 +279,13 @@ def sw_full_bound_fields(q, s, band) -> dict:
 
 
 def tesserae_bound(args):
-    """Bound of one section: its inputs, its cells and columns, its path."""
+    """Bound of one section: its inputs, its cells and columns, its path; the
+    operations at the float64 rate for the exact form's float64 parameters."""
     q, t, valid, (scal, lsm, lsi) = args
     cap = q.shape[0] + t.shape[1] + 5
     io = nbytes(q, t, valid, scal, lsm, lsi) + 4 * (2 + 3 * cap)
-    return bound_ms(io, TESSERAE_OPS_PER_CELL * q.shape[0] * t.shape[0] * (t.shape[1] + 1))
+    rate = FP64_OPS_PER_S if scal.dtype == torch.float64 else FP32_OPS_PER_S
+    return bound_ms(io, TESSERAE_OPS_PER_CELL * q.shape[0] * t.shape[0] * (t.shape[1] + 1), rate)
 
 
 def emit(phase: str, **fields) -> None:
@@ -397,6 +401,25 @@ def wide_form_sections(rng):
         out.append((lut[query].tobytes().decode(),
                     {f"t{i}": lut[c].tobytes().decode() for i, c in enumerate(seqs)}))
     return out
+
+
+# the flagship's section past the budget gate: its query and target lengths
+EXACT_QUERY, EXACT_TARGETS = 1853, (3661, 3661, 3540, 3402, 3317, 3104)
+
+
+def exact_section(rng):
+    """A section of the flagship's gated shape (EXACT_QUERY, EXACT_TARGETS):
+    targets cut from two parental haplotypes with 2% substitutions, the query
+    a mosaic of the first of each with 0.5% substitutions."""
+    lut = np.frombuffer(b"ACGT", np.uint8)
+    parents = [rng.integers(0, 4, 3800) for _ in range(2)]
+    seqs = []
+    for i, n in enumerate(EXACT_TARGETS):
+        start = int(rng.integers(0, 3800 - n + 1))
+        seqs.append(mutate(rng, parents[i % 2], 0.02)[start:start + n])
+    query = mutate(rng, np.concatenate([seqs[0][900:1800], seqs[1][1800:2753]]), 0.005)
+    return (lut[query].tobytes().decode(),
+            {f"t{i}": lut[c].tobytes().decode() for i, c in enumerate(seqs)})
 
 
 def event_ms(fn, reps):
@@ -648,7 +671,7 @@ def run_main_path(dev, mbp):
     tsw.sw_banded, tt.tesserae_fused = sw_recorded, ts_recorded
     tt.TesseraeDevice.align = align_recorded
     stages = {}
-    tsw.LAUNCHES = tt.LAUNCHES = tt.WIDE_LAUNCHES = 0
+    tsw.LAUNCHES = tt.LAUNCHES = tt.WIDE_LAUNCHES = tt.EXACT_LAUNCHES = 0
     try:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
             demo, run = reads_pipeline(res, mom, dad, res["truth_vcf"], PF_K, PF_COVERAGE,
@@ -660,7 +683,7 @@ def run_main_path(dev, mbp):
             # the parents' graphs, for phase 13's cross to be held against
             clean_sha = {s: sha256(os.path.join(wd, f"{s}.clean.ctx")) for s in ("mom", "dad")}
         launches = {"sw_banded": tsw.LAUNCHES, "tesserae": tt.LAUNCHES,
-                    "tesserae_wide": tt.WIDE_LAUNCHES}
+                    "tesserae_wide": tt.WIDE_LAUNCHES, "tesserae_exact": tt.EXACT_LAUNCHES}
     finally:
         tsw.sw_banded, tt.tesserae_fused = sw_kernel, ts_kernel
         tt.TesseraeDevice.align = align
@@ -712,7 +735,8 @@ def replay(mp) -> dict:
         b_ms, ts["bound_by"] = tesserae_bound(args)
         ts["bound_ms"] += b_ms
         wide, *shape = tt.launch_config(args[1].shape[0], args[1].shape[1] + 1)
-        form = f"wide {shape[1]} x {shape[2]}" if wide else shape[1]
+        form = ("exact" if args[3][0].dtype == torch.float64
+                else f"wide {shape[1]} x {shape[2]}" if wide else shape[1])
         ts["clusters"][form] = ts["clusters"].get(form, 0) + 1
     # the delete state's FMA term (ldel + leps * (j - 1), rounded once) of the
     # kernel's device function against the twin's, every j of the widest section
@@ -2944,11 +2968,11 @@ def main() -> int:
     for query, targets in wide_form_sections(rng):
         args = tt.section_inputs(query, list(targets.values()), CALLER_PARAMS, dev)
         s_count, width = args[1].shape[0], args[1].shape[1] + 1
-        wide, *shape = tt.launch_config(s_count, width)
-        gate = tt.section_bytes(len(query), [len(t) for t in targets.values()])
-        if not wide or gate > tt.TesseraeDevice.HBM_BUDGET_BYTES:
+        lens = [len(t) for t in targets.values()]
+        gate = tt.section_bytes(len(query), lens)
+        if tt.section_route("cuda", len(query), lens, tt.TesseraeDevice.HBM_BUDGET_BYTES) != "wide":
             raise AssertionError(f"{s_count} x {width}: not a wide section the gate admits")
-        per, clusters, cluster, threads = shape
+        per, clusters, cluster, threads = tt.wide_config(s_count, width)
         info = tt.wide_kernel_info(dev, per, cluster, threads)
         before = tt.WIDE_LAUNCHES
         got = tt.tesserae_fused(*args)
@@ -2978,8 +3002,33 @@ def main() -> int:
     if clusters > room:
         raise AssertionError(f"the gate's largest section needs {clusters} clusters of "
                              f"{cluster} x {threads} threads; the card holds {room}")
+    # the exact form on the flagship's gated section (a seed of its own, so
+    # that the later phases' draws stay as they were): TesseraeDevice's route
+    # and the numpy oracle's path and llk, equal
+    query, targets = exact_section(np.random.default_rng(1853))
+    lens = [len(t) for t in targets.values()]
+    if tt.section_route("cuda", len(query), lens, tt.TesseraeDevice.HBM_BUDGET_BYTES) != "exact":
+        raise AssertionError("the flagship's gated section does not take the exact form")
+    host = tz.Tesserae(*CALLER_PARAMS)
+    o_ms, want = host_ms(lambda: host.align(query, targets))
+    device = tt.TesseraeDevice(*CALLER_PARAMS, device=dev)
+    a_ms, got = host_ms(lambda: device.align(query, targets))
+    if got != want or device.llk != host.llk or device.exact_sections != 1:
+        raise AssertionError("the exact form's path or llk differs from the oracle's")
+    args = tt.section_inputs(query, list(targets.values()), CALLER_PARAMS, dev, torch.float64)
+    k_ms = event_ms(lambda: tt.tesserae_fused(*args), 3)
+    per, cluster, threads = tt.kernel_config(len(lens), max(lens) + 1, exact=True)
+    exact_row = {"targets": len(lens), "query": len(query), "width": max(lens) + 1,
+                 "kernel_ms": round(k_ms, 3), "us_per_column": round(k_ms * 1e3 / len(query), 3),
+                 "align_ms": round(a_ms, 2), "oracle_ms": round(o_ms, 1),
+                 "cells_per_thread": per, "cluster": cluster, "threads": threads,
+                 **tt.exact_kernel_info(dev, per),
+                 **bound_fields(tesserae_bound(args))}
+    log(f"tesserae exact S={len(lens)} L={len(query)}: kernel {k_ms:.2f} ms, "
+        f"oracle {o_ms:.0f} ms")
     emit("tesserae_vs_plain", identical=True, max_abs_err=ts_err, sections=ts_rows,
-         wide_form=wide_rows, gate_max_clusters={"needed": clusters, "resident": room})
+         wide_form=wide_rows, gate_max_clusters={"needed": clusters, "resident": room},
+         exact_form=exact_row)
 
     # ---- 4. the main path --------------------------------------------------
     mp = run_main_path(dev, PF_MBP)

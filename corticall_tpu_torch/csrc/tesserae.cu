@@ -85,18 +85,32 @@
 // that a co-residency mistake fails the launch rather than hanging it.  The
 // traceback layout, the recombination word and the
 // walk are the register form's.
+//
+// The exact form (the register form's template in double, entry point
+// ctk_tesserae_f64) takes the sections that TesseraeDevice.align's budget
+// gate sends to the exact numpy oracle (models/tesserae.py, float64), where
+// the JAX package runs that oracle on the host.  It computes the oracle's
+// own operations in the oracle's order: the parameters are the oracle's
+// doubles, the delete term ldel + leps*(j-1) is two roundings as numpy's
+// (no FMA: --fmad=false), every other line is the float32 forms' own, ties
+// fall as np.argmax's (first index wins), and SMALL is -1e32 in double, so
+// max_r and the path equal the oracle's.  Positions past the longest target
+// (the oracle pads to the query's length too) are never on a path and never
+// feed a cell before them, as for the float32 forms.  Its reach is the
+// register form's cells at kRegisterCells<double> cells a thread; a gated
+// section past it stays on the numpy oracle.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr float kSmall = -1e32f;
 constexpr int kM = 1, kI = 2, kD = 3;
 constexpr int kMaxThreads = 512;
 constexpr int kMaxWarps = kMaxThreads / 32;
@@ -115,6 +129,17 @@ constexpr int kWideBlocks = 3;
 // seconds, where a column waits microseconds
 constexpr unsigned kMaxPolls = 1u << 24;
 
+// The value type of a form: float (the float32 forms, bit-equal to the plain
+// twin and XLA) or double (the exact form, bit-equal to the numpy oracle).
+// SMALL is the oracle's -1e32 in that type.
+template <typename T>
+constexpr T kSmall = T(-1e32);
+template <>
+constexpr float kSmall<float> = -1e32f;
+
+__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double vmax(double a, double b) { return fmax(a, b); }
+
 // the packed traceback word of the plain twin (models/tesserae.py)
 __device__ __forceinline__ long long pack(int who, int state, int pos) {
   return ((long long)who << 25) | ((long long)state << 23) | (long long)pos;
@@ -127,13 +152,20 @@ __device__ __forceinline__ float delete_term(float ldel, float leps, int j) {
   return __fmaf_rn(leps, (float)(j - 1), ldel);
 }
 
+// the exact form's: the product and the sum rounded each, as numpy computes
+// ldel + leps * (jj - 1) in the oracle (models/tesserae.py::_delete_scan)
+__device__ __forceinline__ double delete_term(double ldel, double leps, int j) {
+  return ldel + leps * (double)(j - 1);
+}
+
 __global__ void delete_term_kernel(const float* params, int W, float* out) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j < W) out[j] = delete_term(params[0], params[1], j);
 }
 
 // better (value, flat index): larger value, then smaller index (first argmax)
-__device__ __forceinline__ void take_better(float& v, int& idx, float ov, int oi) {
+template <typename T>
+__device__ __forceinline__ void take_better(T& v, int& idx, T ov, int oi) {
   if (ov > v || (ov == v && oi < idx)) {
     v = ov;
     idx = oi;
@@ -141,9 +173,10 @@ __device__ __forceinline__ void take_better(float& v, int& idx, float ov, int oi
 }
 
 // over the first `width` lanes (a power of two); the others hold no candidate
-__device__ __forceinline__ void warp_best(float& v, int& idx, int width = 32) {
+template <typename T>
+__device__ __forceinline__ void warp_best(T& v, int& idx, int width = 32) {
   for (int d = width >> 1; d > 0; d >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, d);
+    const T ov = __shfl_xor_sync(0xffffffffu, v, d);
     const int oi = __shfl_xor_sync(0xffffffffu, idx, d);
     take_better(v, idx, ov, oi);
   }
@@ -152,36 +185,42 @@ __device__ __forceinline__ void warp_best(float& v, int& idx, int width = 32) {
 // Summary of a run of cells for the segmented prefix max of the delete
 // state: the first and last target of the run and the maximum over the
 // run's cells of its last target.  first < 0: an empty run.
+template <typename T>
 struct Seg {
   int first, last;
-  float v;
+  T v;
 };
 
-__device__ __forceinline__ Seg empty_seg() { return {-1, -1, -INFINITY}; }
+template <typename T>
+__device__ __forceinline__ Seg<T> empty_seg() { return {-1, -1, -INFINITY}; }
 
 // a then b: b's maximum carries a's only when b is one target that a ends in
-__device__ __forceinline__ Seg combine(Seg a, Seg b) {
+template <typename T>
+__device__ __forceinline__ Seg<T> combine(Seg<T> a, Seg<T> b) {
   if (a.first < 0) return b;
   if (b.first < 0) return a;
   const bool joined = b.first == b.last && a.last == b.first;
-  return {a.first, b.last, joined ? fmaxf(a.v, b.v) : b.v};
+  return {a.first, b.last, joined ? vmax(a.v, b.v) : b.v};
 }
 
-__device__ __forceinline__ Seg shfl_up(Seg x, int d) {
+template <typename T>
+__device__ __forceinline__ Seg<T> shfl_up(Seg<T> x, int d) {
   return {__shfl_up_sync(0xffffffffu, x.first, d),
           __shfl_up_sync(0xffffffffu, x.last, d),
           __shfl_up_sync(0xffffffffu, x.v, d)};
 }
 
-__device__ __forceinline__ Seg shfl(Seg x, int lane) {
+template <typename T>
+__device__ __forceinline__ Seg<T> shfl(Seg<T> x, int lane) {
   return {__shfl_sync(0xffffffffu, x.first, lane), __shfl_sync(0xffffffffu, x.last, lane),
           __shfl_sync(0xffffffffu, x.v, lane)};
 }
 
 // inclusive scan over the first `width` lanes of a warp
-__device__ __forceinline__ Seg warp_scan(Seg x, int lane, int width = 32) {
+template <typename T>
+__device__ __forceinline__ Seg<T> warp_scan(Seg<T> x, int lane, int width = 32) {
   for (int d = 1; d < width; d <<= 1) {
-    const Seg o = shfl_up(x, d);
+    const Seg<T> o = shfl_up(x, d);
     if (lane >= d) x = combine(o, x);
   }
   return x;
@@ -262,15 +301,16 @@ struct Grid {
 
 // Shared memory of the column loop: the warps' and the CTA's summaries and
 // argmax candidates, and each thread's last cell (M, I, D) of the column.
+template <typename T>
 struct Column {
-  Seg warp_sum[kMaxWarps];
-  Seg warp_carry[kMaxWarps];
-  float warp_bv[kMaxWarps];
+  Seg<T> warp_sum[kMaxWarps];
+  Seg<T> warp_carry[kMaxWarps];
+  T warp_bv[kMaxWarps];
   int warp_bi[kMaxWarps];
-  Seg cta_sum;
-  float cta_bv;
+  Seg<T> cta_sum;
+  T cta_bv;
   int cta_bi;
-  float edge[3][kMaxThreads];
+  T edge[3][kMaxThreads];
 };
 
 // The lanes the CTA-level and cluster-level passes span, and the threads'
@@ -305,13 +345,13 @@ __device__ __forceinline__ Layout layout(cg::cluster_group& cluster) {
 // publishes the cluster's summary, passes the grid barrier of column `col`
 // and has every warp compose the G clusters' summaries, lane r a run of
 // ceil(G / 32) of them.
-template <bool GRID>
-__device__ __forceinline__ Seg reduce_column(cg::cluster_group& cluster, Column& sh,
-                                             const Layout& y, Seg mine, float bv, int bi,
-                                             float& max_r, int& best, const Grid& gr, int col) {
-  const Seg incl = warp_scan(mine, y.lane);
-  Seg excl = shfl_up(incl, 1);
-  if (y.lane == 0) excl = empty_seg();
+template <typename T, bool GRID>
+__device__ __forceinline__ Seg<T> reduce_column(cg::cluster_group& cluster, Column<T>& sh,
+                                                const Layout& y, Seg<T> mine, T bv, int bi,
+                                                T& max_r, int& best, const Grid& gr, int col) {
+  const Seg<T> incl = warp_scan(mine, y.lane);
+  Seg<T> excl = shfl_up(incl, 1);
+  if (y.lane == 0) excl = empty_seg<T>();
   warp_best(bv, bi);
   if (y.lane == 31) sh.warp_sum[y.warp] = incl;
   if (y.lane == 0) {
@@ -320,13 +360,13 @@ __device__ __forceinline__ Seg reduce_column(cg::cluster_group& cluster, Column&
   }
   __syncthreads();
   if (y.warp == 0) {
-    const Seg x = warp_scan(y.lane < y.nwarps ? sh.warp_sum[y.lane] : empty_seg(), y.lane,
-                            y.wpow2);
-    Seg before = shfl_up(x, 1);
-    if (y.lane == 0) before = empty_seg();
+    const Seg<T> x = warp_scan(y.lane < y.nwarps ? sh.warp_sum[y.lane] : empty_seg<T>(),
+                               y.lane, y.wpow2);
+    Seg<T> before = shfl_up(x, 1);
+    if (y.lane == 0) before = empty_seg<T>();
     if (y.lane < y.nwarps) sh.warp_carry[y.lane] = before;
     if (y.lane == y.nwarps - 1) sh.cta_sum = x;
-    float v = y.lane < y.nwarps ? sh.warp_bv[y.lane] : -INFINITY;
+    T v = y.lane < y.nwarps ? sh.warp_bv[y.lane] : -INFINITY;
     int idx = y.lane < y.nwarps ? sh.warp_bi[y.lane] : 0x7fffffff;
     warp_best(v, idx, y.wpow2);
     if (y.lane == 0) {
@@ -336,8 +376,8 @@ __device__ __forceinline__ Seg reduce_column(cg::cluster_group& cluster, Column&
   }
   cluster_barrier(y.warp == 0);
 
-  Seg x = empty_seg();
-  float v = -INFINITY;
+  Seg<T> x = empty_seg<T>();
+  T v = -INFINITY;
   int idx = 0x7fffffff;
   if (y.lane < y.K) {
     x = *cluster.map_shared_rank(&sh.cta_sum, y.lane);
@@ -351,14 +391,14 @@ __device__ __forceinline__ Seg reduce_column(cg::cluster_group& cluster, Column&
   max_r = v;
   best = idx;
   // the summary of every CTA before this one
-  Seg prev_ctas = {__shfl_sync(0xffffffffu, x.first, max(y.rank - 1, 0)),
-                   __shfl_sync(0xffffffffu, x.last, max(y.rank - 1, 0)),
-                   __shfl_sync(0xffffffffu, x.v, max(y.rank - 1, 0))};
-  if (y.rank == 0) prev_ctas = empty_seg();
+  Seg<T> prev_ctas = {__shfl_sync(0xffffffffu, x.first, max(y.rank - 1, 0)),
+                      __shfl_sync(0xffffffffu, x.last, max(y.rank - 1, 0)),
+                      __shfl_sync(0xffffffffu, x.v, max(y.rank - 1, 0))};
+  if (y.rank == 0) prev_ctas = empty_seg<T>();
   if constexpr (GRID) {
     const int par = (col & 1) * gr.G;
     if (y.rank == 0 && y.warp == 0) {
-      const Seg total = shfl(x, y.K - 1);
+      const Seg<T> total = shfl(x, y.K - 1);
       if (y.lane == 0) {
         gr.sum[par + gr.cid] =
             make_int4(total.first, total.last, __float_as_int(total.v), __float_as_int(v));
@@ -369,14 +409,14 @@ __device__ __forceinline__ Seg reduce_column(cg::cluster_group& cluster, Column&
     if (y.tid == 0) spin_until(gr.count, (unsigned)col * (unsigned)gr.G);
     __syncthreads();
     const int per = (gr.G + 31) >> 5;
-    Seg s = empty_seg();
-    float cv = -INFINITY;
+    Seg<T> s = empty_seg<T>();
+    T cv = -INFINITY;
     int ci = 0x7fffffff;
     for (int k = 0; k < per; ++k) {
       const int c = y.lane * per + k;
       if (c < gr.G) {
         const int4 r = __ldcg(&gr.sum[par + c]);
-        if (c < gr.cid) s = combine(s, {r.x, r.y, __int_as_float(r.z)});
+        if (c < gr.cid) s = combine(s, Seg<T>{r.x, r.y, __int_as_float(r.z)});
         take_better(cv, ci, __int_as_float(r.w), __ldcg(&gr.arg[par + c]));
       }
     }
@@ -394,11 +434,10 @@ __device__ __forceinline__ Seg reduce_column(cg::cluster_group& cluster, Column&
 // across a CTA edge) into left_*; thread 0 of CTA 0 keeps its own.  In the
 // wide form the cluster's last thread also publishes its cell to the next
 // cluster's edge slot, whose first thread waits for it.
-template <bool GRID>
-__device__ __forceinline__ void exchange_edges(cg::cluster_group& cluster, Column& sh,
-                                               const Layout& y, float m, float i, float d,
-                                               float& left_m, float& left_i, float& left_d,
-                                               const Grid& gr, int col) {
+template <typename T, bool GRID>
+__device__ __forceinline__ void exchange_edges(cg::cluster_group& cluster, Column<T>& sh,
+                                               const Layout& y, T m, T i, T d, T& left_m,
+                                               T& left_i, T& left_d, const Grid& gr, int col) {
   sh.edge[0][y.tid] = m;
   sh.edge[1][y.tid] = i;
   sh.edge[2][y.tid] = d;
@@ -432,16 +471,33 @@ __device__ __forceinline__ void exchange_edges(cg::cluster_group& cluster, Colum
   }
 }
 
+// The head of a launch's output before its cells: n and max_r's bits, then
+// (the exact form) a word of padding so that the double's two words follow
+// on an 8-byte boundary.
+template <typename T>
+constexpr int kOutHead = std::is_same<T, double>::value ? 4 : 2;
+
+__device__ __forceinline__ void store_max_r(int* out, float max_r) {
+  out[1] = __float_as_int(max_r);
+}
+
+__device__ __forceinline__ void store_max_r(int* out, double max_r) {
+  out[1] = 0;
+  out[2] = __double2loint(max_r);
+  out[3] = __double2hiint(max_r);
+}
+
 // The traceback (one thread), the while_loop of _tesserae_traceback with
 // each packed word rebuilt from its byte code: a flat cell f's byte of
 // column pt is codes[pt * npad + f].
+template <typename T>
 __device__ void walk_path(const unsigned char* codes, int npad, const long long* rec,
-                          int L, int S, int W, int best, float max_r, int* out, int cap) {
+                          int L, int S, int W, int best, T max_r, int* out, int cap) {
   const int two_w = 2 * W;
   const int who = best / two_w + 1;
   const int cst = (best % two_w) % 2 == 0 ? kM : kI;
   const int pos = (best % two_w) / 2;
-  int* cells = out + 2;
+  int* cells = out + kOutHead<T>;
   cells[0] = who;
   cells[1] = cst;
   cells[2] = pos;
@@ -478,7 +534,7 @@ __device__ void walk_path(const unsigned char* codes, int npad, const long long*
     p_ = pn;
   }
   out[0] = n;
-  out[1] = __float_as_int(max_r);
+  store_max_r(out, max_r);
 }
 
 // the column's recombination word, from its argmax
@@ -487,25 +543,30 @@ __device__ __forceinline__ long long rec_word(int best, int W) {
   return pack(best / two_w + 1, (best % two_w) % 2 == 0 ? kM : kI, (best % two_w) / 2);
 }
 
-// Both forms: GRID false is the register form (one cluster, C <= W, so a
+// Every form: GRID false is the register form (one cluster, C <= W, so a
 // thread's run meets at most one target boundary), GRID true the wide form
 // (a grid of clusters; a run may cross any number of targets, so a cell's
 // position steps a cell at a time).  The per-cell arithmetic is the same
-// lines in the same order in both.
-template <int C, bool GRID>
+// lines in the same order in both.  T is the value type: float for both
+// float32 forms, double for the exact form (the register form in float64:
+// its parameters the oracle's doubles, its delete term two roundings, every
+// other line the float32 forms' own, so that each sum, comparison and tie
+// falls as in the numpy oracle and max_r and the path equal its own).
+template <typename T, int C, bool GRID>
 __global__ void __launch_bounds__(GRID ? kWideThreads : kMaxThreads, GRID ? kWideBlocks : 1)
 tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
                 const unsigned char* __restrict__ valid,
-                const float* __restrict__ params, int L, int S, int W, int npad,
+                const T* __restrict__ params, int L, int S, int W, int npad,
                 unsigned char* __restrict__ codes, long long* __restrict__ rec,
                 int* __restrict__ out, int cap, int4* __restrict__ scratch) {
   static_assert(C == 1 || C == 2 || C == 4 || C == 8 || C == 16, "C: 1..16, a power of two");
-  __shared__ float prm[kNumParams];
-  __shared__ Column sh;
+  static_assert(!GRID || std::is_same<T, float>::value, "the wide form is float32 only");
+  __shared__ T prm[kNumParams];
+  __shared__ Column<T> sh;
 
   cg::cluster_group cluster = cg::this_cluster();
   const Layout y = layout(cluster);
-  const int rank = y.rank, T = y.T, tid = y.tid;
+  const int rank = y.rank, nt = y.T, tid = y.tid;
   Grid gr = {0, 1, nullptr, nullptr, nullptr, nullptr};
   if constexpr (GRID) {
     gr.G = (int)gridDim.x / y.K;
@@ -517,17 +578,17 @@ tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
   }
   // the thread that writes the recombination words and walks the path
   const bool lead = gr.cid == 0 && rank == 0 && tid == 0;
-  for (int x = tid; x < kNumParams; x += T) prm[x] = params[x];
+  for (int x = tid; x < kNumParams; x += nt) prm[x] = params[x];
   __syncthreads();
-  const float ldel = prm[0], leps = prm[1], lrho = prm[2], lpiM = prm[3],
-              lpiI = prm[4], lmm = prm[5], lgm = prm[6], ldm = prm[7],
-              lsize_l = prm[8];
-  const float* lsm = prm + 9;   // [5][5]
-  const float* lsi = prm + 34;  // [5]
+  const T ldel = prm[0], leps = prm[1], lrho = prm[2], lpiM = prm[3],
+          lpiI = prm[4], lmm = prm[5], lgm = prm[6], ldm = prm[7],
+          lsize_l = prm[8];
+  const T* lsm = prm + 9;   // [5][5]
+  const T* lsi = prm + 34;  // [5]
 
   // this thread's cells: flat f0 .. f0 + C - 1 of N = S * W
   const int N = S * W;
-  const int f0 = ((gr.cid * y.K + rank) * T + tid) * C;
+  const int f0 = ((gr.cid * y.K + rank) * nt + tid) * C;
   const int s0 = f0 / W, j0 = f0 % W;
   unsigned vbits = 0;              // cell i valid: j >= 1 and valid[s][j-1]
   unsigned long long tbits = 0;    // cell i's target code, 4 bits a cell
@@ -555,32 +616,32 @@ tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
     }
   }
 
-  float vm[C], vi[C], vd[C];
+  T vm[C], vi[C], vd[C];
 #pragma unroll
-  for (int i = 0; i < C; ++i) vm[i] = vi[i] = vd[i] = kSmall;
+  for (int i = 0; i < C; ++i) vm[i] = vi[i] = vd[i] = kSmall<T>;
   // the left neighbour's last cell of the previous column
-  float left_m = kSmall, left_i = kSmall, left_d = kSmall;
+  T left_m = kSmall<T>, left_i = kSmall<T>, left_d = kSmall<T>;
   // column argmax carried into the next column (identical in every thread)
-  float max_r = 0.0f;
+  T max_r = 0;
   int best = 0;
 
   for (int col = 1; col <= L; ++col) {
     const int qc = q[col - 1];
     const bool first = col == 1;
     const int min_j = first ? 1 : 2;
-    const float recomb = ((max_r + lrho) + lpiM) - lsize_l;
-    const float recomb_i = ((max_r + lrho) + lpiI) - lsize_l;
-    const float* em = lsm + qc * 5;
-    const float emi = lsi[qc];
+    const T recomb = ((max_r + lrho) + lpiM) - lsize_l;
+    const T recomb_i = ((max_r + lrho) + lpiI) - lsize_l;
+    const T* em = lsm + qc * 5;
+    const T emi = lsi[qc];
     unsigned w[(C + 3) / 4];
 #pragma unroll
     for (int x = 0; x < (C + 3) / 4; ++x) w[x] = 0;
 
     // ---- A. M and I, the delete-scan input's maximum, the argmax candidate
-    float bv = -INFINITY;
+    T bv = -INFINITY;
     int bi = 0x7fffffff;
-    float pm_l = left_m, pi_l = left_i, pd_l = left_d;  // previous column, j-1
-    Seg mine = empty_seg();
+    T pm_l = left_m, pi_l = left_i, pd_l = left_d;  // previous column, j-1
+    Seg<T> mine = empty_seg<T>();
     {
       int s = s0, j = j0;
 #pragma unroll
@@ -593,30 +654,30 @@ tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
           }
           const bool ok = (vbits >> i) & 1u;
           const int t = (int)((tbits >> (4 * i)) & 15);
-          const float om = vm[i], oi = vi[i];
-          float m, v;
+          const T om = vm[i], oi = vi[i];
+          T m, v;
           if (first) {
-            m = ok ? (lpiM - lsize_l) + em[t] : kSmall;
-            v = ok ? (lpiI - lsize_l) + emi : kSmall;
+            m = ok ? (lpiM - lsize_l) + em[t] : kSmall<T>;
+            v = ok ? (lpiI - lsize_l) + emi : kSmall<T>;
           } else {
             // local M: (M, I, D) at (j-1, previous column), first max wins
-            const float c0 = (j >= 1 ? pm_l : kSmall) + lmm;
-            const float c1 = (j >= 1 ? pi_l : kSmall) + lgm;
-            const float c2 = (j >= 1 ? pd_l : kSmall) + ldm;
-            float lval = c0;
+            const T c0 = (j >= 1 ? pm_l : kSmall<T>) + lmm;
+            const T c1 = (j >= 1 ? pi_l : kSmall<T>) + lgm;
+            const T c2 = (j >= 1 ? pd_l : kSmall<T>) + ldm;
+            T lval = c0;
             int larg = 0;
             if (c1 > lval) { lval = c1; larg = 1; }
             if (c2 > lval) { lval = c2; larg = 2; }
             const bool use_local = lval > recomb;
             m = use_local ? lval : recomb;
-            m = (j == 0) ? kSmall : (ok ? m + em[t] : kSmall);
+            m = (j == 0) ? kSmall<T> : (ok ? m + em[t] : kSmall<T>);
             // I: (M, I) at (j, previous column)
-            const float i0 = om + ldel, i1 = oi + leps;
+            const T i0 = om + ldel, i1 = oi + leps;
             const int iarg = (i1 > i0) ? 1 : 0;
-            const float ival = iarg ? i1 : i0;
+            const T ival = iarg ? i1 : i0;
             const bool use_i = ival > recomb_i;
             v = use_i ? ival : recomb_i;
-            v = (j == 0) ? kSmall : (ok ? v + emi : kSmall);
+            v = (j == 0) ? kSmall<T> : (ok ? v + emi : kSmall<T>);
             const unsigned code = (use_local ? (unsigned)(larg + 1) : 0u) |
                                   ((use_i ? (unsigned)(iarg + 1) : 0u) << 2);
             w[i / 4] |= code << (8 * (i % 4));
@@ -628,29 +689,29 @@ tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
           vi[i] = v;
           // a thread meets its candidates in increasing flat index (M before
           // I), so a strictly larger value is the only way to replace one
-          const float cm = ok ? m : kSmall, ci = ok ? v : kSmall;
+          const T cm = ok ? m : kSmall<T>, ci = ok ? v : kSmall<T>;
           const bool take_i = ci > cm;
-          const float cv = take_i ? ci : cm;
+          const T cv = take_i ? ci : cm;
           if (cv > bv) {
             bv = cv;
             bi = 2 * (f0 + i) + (take_i ? 1 : 0);
           }
-          const float adj = (j >= min_j - 1) ? m - leps * (float)j : kSmall;
+          const T adj = (j >= min_j - 1) ? m - leps * (T)j : kSmall<T>;
           if (mine.first < 0) mine.first = s;
           if (s != mine.last) { mine.last = s; mine.v = -INFINITY; }
-          mine.v = fmaxf(mine.v, adj);
+          mine.v = vmax(mine.v, adj);
           if constexpr (GRID) {
             if (++j == W) { j = 0; ++s; }
           }
         }
       }
     }
-    const Seg excl = reduce_column<GRID>(cluster, sh, y, mine, bv, bi, max_r, best, gr, col);
+    const Seg<T> excl = reduce_column<T, GRID>(cluster, sh, y, mine, bv, bi, max_r, best, gr, col);
 
     // ---- B. delete state vd[j] = ldel + leps*(j-1) + max_{t<j} adj[t] and
     // its branch (M if nvm[j-1] + ldel >= vd[j-1] + leps)
     {
-      float run = (excl.first >= 0 && excl.last == s0) ? excl.v : -INFINITY;
+      T run = (excl.first >= 0 && excl.last == s0) ? excl.v : -INFINITY;
       int j = j0;
 #pragma unroll
       for (int i = 0; i < C; ++i) {
@@ -659,15 +720,15 @@ tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
             j = j0 + i;
             if (j >= W) j -= W;
           }
-          const float m = vm[i];
-          const float adj = (j >= min_j - 1) ? m - leps * (float)j : kSmall;
+          const T m = vm[i];
+          const T adj = (j >= min_j - 1) ? m - leps * (T)j : kSmall<T>;
           if (j == 0) run = -INFINITY;
-          const float run_prev = (j == 0) ? kSmall : run;
-          const float d = (j >= min_j) ? delete_term(ldel, leps, j) + run_prev : kSmall;
-          run = fmaxf(run, adj);
+          const T run_prev = (j == 0) ? kSmall<T> : run;
+          const T d = (j >= min_j) ? delete_term(ldel, leps, j) + run_prev : kSmall<T>;
+          run = vmax(run, adj);
           if (i > 0) {
-            const float mb = (j == 0 ? kSmall : vm[i > 0 ? i - 1 : 0]) + ldel;
-            const float db = (j == 0 ? kSmall : vd[i > 0 ? i - 1 : 0]) + leps;
+            const T mb = (j == 0 ? kSmall<T> : vm[i > 0 ? i - 1 : 0]) + ldel;
+            const T db = (j == 0 ? kSmall<T> : vd[i > 0 ? i - 1 : 0]) + leps;
             if (!(mb >= db)) w[i / 4] |= 16u << (8 * (i % 4));
           }
           vd[i] = d;
@@ -677,11 +738,11 @@ tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
         }
       }
     }
-    exchange_edges<GRID>(cluster, sh, y, vm[C - 1], vi[C - 1], vd[C - 1], left_m, left_i,
+    exchange_edges<T, GRID>(cluster, sh, y, vm[C - 1], vi[C - 1], vd[C - 1], left_m, left_i,
                          left_d, gr, col);
     if (ncells > 0) {
-      const float mb = (j0 == 0 ? kSmall : left_m) + ldel;
-      const float db = (j0 == 0 ? kSmall : left_d) + leps;
+      const T mb = (j0 == 0 ? kSmall<T> : left_m) + ldel;
+      const T db = (j0 == 0 ? kSmall<T> : left_d) + leps;
       if (!(mb >= db)) w[0] |= 16u;
       store_codes<C>(codes + (size_t)col * npad + f0, w);
     }
@@ -702,28 +763,45 @@ tesserae_kernel(const int* __restrict__ q, const int* __restrict__ t_codes,
 }
 
 // the kernel of each form for `cells` a thread (null: not one it takes)
-using TesseraeFn = void (*)(const int*, const int*, const unsigned char*, const float*, int, int,
+template <typename T>
+using TesseraeFn = void (*)(const int*, const int*, const unsigned char*, const T*, int, int,
                             int, int, unsigned char*, long long*, int*, int, int4*);
 
-TesseraeFn register_kernel(int cells) {
+// The most cells a thread of the register form in each value type: 16 in
+// float32; in float64 the most that compile without spills under the 128
+// registers of 512 threads (three doubles a cell, two registers each): 4, at
+// 128 registers, where 8 spill 216 bytes (H100).  tesserae_torch.py's
+// EXACT_CELLS_PER_THREAD is the float64 value; ctk_tesserae_f64_info refuses
+// past it, which the card's tests check
+template <typename T>
+constexpr int kRegisterCells = std::is_same<T, double>::value ? 4 : 16;
+
+template <typename T>
+TesseraeFn<T> register_kernel(int cells) {
+  if (cells > kRegisterCells<T>) return nullptr;
   switch (cells) {
-    case 1: return tesserae_kernel<1, false>;
-    case 2: return tesserae_kernel<2, false>;
-    case 4: return tesserae_kernel<4, false>;
-    case 8: return tesserae_kernel<8, false>;
-    case 16: return tesserae_kernel<16, false>;
+    case 1: return tesserae_kernel<T, 1, false>;
+    case 2: return tesserae_kernel<T, 2, false>;
+    case 4: return tesserae_kernel<T, 4, false>;
+    case 8:
+      if constexpr (kRegisterCells<T> >= 8) return tesserae_kernel<T, 8, false>;
+      return nullptr;
+    case 16:
+      if constexpr (kRegisterCells<T> >= 16) return tesserae_kernel<T, 16, false>;
+      return nullptr;
     default: return nullptr;
   }
 }
 
-TesseraeFn wide_kernel(int cells) {
+TesseraeFn<float> wide_kernel(int cells) {
   if (cells != kWideCells) return nullptr;
-  return tesserae_kernel<kWideCells, true>;
+  return tesserae_kernel<float, kWideCells, true>;
 }
 
 // a launch configuration of `clusters` clusters of `cluster` CTAs of
 // `threads` threads on `stream` (above 8 CTAs the cluster is non-portable)
-cudaError_t cluster_config(TesseraeFn kernel, int clusters, int cluster, int threads,
+template <typename T>
+cudaError_t cluster_config(TesseraeFn<T> kernel, int clusters, int cluster, int threads,
                            cudaStream_t stream, cudaLaunchConfig_t& cfg,
                            cudaLaunchAttribute& attr) {
   if (cluster > 8) {
@@ -746,7 +824,7 @@ cudaError_t cluster_config(TesseraeFn kernel, int clusters, int cluster, int thr
 }
 
 // the clusters of this shape that the card holds at once (0 on an error)
-int max_clusters(TesseraeFn kernel, int cluster, int threads) {
+int max_clusters(TesseraeFn<float> kernel, int cluster, int threads) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   int n = 0;
@@ -756,8 +834,22 @@ int max_clusters(TesseraeFn kernel, int cluster, int threads) {
   return n;
 }
 
-int launch(TesseraeFn kernel, int clusters, int cluster, int threads, cudaStream_t stream,
-           const int* q, const int* t_codes, const unsigned char* valid, const float* params,
+// a kernel's registers and local (spilled) bytes a thread and static shared
+// bytes a CTA into out[0], out[1] and out[2]
+template <typename T>
+cudaError_t kernel_attributes(TesseraeFn<T> kernel, int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)attr.sharedSizeBytes;
+  return cudaSuccess;
+}
+
+template <typename T>
+int launch(TesseraeFn<T> kernel, int clusters, int cluster, int threads, cudaStream_t stream,
+           const int* q, const int* t_codes, const unsigned char* valid, const T* params,
            int L, int S, int W, int npad, unsigned char* codes, long long* rec, int* out,
            int cap, int4* scratch) {
   cudaLaunchConfig_t cfg;
@@ -779,6 +871,19 @@ bool bad_shape(int L, int S, int W, int cells, int clusters, int cluster, int th
          (long long)clusters * cluster * threads * cells < n;
 }
 
+// the register form in value type T: one cluster
+template <typename T>
+int register_launch(const int* q, const int* t_codes, const unsigned char* valid,
+                    const T* params, int L, int S, int W, int cells, int cluster, int threads,
+                    unsigned char* codes, int npad, long long* rec, int* out, int cap,
+                    cudaStream_t stream) {
+  const TesseraeFn<T> kernel = register_kernel<T>(cells);
+  if (!kernel || bad_shape(L, S, W, cells, 1, cluster, threads, npad, cap) || cells > W)
+    return (int)cudaErrorInvalidValue;
+  return launch(kernel, 1, cluster, threads, stream, q, t_codes, valid, params, L, S, W, npad,
+                codes, rec, out, cap, nullptr);
+}
+
 }  // namespace
 
 // One section: `cluster` CTAs of `threads` threads, `cells` cells a thread
@@ -789,11 +894,22 @@ extern "C" int ctk_tesserae(const int* q, const int* t_codes,
                             int L, int S, int W, int cells, int cluster,
                             int threads, unsigned char* codes, int npad,
                             long long* rec, int* out, int cap, cudaStream_t stream) {
-  const TesseraeFn kernel = register_kernel(cells);
-  if (!kernel || bad_shape(L, S, W, cells, 1, cluster, threads, npad, cap) || cells > W)
-    return (int)cudaErrorInvalidValue;
-  return launch(kernel, 1, cluster, threads, stream, q, t_codes, valid, params, L, S, W, npad,
-                codes, rec, out, cap, nullptr);
+  return register_launch(q, t_codes, valid, params, L, S, W, cells, cluster, threads, codes,
+                         npad, rec, out, cap, stream);
+}
+
+// The exact form: ctk_tesserae in float64, for the sections that
+// TesseraeDevice.align's budget gate sends to the numpy oracle.  params are
+// the oracle's 9 + 25 + 5 doubles; `cells` a power of two up to
+// kRegisterCells<double>; out int32[4 + 3*cap]: n, a padding word, max_r as
+// a double, then the cells.
+extern "C" int ctk_tesserae_f64(const int* q, const int* t_codes,
+                                const unsigned char* valid, const double* params,
+                                int L, int S, int W, int cells, int cluster,
+                                int threads, unsigned char* codes, int npad,
+                                long long* rec, int* out, int cap, cudaStream_t stream) {
+  return register_launch(q, t_codes, valid, params, L, S, W, cells, cluster, threads, codes,
+                         npad, rec, out, cap, stream);
 }
 
 // The wide form of ctk_tesserae: `clusters` clusters of `cluster` CTAs of
@@ -809,7 +925,7 @@ extern "C" int ctk_tesserae_wide(const int* q, const int* t_codes,
                                  int threads, unsigned char* codes, int npad,
                                  long long* rec, int* scratch, int* out, int cap,
                                  cudaStream_t stream) {
-  const TesseraeFn kernel = wide_kernel(cells);
+  const TesseraeFn<float> kernel = wide_kernel(cells);
   if (!kernel || threads > kWideThreads ||
       bad_shape(L, S, W, cells, clusters, cluster, threads, npad, cap) ||
       reinterpret_cast<uintptr_t>(scratch) % 16)
@@ -829,18 +945,28 @@ extern "C" int ctk_tesserae_wide_scratch(int clusters) {
 // a thread, out[2] the clusters the card holds at once, out[3] static shared
 // bytes a CTA.
 extern "C" int ctk_tesserae_wide_info(int cells, int cluster, int threads, int* out) {
-  const TesseraeFn kernel = wide_kernel(cells);
+  const TesseraeFn<float> kernel = wide_kernel(cells);
   if (!kernel || threads < 32 || threads > kWideThreads || threads % 32 || cluster < 1 ||
       cluster > kMaxCluster)
     return (int)cudaErrorInvalidValue;
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  int attrs[3];
+  const cudaError_t err = kernel_attributes(kernel, attrs);
   if (err != cudaSuccess) return (int)err;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
+  out[0] = attrs[0];
+  out[1] = attrs[1];
   out[2] = max_clusters(kernel, cluster, threads);
-  out[3] = (int)attr.sharedSizeBytes;
+  out[3] = attrs[2];
   return (int)cudaGetLastError();
+}
+
+// ctk_tesserae_f64's kernel for `cells` a thread (invalid past
+// kRegisterCells<double>): out[0] registers a thread, out[1] local (spilled)
+// bytes a thread, out[2] static shared bytes a CTA.
+extern "C" int ctk_tesserae_f64_info(int cells, int* out) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (const TesseraeFn<double> kernel = register_kernel<double>(cells))
+    err = kernel_attributes(kernel, out);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // The delete term of ctk_tesserae for j = 0 .. W-1 (out float32[W]), from

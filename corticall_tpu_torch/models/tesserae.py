@@ -11,12 +11,16 @@ numpy arrays instead of scalar triple loops, and the delete-state recurrence
 with a running maximum.
 
 The device version lives in ops/tesserae_torch.py and is validated
-against this oracle at segment level.
+against this oracle at segment level; its exact form (ctk_tesserae_f64, for
+the sections the device's budget gate sends here) computes this oracle's
+operations in float64 on the card and takes its parameters from
+`hmm_params`, so that both round them alike.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 
@@ -38,6 +42,32 @@ EMISS_MATCH_NT = np.array([
 ])
 
 M, I, D = 1, 2, 3
+
+
+class HmmParams(NamedTuple):
+    """The model's log parameters, in float64."""
+    ldel: float
+    leps: float
+    lrho: float
+    lterm: float
+    lpiM: float
+    lpiI: float
+    lmm: float
+    lgm: float
+    ldm: float
+    lsm: np.ndarray           # [5, 5] log match emissions
+    lsi: np.ndarray           # [5] log gap emissions
+
+
+def hmm_params(del_: float, eps: float, rho: float, term: float) -> HmmParams:
+    """The log parameters the oracle aligns with, for the oracle and for the
+    device's exact form alike."""
+    pi_m = 0.75
+    return HmmParams(
+        ldel=math.log(del_), leps=math.log(eps), lrho=math.log(rho), lterm=math.log(term),
+        lpiM=math.log(pi_m), lpiI=math.log(1 - pi_m),
+        lmm=math.log(1 - 2 * del_ - rho - term), lgm=math.log(1 - eps - rho - term),
+        ldm=math.log(1 - eps), lsm=np.log(EMISS_MATCH_NT), lsi=np.log(EMISS_GAP_NT))
 
 # The packed traceback word is who << 25 | state << 23 | pos.  The reference
 # keeps it in int32, where `who` has bits 25-30: up to INT32_TARGETS targets.
@@ -76,18 +106,8 @@ class Tesserae:
         entry 0 is the query track, subsequent entries are the mosaic source
         segments in query order (Tesserae.java:95-103, 386-494).
         """
-        ldel = math.log(self.del_)
-        leps = math.log(self.eps)
-        lrho = math.log(self.rho)
-        lterm = math.log(self.term)
-        pi_m = 0.75
-        lpiM = math.log(pi_m)
-        lpiI = math.log(1 - pi_m)
-        lmm = math.log(1 - 2 * self.del_ - self.rho - self.term)
-        lgm = math.log(1 - self.eps - self.rho - self.term)
-        ldm = math.log(1 - self.eps)
-        lsm = np.log(EMISS_MATCH_NT)
-        lsi = np.log(EMISS_GAP_NT)
+        ldel, leps, lrho, lterm, lpiM, lpiI, lmm, lgm, ldm, lsm, lsi = hmm_params(
+            self.del_, self.eps, self.rho, self.term)
 
         if not targets or not query:
             raise ValueError("Tesserae.align requires a non-empty query and targets")

@@ -45,6 +45,8 @@ _SIGNATURES = {
                           _P),
     "ctk_tesserae_wide_scratch": (_I,),
     "ctk_tesserae_wide_info": (_I, _I, _I, _P),
+    "ctk_tesserae_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P),
+    "ctk_tesserae_f64_info": (_I, _P),
     "ctk_tesserae_delete_term": (_P, _I, _P, _P),
     "ctk_jump_stage0": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "ctk_jump_compose": (_P, _P, _I, _I, _I, _P),

@@ -21,6 +21,15 @@ over a grid of clusters, every cell's state still in registers), up to
 MAX_WIDE_CELLS, the most that TesseraeDevice's budget gate sends to the
 device (`gate_max_cells`); on the CPU the twin takes any size.
 
+The sections past that gate, which the JAX package aligns with its exact
+host oracle (models/tesserae.py, numpy float64), take the kernel's exact
+form on a CUDA device: the register form instantiated in float64, the
+oracle's parameters and order of operations (its delete term rounded twice,
+where the float32 forms round it once), so that the path and llk equal the
+oracle's.  The twins take float64 parameters for it too.  Past the exact
+form's MAX_CELLS_F64, and on the CPU, those sections stay on the oracle
+(`section_route`).
+
 Shapes are the section's own: query int32[L], targets int32[S, W-1] with a
 bool validity mask, W = longest target + 1.  The JAX package pads to
 power-of-two buckets to bound XLA compiles; padded targets and columns are
@@ -50,6 +59,11 @@ MAX_CLUSTER = 16
 MAX_THREADS = 512
 MAX_CELLS_PER_THREAD = 16
 MAX_CELLS = MAX_CLUSTER * MAX_THREADS * MAX_CELLS_PER_THREAD
+# the exact form (the register form in float64, ctk_tesserae_f64): a double
+# takes two registers, so a thread holds fewer cells without spilling: 4, the
+# most that compile without spills (csrc/tesserae.cu kRegisterCells<double>)
+EXACT_CELLS_PER_THREAD = 4
+MAX_CELLS_F64 = MAX_CLUSTER * MAX_THREADS * EXACT_CELLS_PER_THREAD
 CTA_THREADS = 256             # threads a CTA before the cluster grows
 # the wide form's limit, the budget gate's largest section: 16,384 targets
 # of at most 64 bases (width 65) with a query of at most 64 bases,
@@ -63,27 +77,24 @@ MAX_WIDE_CELLS = 16_384 * 65
 WIDE_CELLS, WIDE_CLUSTER, WIDE_THREADS = 16, 8, 256
 
 # kernel launches (plain integers; chip_smoke.py resets and reads them):
-# every launch, and those of the wide form among them
+# every launch, and those of the wide form and of the exact form among them
 LAUNCHES = 0
 WIDE_LAUNCHES = 0
+EXACT_LAUNCHES = 0
 
 
 def tesserae_params(del_: float, eps: float, rho: float, term: float,
-                    size_l: float, device=None):
-    """(scal f32[9], lsm f32[5,5], lsi f32[5]): the float32 scalars
-    (ldel, leps, lrho, lpiM, lpiI, lmm, lgm, ldm, lsize_l) and log emission
-    tables, rounded from float64 exactly as tesserae_jax.TesseraeDevice
-    builds them."""
-    pi_m = 0.75
-    scal = torch.tensor([
-        math.log(del_), math.log(eps), math.log(rho),
-        math.log(pi_m), math.log(1 - pi_m),
-        math.log(1 - 2 * del_ - rho - term),
-        math.log(1 - eps - rho - term),
-        math.log(1 - eps), math.log(size_l),
-    ], dtype=torch.float32, device=device)
-    lsm = torch.tensor(np.log(tz.EMISS_MATCH_NT), dtype=torch.float32, device=device)
-    lsi = torch.tensor(np.log(tz.EMISS_GAP_NT), dtype=torch.float32, device=device)
+                    size_l: float, device=None, dtype=torch.float32):
+    """(scal [9], lsm [5,5], lsi [5]): the scalars (ldel, leps, lrho, lpiM,
+    lpiI, lmm, lgm, ldm, lsize_l) and log emission tables of the host
+    oracle (models/tesserae.hmm_params, float64), in `dtype`: float32
+    rounds them exactly as tesserae_jax.TesseraeDevice builds them; float64
+    keeps the oracle's own values (the exact form's)."""
+    p = tz.hmm_params(del_, eps, rho, term)
+    scal = torch.tensor([p.ldel, p.leps, p.lrho, p.lpiM, p.lpiI, p.lmm, p.lgm, p.ldm,
+                         math.log(size_l)], dtype=dtype, device=device)
+    lsm = torch.tensor(p.lsm, dtype=dtype, device=device)
+    lsi = torch.tensor(p.lsi, dtype=dtype, device=device)
     return scal, lsm, lsi
 
 
@@ -93,7 +104,12 @@ def _pack(who, state, pos):
 
 def delete_term(ldel: torch.Tensor, leps: torch.Tensor, width: int) -> torch.Tensor:
     """The delete state's constant term ldel + leps * (j - 1) for j < width,
-    float32 [1, W], rounded once as a fused multiply-add rounds it: XLA's CPU
+    [1, W] in the parameters' type.
+
+    In float64 (the exact form) the product and the sum are rounded each,
+    as numpy rounds them in the host oracle's _delete_scan.
+
+    In float32 it is rounded once as a fused multiply-add rounds it: XLA's CPU
     backend contracts tesserae_jax.py:63 into an FMA (jax 0.9.0), and the
     kernel computes it with __fmaf_rn (csrc/tesserae.cu).  The product and
     the sum are taken in float64 and rounded once to float32.  The product
@@ -103,6 +119,9 @@ def delete_term(ldel: torch.Tensor, leps: torch.Tensor, width: int) -> torch.Ten
     its bits span at most 53, which the caller's parameters decide (the
     Caller's span 45 at that width); its rounding error, found by TwoSum,
     must be zero, or this raises rather than round twice."""
+    if ldel.dtype == torch.float64:
+        j = torch.arange(width, dtype=torch.float64, device=ldel.device)
+        return (ldel + leps * (j - 1))[None, :]
     if width > MAX_WIDE_CELLS:
         raise ValueError(f"width {width} over the {MAX_WIDE_CELLS} the kernel takes")
     a = ldel.to(torch.float64)
@@ -121,12 +140,15 @@ def tesserae_scan(q_codes: torch.Tensor, t_codes: torch.Tensor,
                   valid: torch.Tensor, params):
     """Plain twin of tesserae_jax._tesserae_scan (unpadded: q_len = L).
 
-    q_codes int32[L]; t_codes int32[S, W-1]; valid bool[S, W-1].  Returns
-    (tb [3, L+1, S, W] — packed M/I/D traceback words, int32 or int64 by
+    q_codes int32[L]; t_codes int32[S, W-1]; valid bool[S, W-1]; params as
+    tesserae_params gives them, float32 (the JAX package's device DP) or
+    float64 (the host oracle's arithmetic: the exact form).  Returns (tb [3,
+    L+1, S, W] — packed M/I/D traceback words, int32 or int64 by
     tz.word_dtype(S), indexed by query column, column 1's M/I rows zero —
     and the final column's who, state, pos, max_r as 0-dim tensors)."""
     scal, lsm, lsi = params
     ldel, leps, lrho, lpiM, lpiI, lmm, lgm, ldm, lsize_l = scal.unbind()
+    dtype = scal.dtype
     dev = q_codes.device
     l1 = q_codes.shape[0]
     s_count, w1 = t_codes.shape
@@ -134,11 +156,11 @@ def tesserae_scan(q_codes: torch.Tensor, t_codes: torch.Tensor,
     word = _WORD_DTYPE[tz.word_dtype(s_count)]
     seq_ids = torch.arange(1, s_count + 1, dtype=word, device=dev)[:, None]
     jj = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
-    jf = jj.to(torch.float32)
+    jf = jj.to(dtype)
     jpos = torch.clamp_min(jj - 1, 0)
     vmask = torch.cat([torch.zeros((s_count, 1), dtype=torch.bool, device=dev),
                        valid], dim=1)
-    small_col = torch.full((s_count, 1), SMALL, dtype=torch.float32, device=dev)
+    small_col = torch.full((s_count, 1), SMALL, dtype=dtype, device=dev)
     flat_ids = torch.arange(s_count * width * 2, device=dev)
     t_long = t_codes.long()
     dconst = delete_term(ldel, leps, width)
@@ -169,7 +191,7 @@ def tesserae_scan(q_codes: torch.Tensor, t_codes: torch.Tensor,
 
     # column 1
     qc = q_codes[0].long()
-    vm = torch.full((s_count, width), SMALL, dtype=torch.float32, device=dev)
+    vm = torch.full((s_count, width), SMALL, dtype=dtype, device=dev)
     vi = vm.clone()
     vm[:, 1:] = torch.where(valid, lpiM - lsize_l + lsm[qc][t_long], SMALL)
     vi[:, 1:] = torch.where(valid, lpiI - lsize_l + lsi[qc], SMALL)
@@ -242,8 +264,8 @@ def tesserae_traceback(tb: torch.Tensor, who, state, pos):
 
 def tesserae_full(q_codes: torch.Tensor, t_codes: torch.Tensor,
                   valid: torch.Tensor, params):
-    """Plain twin of tesserae_jax._tesserae_full: (max_r f32 0-dim,
-    cells int32[cap, 3], n)."""
+    """Plain twin of tesserae_jax._tesserae_full: (max_r 0-dim in the
+    parameters' type, cells int32[cap, 3], n)."""
     tb, who, state, pos, max_r = tesserae_scan(q_codes, t_codes, valid, params)
     cells, n = tesserae_traceback(tb, who, state, pos)
     return max_r, cells, n
@@ -328,17 +350,19 @@ def decode_traceback(codes: torch.Tensor, rec: torch.Tensor, who, state, pos):
     return out.to(codes.device), len(cells)
 
 
-def kernel_config(s_count: int, width: int):
+def kernel_config(s_count: int, width: int, exact: bool = False):
     """(cells a thread, CTAs in the cluster, threads a CTA) of the register
-    form for a section of S x W cells: at least min(4, W) cells a thread (a
-    power of two, at most W, so a thread meets at most one target boundary),
-    more when the cells would not fit MAX_CLUSTER x MAX_THREADS threads; the
-    cluster doubles while a CTA would hold more than CTA_THREADS threads.
-    Raises for a section over MAX_CELLS cells."""
+    form (`exact`: the exact form, its float64 instantiation) for a section
+    of S x W cells: at least min(4, W) cells a thread (a power of two, at
+    most W, so a thread meets at most one target boundary), more when the
+    cells would not fit MAX_CLUSTER x MAX_THREADS threads; the cluster
+    doubles while a CTA would hold more than CTA_THREADS threads.  Raises for
+    a section over MAX_CELLS cells (MAX_CELLS_F64 for the exact form)."""
     cells = s_count * width
-    if cells > MAX_CELLS:
+    most = MAX_CELLS_F64 if exact else MAX_CELLS
+    if cells > most:
         raise ValueError(f"tesserae section of {s_count} x {width} = {cells} cells: "
-                         f"the cluster kernel holds at most {MAX_CELLS}")
+                         f"the cluster kernel holds at most {most}")
     per = min(4, 1 << (width.bit_length() - 1))
     while -(-cells // per) > MAX_CLUSTER * MAX_THREADS:
         per *= 2
@@ -385,6 +409,19 @@ def wide_kernel_info(device, cells: int, cluster: int, threads: int) -> dict:
     return _WIDE_INFO[key]
 
 
+def exact_kernel_info(device, cells: int) -> dict:
+    """The exact form's kernel (ctk_tesserae_f64) for `cells` a thread on
+    `device`: registers and local (spilled) bytes a thread and static shared
+    bytes a CTA.  Refuses more than EXACT_CELLS_PER_THREAD cells."""
+    import ctypes
+
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(torch.device(device)):
+        err = _kernels.library().ctk_tesserae_f64_info(cells, out)
+    _kernels.check(err, "tesserae_f64_info")
+    return {"registers": out[0], "local_bytes": out[1], "shared_bytes": out[2]}
+
+
 def launch_config(s_count: int, width: int):
     """(wide, *config) that tesserae_fused launches for a section of S x W
     cells: the register form's kernel_config up to MAX_CELLS, the wide
@@ -398,14 +435,15 @@ def tesserae_fused(q_codes: torch.Tensor, t_codes: torch.Tensor,
                    valid: torch.Tensor, params, config=None, wide=None):
     """Tesserae DP + traceback: the plain twin for CPU tensors (any size),
     one launch of csrc/tesserae.cu for CUDA tensors: the register form up to
-    MAX_CELLS cells, the wide form above.  Returns (max_r, cells, n) as
-    tesserae_full does (tensors on the inputs' device on CUDA).  `wide`
+    MAX_CELLS cells, the wide form above; with float64 parameters the exact
+    form (ctk_tesserae_f64, up to MAX_CELLS_F64).  Returns (max_r, cells, n)
+    as tesserae_full does (tensors on the inputs' device on CUDA).  `wide`
     forces a form and `config` its shape, (cells a thread, cluster, threads)
     or the wide form's (cells a thread, clusters, cluster, threads), so that
     the kernel tests can place CTA and cluster edges inside targets and run
     the wide form on small sections.  A wide grid of more clusters than the
     card holds at once raises ValueError: its grid barrier could not open."""
-    global LAUNCHES, WIDE_LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES, EXACT_LAUNCHES
     l1 = q_codes.shape[0]
     s_count, w1 = t_codes.shape
     if l1 < 1 or s_count < 1 or w1 < 1:
@@ -414,14 +452,18 @@ def tesserae_fused(q_codes: torch.Tensor, t_codes: torch.Tensor,
         raise ValueError("valid must have t_codes' shape")
     if q_codes.dtype != torch.int32 or t_codes.dtype != torch.int32:
         raise TypeError("codes must be int32")
+    exact = params[0].dtype == torch.float64
+    if exact and wide:
+        raise ValueError("the exact form is the register form's: it has no wide form")
     if q_codes.device.type == "cpu":
         return tesserae_full(q_codes, t_codes, valid, params)
     if q_codes.device.type != "cuda":
         raise ValueError(f"unsupported device {q_codes.device}")
     width = w1 + 1
     if wide is None:
-        wide = launch_config(s_count, width)[0]
-    shape = config or (wide_config if wide else kernel_config)(s_count, width)
+        wide = not exact and launch_config(s_count, width)[0]
+    shape = config or (wide_config(s_count, width) if wide
+                       else kernel_config(s_count, width, exact))
     dev = q_codes.device
     if wide:
         per, clusters, cluster, threads = shape
@@ -435,13 +477,16 @@ def tesserae_fused(q_codes: torch.Tensor, t_codes: torch.Tensor,
     npad = -(-(s_count * width) // 16) * 16
     scal, lsm, lsi = params
     prm = torch.cat([scal.reshape(-1), lsm.reshape(-1), lsi.reshape(-1)]).to(
-        device=dev, dtype=torch.float32).contiguous()
+        device=dev, dtype=torch.float64 if exact else torch.float32).contiguous()
+    # the head before the cells: n and max_r (the exact form: n, a padding
+    # word and max_r's two words)
+    head = 4 if exact else 2
     q = q_codes.contiguous()
     t = t_codes.to(dev).contiguous()
     vmask = valid.to(device=dev, dtype=torch.uint8).contiguous()
     codes = torch.empty((l1 + 1, npad), dtype=torch.uint8, device=dev)
     rec = torch.empty(l1 + 1, dtype=torch.int64, device=dev)
-    out = torch.empty(2 + 3 * cap, dtype=torch.int32, device=dev)
+    out = torch.empty(head + 3 * cap, dtype=torch.int32, device=dev)
     lib = _kernels.library()
     if wide:
         scratch = torch.zeros(lib.ctk_tesserae_wide_scratch(clusters), dtype=torch.int32,
@@ -452,14 +497,16 @@ def tesserae_fused(q_codes: torch.Tensor, t_codes: torch.Tensor,
                                     scratch.data_ptr(), out.data_ptr(), cap,
                                     _kernels.stream(dev))
     else:
-        err = lib.ctk_tesserae(q.data_ptr(), t.data_ptr(), vmask.data_ptr(),
-                               prm.data_ptr(), l1, s_count, width, per, cluster,
-                               threads, codes.data_ptr(), npad, rec.data_ptr(),
-                               out.data_ptr(), cap, _kernels.stream(dev))
-    _kernels.check(err, "tesserae_wide" if wide else "tesserae")
+        entry = lib.ctk_tesserae_f64 if exact else lib.ctk_tesserae
+        err = entry(q.data_ptr(), t.data_ptr(), vmask.data_ptr(), prm.data_ptr(), l1, s_count,
+                    width, per, cluster, threads, codes.data_ptr(), npad, rec.data_ptr(),
+                    out.data_ptr(), cap, _kernels.stream(dev))
+    _kernels.check(err, "tesserae_wide" if wide else "tesserae_f64" if exact else "tesserae")
     LAUNCHES += 1
     WIDE_LAUNCHES += bool(wide)
-    return out[1:2].view(torch.float32)[0], out[2:].view(cap, 3), out[0]
+    EXACT_LAUNCHES += exact
+    max_r = out[2:4].view(torch.float64)[0] if exact else out[1:2].view(torch.float32)[0]
+    return max_r, out[head:].view(cap, 3), out[0]
 
 
 def delete_term_on_card(params, width: int) -> torch.Tensor:
@@ -478,10 +525,11 @@ def delete_term_on_card(params, width: int) -> torch.Tensor:
     return out
 
 
-def section_inputs(query: str, seqs: list, hmm: tuple, device=None):
+def section_inputs(query: str, seqs: list, hmm: tuple, device=None, dtype=torch.float32):
     """tesserae_fused's arguments for one section on `device`: query codes
     int32[L], target codes int32[S, W-1] (W-1 = longest target), their
-    validity mask, and tesserae_params for hmm = (del_, eps, rho, term)."""
+    validity mask, and tesserae_params in `dtype` for hmm = (del_, eps,
+    rho, term)."""
     t_len = np.array([len(t) for t in seqs], dtype=np.int64)
     maxl = max(1, int(t_len.max()))
     t_codes = np.zeros((len(seqs), maxl), dtype=np.int32)
@@ -491,7 +539,7 @@ def section_inputs(query: str, seqs: list, hmm: tuple, device=None):
     return (torch.from_numpy(tz._seq_codes(query)).to(device),
             torch.from_numpy(t_codes).to(device),
             torch.from_numpy(valid).to(device),
-            tesserae_params(*hmm, float(t_len.sum()), device=device))
+            tesserae_params(*hmm, float(t_len.sum()), device=device, dtype=dtype))
 
 
 def _bucket(n: int, lo: int = 64) -> int:
@@ -525,15 +573,36 @@ def gate_max_cells(budget: int) -> int:
     return most
 
 
+def section_route(device_type: str, query_len: int, target_lens, budget: int) -> str:
+    """Where TesseraeDevice.align runs a section of a query of `query_len`
+    bases against targets of `target_lens` on a device of `device_type`:
+    "register" or "wide", the float32 forms by the section's cells (on the
+    CPU their plain twin); or, past the budget gate (section_bytes over
+    `budget`, the sections that the JAX package sends to its exact host
+    oracle), "exact" on a CUDA device up to MAX_CELLS_F64 cells (the exact
+    form: the oracle's float64 arithmetic on the card) and "host" otherwise
+    (the numpy oracle)."""
+    cells = len(target_lens) * (max(1, max(target_lens)) + 1)
+    if section_bytes(query_len, target_lens) > budget:
+        return "exact" if device_type == "cuda" and cells <= MAX_CELLS_F64 else "host"
+    return "wide" if cells > MAX_CELLS else "register"
+
+
 class TesseraeDevice(tz.Tesserae):
     """Tesserae with the DP and the traceback walk on the device; segment
     reconstruction on the host.  `device` defaults to the CUDA card (and
     RuntimeError without one); "cpu" runs the plain twins.  The class name
-    is what caller/call.py checks to report the device timer sections."""
+    is what caller/call.py checks to report the device timer sections.
+
+    A section goes where section_route sends it: the float32 forms
+    (`device_sections` counts them), or past the budget gate the exact
+    form on a CUDA device (`exact_sections`) or the numpy host oracle
+    (`host_sections`).  The exact form gives the oracle's path and llk."""
 
     # One section's DP + traceback state, estimated on the JAX package's
-    # padded shapes so that the same sections take the exact host oracle and
-    # the VCFs stay equal; re-deriving the budget for the card is for later.
+    # padded shapes, so that the sections the JAX package aligns with its
+    # exact host oracle take the exact arithmetic here too (the exact form
+    # on the card, else the oracle) and the VCFs stay equal.
     HBM_BUDGET_BYTES = 2 << 30
 
     def __init__(self, del_=0.025, eps=0.75, rho=1e-4, term=1e-3, device=None):
@@ -544,6 +613,7 @@ class TesseraeDevice(tz.Tesserae):
         self.compile_s = 0.0
         self.dispatch_s = 0.0
         self.device_sections = 0
+        self.exact_sections = 0
         self.host_sections = 0
 
     def align(self, query: str, targets: dict) -> list:
@@ -553,7 +623,9 @@ class TesseraeDevice(tz.Tesserae):
             t_start = time.perf_counter()
             names = list(targets.keys())
             seqs = [targets[n] for n in names]
-            if section_bytes(len(query), [len(t) for t in seqs]) > self.HBM_BUDGET_BYTES:
+            route = section_route(self.device.type, len(query), [len(t) for t in seqs],
+                                  self.HBM_BUDGET_BYTES)
+            if route == "host":
                 with span("tesserae.host_oracle"):
                     host = tz.Tesserae(self.del_, self.eps, self.rho, self.term)
                     out = host.align(query, targets)
@@ -561,29 +633,42 @@ class TesseraeDevice(tz.Tesserae):
                 self.combined_llk += host.llk
                 self.host_sections += 1
                 return out
-
-            with span("tesserae.pack") as sp:
-                args = section_inputs(query, seqs, (self.del_, self.eps, self.rho, self.term),
-                                      self.device)
-                if sp:
-                    sp.set(bytes=sum(x.nbytes for x in (*args[:3], *args[3])))
-            with span("tesserae.launch"):
-                max_r, cells, n = tesserae_fused(*args)
-            with span("tesserae.wait"):
-                n = int(n)
-            with span("tesserae.fetch"):
-                cells = cells[:n - 1].cpu().tolist()
-                self.llk = float(max_r) + math.log(self.term)
-            self.combined_llk += self.llk
-
-            dt = time.perf_counter() - t_start
-            if self.device_sections:
-                self.dispatch_s += dt
-            else:
-                self.compile_s += dt
+            if route == "exact":
+                with span("tesserae.exact"):
+                    path = self._on_device(query, names, seqs, torch.float64, t_start)
+                self.exact_sections += 1
+                return path
+            path = self._on_device(query, names, seqs, torch.float32, t_start)
             self.device_sections += 1
+            return path
 
-            with span("tesserae.decode"):
-                cells = [tuple(c) for c in cells]
-                cells.reverse()
-                return self._build_path(query, names, seqs, cells)
+    def _on_device(self, query: str, names: list, seqs: list, dtype, t_start: float) -> list:
+        """One section through tesserae_fused on self.device with parameters
+        in `dtype` (float64: the exact form), each step under its span; sets
+        llk (max_r + log(term), as the oracle) and the compile / dispatch
+        timers (the first device section of either form pays the kernels'
+        build)."""
+        with span("tesserae.pack") as sp:
+            args = section_inputs(query, seqs, (self.del_, self.eps, self.rho, self.term),
+                                  self.device, dtype)
+            if sp:
+                sp.set(bytes=sum(x.nbytes for x in (*args[:3], *args[3])))
+        with span("tesserae.launch"):
+            max_r, cells, n = tesserae_fused(*args)
+        with span("tesserae.wait"):
+            n = int(n)
+        with span("tesserae.fetch"):
+            cells = cells[:n - 1].cpu().tolist()
+            self.llk = float(max_r) + math.log(self.term)
+        self.combined_llk += self.llk
+
+        dt = time.perf_counter() - t_start
+        if self.device_sections or self.exact_sections:
+            self.dispatch_s += dt
+        else:
+            self.compile_s += dt
+
+        with span("tesserae.decode"):
+            cells = [tuple(c) for c in cells]
+            cells.reverse()
+            return self._build_path(query, names, seqs, cells)

@@ -255,6 +255,7 @@ def run_pipeline(workdir: str, reads_by_sample: dict, child: str,
                  "contig_aligner": dict(caller.align_stats)}
         if isinstance(caller.ma, TesseraeDevice):
             stats["tesserae"] = {"device_sections": caller.ma.device_sections,
+                                 "exact_sections": caller.ma.exact_sections,
                                  "host_sections": caller.ma.host_sections}
         return variants, stats
     variants = pl.stage(

@@ -11,14 +11,17 @@ OUT_DIR/detail.json, and writes into OUT_DIR:
 
 - result.json: the demo's JSON line, the card's name and power limit, the
   pipeline's Call statistics (call_breakdown, the Tesserae section counts),
-  Partition's route, the kernels' launches (ctk_sw_banded, ctk_tesserae and
-  its wide form), every Tesserae section's targets, cells, route (the
-  register form, the wide form or the host oracle) and seconds, and the
-  host's peak memory;
+  Partition's route, the kernels' launches (ctk_sw_banded, ctk_tesserae,
+  its wide form and its exact form), every Tesserae section's targets,
+  cells, route (tesserae_torch.section_route: the register form, the wide
+  form, the exact form or the host oracle) and seconds, and the host's peak
+  memory;
 - sections.json.gz: every section as Call built it (partition index and
   name, query, target names and sequences) with the path and llk the port
   returned, for holding the port to the JAX package's TesseraeDevice (up
-  to 63 targets) or to the widened host oracle (64 or more) on the CPU;
+  to 63 targets), to the widened host oracle (64 or more) or, for the
+  sections past the budget gate (the exact form's and the host oracle's),
+  to the JAX package's host oracle on the CPU;
 - pipeline.log: the pipeline's progress lines.
 
 Needs a CUDA device, and imports neither jax nor the JAX package.
@@ -55,13 +58,6 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def section_route(query: str, seqs: list, budget: int) -> str:
-    """"host" (the budget gate's numpy oracle), "wide" or "register"."""
-    if tt.section_bytes(len(query), [len(t) for t in seqs]) > budget:
-        return "host"
-    return "wide" if tt.launch_config(len(seqs), max(map(len, seqs)) + 1)[0] else "register"
-
-
 @contextlib.contextmanager
 def recorded(sections: list, runs: list):
     """Record every TesseraeDevice section (with the partition Call was on)
@@ -79,7 +75,8 @@ def recorded(sections: list, runs: list):
 
     def align_recorded(self, query, targets):
         seqs = list(targets.values())
-        route = section_route(query, seqs, self.HBM_BUDGET_BYTES)
+        route = tt.section_route(self.device.type, len(query), [len(t) for t in seqs],
+                                 self.HBM_BUDGET_BYTES)
         if route != "host":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -117,7 +114,7 @@ def main() -> int:
     smi = nvidia_smi()
     os.environ.setdefault("PF_DUMP", os.path.join(out_dir, "detail.json"))
     sections, runs = [], []
-    tsw.LAUNCHES = tt.LAUNCHES = tt.WIDE_LAUNCHES = 0
+    tsw.LAUNCHES = tt.LAUNCHES = tt.WIDE_LAUNCHES = tt.EXACT_LAUNCHES = 0
     line = io.StringIO()
     t0 = time.perf_counter()
     with open(os.path.join(out_dir, "pipeline.log"), "w") as logf, \
@@ -127,7 +124,7 @@ def main() -> int:
     wall_s = time.perf_counter() - t0
     out = json.loads(line.getvalue().strip().splitlines()[-1])
     launches = {"sw_banded": tsw.LAUNCHES, "tesserae": tt.LAUNCHES,
-                "tesserae_wide": tt.WIDE_LAUNCHES}
+                "tesserae_wide": tt.WIDE_LAUNCHES, "tesserae_exact": tt.EXACT_LAUNCHES}
     stats = runs[-1]["stats"]
     by_route = {}
     for s in sections:
@@ -141,6 +138,7 @@ def main() -> int:
         "wall_s": wall_s, "peak_host_memory_mb": peak_memory_mb(),
         "call": stats.get("call", {}), "partition": stats.get("partition", {}),
         "launches": launches, "sections_by_route": by_route,
+        "tesserae_sections": stats.get("call", {}).get("tesserae", {}),
         "largest_section": largest and {k: largest[k] for k in ("partition", "route", "cells")}
         | {"targets": len(largest["names"]), "query": len(largest["query"])},
         "widest_section": widest and {k: widest[k] for k in ("partition", "route", "cells")}
@@ -156,7 +154,8 @@ def main() -> int:
     with gzip.open(os.path.join(out_dir, "sections.json.gz"), "wt") as f:
         json.dump(sections, f)
     print(json.dumps(out))
-    print(json.dumps({k: result[k] for k in ("launches", "sections_by_route", "largest_section",
+    print(json.dumps({k: result[k] for k in ("launches", "sections_by_route",
+                                              "tesserae_sections", "largest_section",
                                               "widest_section", "sections_over_63_targets",
                                               "sections_over_register_cells", "wall_s",
                                               "peak_host_memory_mb")}, default=str))

@@ -192,8 +192,8 @@ HOOKS = [
      "#ifndef ABL_NOSTORE\n      store_codes<C>(codes + (size_t)col * npad + f0, w);\n#endif\n"),
     ("    if (lead) rec[col] = rec_word(best, W);\n",
      "#ifndef ABL_NOSTORE\n    if (lead) rec[col] = rec_word(best, W);\n#endif\n"),
-    ("  if (y.warp == 0) {\n    const Seg x",
-     "#ifdef ABL_NOEXCH\n  if (false) {\n#else\n  if (y.warp == 0) {\n#endif\n    const Seg x"),
+    ("  if (y.warp == 0) {\n    const Seg<T> x",
+     "#ifdef ABL_NOEXCH\n  if (false) {\n#else\n  if (y.warp == 0) {\n#endif\n    const Seg<T> x"),
     ("  if (y.lane < y.K) {\n",
      "#ifdef ABL_NOEXCH\n  if (false) {\n#else\n  if (y.lane < y.K) {\n#endif\n"),
     ("    int bi = 0x7fffffff;\n",
@@ -387,11 +387,12 @@ def ablate_one(index: int) -> None:
 WIDE_CELL_CHOICES = (4, 8, 16)
 SHAPE_HOOKS = [
     ("GRID ? kWideBlocks : 1)", "GRID ? (C >= 16 ? kWideBlocks : C >= 8 ? 4 : 6) : 1)"),
-    ("  if (cells != kWideCells) return nullptr;\n  return tesserae_kernel<kWideCells, true>;\n",
+    ("  if (cells != kWideCells) return nullptr;\n"
+     "  return tesserae_kernel<float, kWideCells, true>;\n",
      "  switch (cells) {\n"
-     "    case 4: return tesserae_kernel<4, true>;\n"
-     "    case 8: return tesserae_kernel<8, true>;\n"
-     "    case 16: return tesserae_kernel<16, true>;\n"
+     "    case 4: return tesserae_kernel<float, 4, true>;\n"
+     "    case 8: return tesserae_kernel<float, 8, true>;\n"
+     "    case 16: return tesserae_kernel<float, 16, true>;\n"
      "    default: return nullptr;\n"
      "  }\n"),
 ]

@@ -14,8 +14,9 @@ port's TesseraeDevice returned) and detail.json (the demo's PF_DUMP).
 - 64 or more targets: the JAX package's int32 traceback word breaks there, so
   the reference is the port's widened host oracle (models/tesserae.py,
   float64): the same path, llk within 1e-4 relative.
-- A section over the budget gate (the host oracle on both sides): the JAX
-  package's host oracle, path and llk equal.
+- A section over the budget gate (the exact form on the card or the host
+  oracle, where the JAX package runs its host oracle): the JAX package's
+  host oracle, path and llk equal.
 
 Then the calls of detail.json against the JAX record DEMO_r05_run3_detail.json:
 the calls only one of them has, each with the partitions whose sections
@@ -42,7 +43,7 @@ def check(section: dict) -> dict:
     from corticall_tpu_torch.models import tesserae as ptz
 
     targets = dict(zip(section["names"], section["targets"]))
-    if section["route"] == "host":
+    if section["route"] in ("exact", "host"):
         ref, tol, what = tz.Tesserae(*CALLER_PARAMS), 0.0, "jax_host_oracle"
     elif len(targets) <= ptz.INT32_TARGETS:
         ref, tol, what = tj.TesseraeDevice(*CALLER_PARAMS), 1e-6, "jax_device_cpu"

@@ -1,7 +1,9 @@
 """Port's Tesserae (corticall_tpu_torch/ops/tesserae_torch.py) against the
 JAX package's _tesserae_full on CPU XLA and its own CUDA kernel against the
 plain twin: traceback cells identical, max_r within 1e-6 relative (equal in
-bits on the card, where both sides run the same float32 operations)."""
+bits on the card, where both sides run the same float32 operations).  The
+exact form (the twin and the kernel in float64) against the JAX package's
+numpy host oracle: path and llk equal."""
 
 import json
 import math
@@ -55,6 +57,12 @@ def _case(name):
         return t[:80] + t[90:199], {"t0": t}
     if name == "tiny":
         return "A", {"a": "C", "b": "AG"}
+    if name == "longquery":
+        # a query longer than every target: the oracle pads its columns to
+        # the query's length, the port to the longest target's
+        rng = np.random.default_rng(9)
+        t0, t1 = _genome(rng, 150), _genome(rng, 120)
+        return _mutate(rng, t0[:100] + t1[40:120] + _genome(rng, 90), 0.01), {"t0": t0, "t1": t1}
     if name.startswith("w") and "_" in name:
         # "wW_S": S targets of W - 1 bases against a 40-base query
         width, s_count = (int(x) for x in name[1:].split("_"))
@@ -163,7 +171,7 @@ def test_over_budget_section_takes_host_oracle():
     host = tz.Tesserae()
     assert dev.align(query, targets) == host.align(query, targets)
     assert dev.llk == host.llk
-    assert dev.host_sections == 1 and dev.device_sections == 0
+    assert dev.host_sections == 1 and dev.device_sections == 0 and dev.exact_sections == 0
 
 
 @pytest.mark.parametrize("n_targets", [1, 8, 63])
@@ -825,3 +833,243 @@ def test_wide_form_refuses_a_grid_that_does_not_co_reside_on_card(cuda):
     with pytest.raises(ValueError, match="holds"):
         tt.tesserae_fused(*args, config=(per, room + 1, cluster, threads), wide=True)
     assert tt.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# the exact form: the sections that TesseraeDevice's budget gate takes off the
+# float32 forms (the JAX package's host-oracle sections), aligned in float64
+# in the oracle's own order of operations, on the card by ctk_tesserae_f64
+# and on the CPU by the plain twin with float64 parameters.  Both must give
+# the JAX package's numpy oracle's path and llk exactly (every section here
+# has 63 targets or fewer, so that oracle's int32 word holds).
+# ---------------------------------------------------------------------------
+
+EXACT_CASES = CASES + ["tiny", "many1", "many8", "many63", "longquery"]
+
+
+def exact_align(query, targets, prm, device="cpu", config=None):
+    """(path, llk) of the exact form on `device` (the plain twin on the
+    CPU): tesserae_fused with float64 parameters, the path built as the
+    oracle builds it, llk = max_r + log(term)."""
+    args = tt.section_inputs(query, list(targets.values()), prm, device, torch.float64)
+    max_r, cells, n = tt.tesserae_fused(*args, config=config)
+    cells = [tuple(c) for c in cells[:int(n) - 1].cpu().tolist()]
+    cells.reverse()
+    path = ptz.Tesserae(*prm)._build_path(query, list(targets), list(targets.values()), cells)
+    return path, float(max_r) + math.log(prm[3])
+
+
+def _oracle_params(del_, eps, rho, term):
+    """(ldel, leps, lrho, lpiM, lpiI, lmm, lgm, ldm), lsm, lsi in float64,
+    as the JAX package's host oracle (corticall_tpu/models/tesserae.py,
+    Tesserae.align) computes them."""
+    pi_m = 0.75
+    scal = [math.log(del_), math.log(eps), math.log(rho), math.log(pi_m), math.log(1 - pi_m),
+            math.log(1 - 2 * del_ - rho - term), math.log(1 - eps - rho - term),
+            math.log(1 - eps)]
+    return scal, np.log(tz.EMISS_MATCH_NT), np.log(tz.EMISS_GAP_NT)
+
+
+@pytest.mark.parametrize("prm", PARAMS)
+def test_exact_params_are_the_oracles(prm):
+    """The exact form's parameters are the JAX package's oracle's doubles,
+    unrounded, and so are the port's oracle's (hmm_params, which both share);
+    the delete term is numpy's ldel + leps * (j - 1), rounded twice."""
+    want, want_sm, want_si = _oracle_params(*prm)
+    hp = ptz.hmm_params(*prm)
+    assert [hp.ldel, hp.leps, hp.lrho, hp.lpiM, hp.lpiI, hp.lmm, hp.lgm, hp.ldm] == want
+    assert hp.lterm == math.log(prm[3])
+    np.testing.assert_array_equal(hp.lsm, want_sm)
+    np.testing.assert_array_equal(hp.lsi, want_si)
+    scal, lsm, lsi = tt.tesserae_params(*prm, 1234.0, dtype=torch.float64)
+    assert scal.tolist() == want + [math.log(1234.0)]
+    np.testing.assert_array_equal(lsm.numpy(), want_sm)
+    np.testing.assert_array_equal(lsi.numpy(), want_si)
+    width = 5000
+    got = tt.delete_term(scal[0], scal[1], width)
+    assert got.shape == (1, width) and got.dtype == torch.float64
+    np.testing.assert_array_equal(got.numpy()[0],
+                                  want[0] + want[1] * (np.arange(width)[None, :] - 1)[0])
+
+
+@pytest.mark.parametrize("prm", PARAMS)
+@pytest.mark.parametrize("case", EXACT_CASES)
+def test_exact_twin_is_the_oracle(case, prm):
+    """The plain twin in float64 gives the JAX package's numpy oracle's path
+    and llk with ==: recombinant, indel and many-target sections, a
+    one-column query, 1, 8 and 63 targets, and a query longer than every
+    target (the oracle's padding against the port's).  The port's copy of the
+    oracle, which the card's tests and the flagship's route share, gives the
+    same."""
+    query, targets = _case(case)
+    host = tz.Tesserae(*prm)
+    want = host.align(query, targets)
+    path, llk = exact_align(query, targets, prm)
+    assert path == want
+    assert llk == host.llk
+    copy = ptz.Tesserae(*prm)
+    assert copy.align(query, targets) == want and copy.llk == host.llk
+
+
+def test_exact_twin_is_the_oracle_on_tie_prone_sections():
+    """The cross section and the 60 tie-prone sections, whose gaps among
+    equal bases a tie places: the float64 twin, and the port's copy of the
+    oracle, give the JAX package's oracle's path and llk on every one."""
+    prm = PARAMS[1]
+    differ, copy_differs = [], []
+    for i, (query, targets) in enumerate([_cross_section(), *tie_prone_sections()]):
+        host = tz.Tesserae(*prm)
+        want = host.align(query, targets)
+        if exact_align(query, targets, prm) != (want, host.llk):
+            differ.append(i)
+        copy = ptz.Tesserae(*prm)
+        if (copy.align(query, targets), copy.llk) != (want, host.llk):
+            copy_differs.append(i)
+    assert not differ, f"sections {differ} differ from the oracle's"
+    assert not copy_differs, f"the port's oracle differs on sections {copy_differs}"
+
+
+# the flagship's gated section: a 1,853 bp query against 6 targets of up to
+# 3,661 bases (21,972 cells), 2.4 GB by section_bytes
+FLAGSHIP_QUERY, FLAGSHIP_TARGETS = 1853, [3661, 3661, 3540, 3402, 3317, 3104]
+
+
+def test_section_route():
+    """Every route: the flagship's gated section is "exact" on a card and
+    "host" on the CPU; a gated section past MAX_CELLS_F64 is "host" on both;
+    the gate's edge (16,384 targets of 64 bases against 16,385) is unchanged;
+    below the gate the float32 forms by their cells, on either device."""
+    budget = tt.TesseraeDevice.HBM_BUDGET_BYTES
+    assert tt.section_bytes(FLAGSHIP_QUERY, FLAGSHIP_TARGETS) > budget
+    assert 6 * 3662 <= tt.MAX_CELLS_F64
+    assert tt.section_route("cuda", FLAGSHIP_QUERY, FLAGSHIP_TARGETS, budget) == "exact"
+    assert tt.section_route("cpu", FLAGSHIP_QUERY, FLAGSHIP_TARGETS, budget) == "host"
+    past = [8000] * (tt.MAX_CELLS_F64 // 8001 + 1)
+    assert len(past) * 8001 > tt.MAX_CELLS_F64 and tt.section_bytes(100, past) > budget
+    for device in ("cuda", "cpu"):
+        assert tt.section_route(device, 100, past, budget) == "host"
+        assert tt.section_route(device, 64, [64] * 16_384, budget) == "wide"
+        assert tt.section_route(device, 64, [64] * 16_385, budget) == "host"
+        assert tt.section_route(device, 466, [700] * 6, budget) == "register"
+        assert tt.section_route(device, 500, [512] * 256, budget) == "wide"
+    # the gate's own verdict, budget and all: a budget the section fits moves it
+    assert tt.section_route("cuda", FLAGSHIP_QUERY, FLAGSHIP_TARGETS, 4 << 30) == "register"
+
+
+def test_exact_config_and_its_limit():
+    """The exact form's shape at the flagship section (4 cells a thread, 16
+    CTAs) and its limit, named when a section passes it; float64 has no wide
+    form."""
+    width = max(FLAGSHIP_TARGETS) + 1
+    assert tt.kernel_config(6, width, exact=True) == (4, 16, 352)
+    most = tt.MAX_CELLS_F64 // 4097
+    per, cluster, threads = tt.kernel_config(most, 4097, exact=True)
+    assert per <= tt.EXACT_CELLS_PER_THREAD and per * cluster * threads >= most * 4097
+    with pytest.raises(ValueError, match=str(tt.MAX_CELLS_F64)):
+        tt.kernel_config(1, tt.MAX_CELLS_F64 + 1, exact=True)
+    query, targets = _case("small")
+    args = tt.section_inputs(query, list(targets.values()), PARAMS[1], dtype=torch.float64)
+    with pytest.raises(ValueError, match="wide"):
+        tt.tesserae_fused(*args, wide=True)
+
+
+def flagship_section():
+    """A section of the flagship's gated shape: six targets cut from two
+    parental haplotypes with 2% substitutions, the query a mosaic of two of
+    them with 0.5% substitutions and a 5-base deletion."""
+    rng = np.random.default_rng(1853)
+    parents = [_genome(rng, 3800), _genome(rng, 3800)]
+    targets = {}
+    for i, n in enumerate(FLAGSHIP_TARGETS):
+        start = int(rng.integers(0, 3800 - n + 1))
+        targets[f"{('mom', 'dad')[i % 2]}_{i // 2}"] = _mutate(rng, parents[i % 2], 0.02)[
+            start:start + n]
+    a, b = targets["mom_0"], targets["dad_0"]
+    query = a[900:1800] + b[1800:2760]
+    query = _mutate(rng, query[:1000] + query[1005:], 0.005)[:FLAGSHIP_QUERY]
+    assert len(query) == FLAGSHIP_QUERY
+    assert [len(t) for t in targets.values()] == FLAGSHIP_TARGETS
+    return query, targets
+
+
+@pytest.fixture(scope="module")
+def flagship_oracle():
+    """The flagship-shaped section and the JAX package's numpy oracle's path
+    and llk (for the card's tests only: a few seconds of the oracle).  The
+    port's copy of the oracle must give the same."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    query, targets = flagship_section()
+    host = tz.Tesserae(*PARAMS[1])
+    want = host.align(query, targets)
+    copy = ptz.Tesserae(*PARAMS[1])
+    assert copy.align(query, targets) == want and copy.llk == host.llk
+    return query, targets, want, host.llk
+
+
+# forced (cells a thread, cluster, threads) for the exact form: CTA edges
+# inside targets at every cell count it instantiates, clusters of 1-16 CTAs
+EXACT_FORCED = [("w2_16", (1, 8, 32)), ("w2_63", (2, 2, 32)), ("targets16", (1, 16, 288)),
+                ("targets16", (2, 8, 288)), ("targets16", (4, 4, 288)),
+                ("targets16", (2, 16, 160)), ("recombinant0", (1, 4, 224)),
+                ("longquery", (2, 2, 96)), ("tiny", None), ("many63", None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, config", EXACT_FORCED)
+def test_exact_form_is_the_oracle_on_small_sections_on_card(cuda, case, config):
+    query, targets = _case(case)
+    prm = PARAMS[1]
+    host = tz.Tesserae(*prm)
+    want = host.align(query, targets)
+    before, exact_before = tt.LAUNCHES, tt.EXACT_LAUNCHES
+    assert exact_align(query, targets, prm, cuda, config) == (want, host.llk)
+    assert (tt.LAUNCHES, tt.EXACT_LAUNCHES) == (before + 1, exact_before + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [None, (4, 16, 384), (4, 16, 448), (4, 16, 512)])
+def test_exact_form_is_the_oracle_on_the_flagship_section_on_card(cuda, flagship_oracle,
+                                                                     config):
+    """ctk_tesserae_f64 on the flagship-shaped gated section, at its own
+    shape and with CTA edges moved inside the targets: the oracle's path and
+    llk with ==."""
+    query, targets, want, llk = flagship_oracle
+    assert exact_align(query, targets, PARAMS[1], cuda, config) == (want, llk)
+
+
+@pytest.mark.cuda
+def test_exact_route_on_card(cuda, flagship_oracle):
+    """TesseraeDevice on the card sends the gated section to the exact form
+    (no host section), under tesserae.align -> tesserae.exact -> the device
+    section's spans, and returns the oracle's path and llk."""
+    from corticall_tpu_torch.utils import profiling
+
+    query, targets, want, llk = flagship_oracle
+    dev = tt.TesseraeDevice(*PARAMS[1], device=cuda)
+    with profiling.recording():
+        got = dev.align(query, targets)
+    spans = profiling.recorded()
+    profiling.clear()
+    assert got == want and dev.llk == llk
+    assert (dev.exact_sections, dev.host_sections, dev.device_sections) == (1, 0, 0)
+    kids = profiling.children(spans)
+    (align,) = [sp for sp in spans if sp.name == "tesserae.align"]
+    (exact,) = [sp for sp in spans if sp.name == "tesserae.exact"]
+    assert [c.name for c in kids[align.index]] == ["tesserae.exact"]
+    assert [c.name for c in kids[exact.index]] == ["tesserae.pack", "tesserae.launch",
+                                                   "tesserae.wait", "tesserae.fetch",
+                                                   "tesserae.decode"]
+
+
+@pytest.mark.cuda
+def test_exact_form_holds_its_cells_in_registers_on_card(cuda):
+    """The exact form's instantiations, up to EXACT_CELLS_PER_THREAD cells a
+    thread, spill nothing, and the kernel has none past it (the Python limit
+    and the CUDA one, kRegisterCells<double>, agree)."""
+    per = 1
+    while per <= tt.EXACT_CELLS_PER_THREAD:
+        assert tt.exact_kernel_info(cuda, per)["local_bytes"] == 0
+        per *= 2
+    with pytest.raises(RuntimeError):
+        tt.exact_kernel_info(cuda, 2 * tt.EXACT_CELLS_PER_THREAD)

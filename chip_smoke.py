@@ -1686,7 +1686,8 @@ def link_walk_phase(dev, out) -> dict:
     """Phase 11: the linked device walker on phase 4's graph, ROIs and links
     (the trio's threaded links).  The path (launches counted): LinkedWalker
     over the sorted ROI k-mers, both directions, then walk_links_forward from
-    LINK_SEEDS record k-mers (record i * 17 % N), raw outputs.  The ROI
+    LINK_SEEDS record k-mers (record i * 17 % N) by walk_words, its outputs
+    copied to the host (`bulk_call_ms`).  The ROI
     walks against their plain twin bit for bit, and their contigs against
     the native walker walked as Partition walks it; the bulk walks' kernel
     against its plain twin bit for bit, on every lane when the twin
@@ -1714,7 +1715,9 @@ def link_walk_phase(dev, out) -> dict:
     wl.LAUNCHES["link_walk"] = 0
     assemble_ms, (contigs, overflow, junctions) = host_ms(
         lambda: walker.assemble(decoded, PF_MAX_WALK))
-    bulk_ms, got = host_ms(lambda: wl.walk_links_forward(*walker.args, bulk, k, JUMP_STEPS))
+    bulk_ms, got = host_ms(lambda: walker.walk_words(bulk, JUMP_STEPS))
+    got = [torch.from_numpy(x).to(dev) for x in got]
+    got[0] = got[0].t()                      # [T, B], as the twin gives it
     launches = wl.LAUNCHES["link_walk"]
     if not launches:
         raise AssertionError("ctk_link_walk never launched")

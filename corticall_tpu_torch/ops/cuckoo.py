@@ -66,14 +66,21 @@ def build_cuckoo(kmers: np.ndarray, payload: np.ndarray, load_factor: float = 0.
     room.  The table lives on `device` (default: the CUDA card, and
     RuntimeError without one)."""
     device = resolve(device)
-    n, w = kmers.shape
-    nb, bucket_of, pos_of, h1 = place_cuckoo(kmers, load_factor, num_buckets, bucket_size,
-                                             primary_bias)
+    return cuckoo_table(kmers, payload, place_cuckoo(kmers, load_factor, num_buckets,
+                                                     bucket_size, primary_bias),
+                        bucket_size, device)
+
+
+def cuckoo_table(kmers: np.ndarray, payload: np.ndarray, placement: tuple, bucket_size: int,
+                 device: torch.device) -> CuckooTable:
+    """The table of a host placement (place_cuckoo's (nb, bucket_of, pos_of,
+    h1) at `bucket_size`), written on `device` by one scatter."""
+    nb, bucket_of, pos_of, h1 = placement
     buckets, _ = scatter_buckets(kmers, nb, bucket_of * bucket_size + pos_of, device,
                                  payload=payload, bucket_size=bucket_size)
-    return CuckooTable(buckets=buckets, nb_bits=int(nb).bit_length() - 1, words=w,
+    return CuckooTable(buckets=buckets, nb_bits=int(nb).bit_length() - 1, words=kmers.shape[1],
                        bucket_size=bucket_size,
-                       primary_fraction=float((bucket_of == h1).mean()) if n else 1.0)
+                       primary_fraction=float((bucket_of == h1).mean()) if len(h1) else 1.0)
 
 
 def build_walk_table(kmers: np.ndarray, edges: np.ndarray, load_factor: float = 0.5,

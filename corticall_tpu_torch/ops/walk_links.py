@@ -33,6 +33,14 @@ The k-mer table is the cuckoo table of ops/cuckoo.py with payload record +
 Both also take the JAX package's arrays as numpy (uint32 [NB, BS*(W+1)]
 buckets, the LinkArrays fields, uint32 seeds).
 
+`LinkedWalker` holds the tables on a device.  It is built from a
+`CortexGraph`, or from a graph's records as Partition's callers hold them
+(`from_records`: the sorted canonical words, the walked colours' edge
+bytes, the links files), and walks seed words (`walk_words`, host arrays
+out) or seed strings both ways (`walk`, `assemble`).  Its spans
+(utils/profiling): `links.table` (`.place`, `.pack`, `.upload`) around the
+build, `links.walk` (`.upload`, `.launch`, `.wait`, `.copy`) around a walk.
+
 A reverse walk equals a forward walk from the reverse complement, so one
 kernel serves both directions of `assemble`.
 """
@@ -46,6 +54,7 @@ import torch
 
 from .. import kmer as km
 from ..device import resolve
+from ..utils.profiling import span
 from . import _kernels
 from . import cuckoo as ck
 from . import kmer as tk
@@ -77,20 +86,41 @@ def build_link_arrays(graph, links_list) -> LinkArrays:
     """Pack the links files' records into CSR arrays in graph record order:
     the files of the graph's samples, each record's links in file order;
     records of more than MAX_J choices are dropped and counted."""
-    k = graph.kmer_size
-    samples = set(graph.sample_names)
-    rec_of, choice_strs, forward = [], [], []
-    truncated = 0
+    return build_link_arrays_records(graph.kmer_size, graph.kmers, links_list,
+                                     graph.sample_names)
+
+
+def build_link_arrays_records(k: int, kmers: np.ndarray, links_list, samples) -> LinkArrays:
+    """build_link_arrays on a graph's records: kmers uint32 [N, W], the
+    canonical words sorted as a .ctx holds them, and the links files of the
+    sample name `samples` (or of any name in a collection of them).  The
+    link k-mers of every file are found by one search over the records'
+    key bytes (graph.find_records' search); a record's links keep file
+    order, and records of more than MAX_J choices at a k-mer of the graph
+    are dropped and counted."""
+    samples = {samples} if isinstance(samples, str) else set(samples)
+    files = []
     for lm in links_list:
         if lm.sample_name not in samples:
             continue
         recs = lm.records       # read once: LinksRandomAccess.records scans the whole file
-        if not recs:
-            continue
-        keys = list(recs)
+        if recs:
+            files.append(recs)
+    keys = [key for recs in files for key in recs]
+    n = kmers.shape[0]
+    found = np.full(len(keys), -1, dtype=np.int64)
+    if keys and n:
         canon, _ = km.canonicalize_codes(km.strings_to_codes([s.upper() for s in keys]))
-        found = graph.find_records(km.pack_codes(canon, k))
-        for key, rec in zip(keys, found):
+        wanted = km.words_to_bytes_be(km.pack_codes(canon, k), k)
+        table = km.words_to_bytes_be(np.ascontiguousarray(kmers, dtype=np.uint32), k)
+        idx = np.minimum(np.searchsorted(table, wanted), n - 1)
+        found = np.where(table[idx] == wanted, idx, -1)
+    rec_of, choice_strs, forward = [], [], []
+    truncated = 0
+    keyed = iter(found)
+    for recs in files:
+        for key in recs:
+            rec = next(keyed)
             if rec < 0:
                 continue
             for jr in recs[key]:
@@ -101,7 +131,6 @@ def build_link_arrays(graph, links_list) -> LinkArrays:
                 choice_strs.append(jr.choices)
                 forward.append(bool(jr.forward))
 
-    n = graph.num_records
     rec_of = np.asarray(rec_of, dtype=np.int64)
     order = np.argsort(rec_of, kind="stable")       # file order within a record
     offsets = np.zeros(n + 1, dtype=np.int32)
@@ -519,17 +548,29 @@ def decode_host_walk(seed: str, emitted, successors, max_branch_length: int = 75
 class LinkedWalker:
     """The cuckoo table and the link CSR on a device, built once, then any
     number of walks.  `device` is the CUDA card by default (RuntimeError
-    without one); "cpu" runs the plain twin."""
+    without one); "cpu" runs the plain twin.
+
+    `stats` counts, from the arrays the walks return: `walks`, `steps`,
+    `junctions_resolved` (junction advances a link choice took) and
+    `overflow_lanes`; and, from the pack, `link_records` (pool rows) and
+    `truncated` (records dropped past MAX_J)."""
 
     def __init__(self, graph, colors, links_list, device=None):
-        dev = resolve(device)
-        kmers = graph.kmers
-        table = ck.build_cuckoo(kmers, np.arange(kmers.shape[0], dtype=np.uint32) + 1,
-                                device=dev)
         edges = np.bitwise_or.reduce(graph.edges[:, list(colors)], axis=1)
-        la = build_link_arrays(graph, links_list)
-        self._bind(graph.kmer_size, (table.buckets, edges, la.offsets, la.choices, la.lengths,
-                                     la.forward), la.truncated, dev)
+        self._build(graph.kmer_size, graph.kmers, edges, links_list, graph.sample_names,
+                    device)
+
+    @classmethod
+    def from_records(cls, k: int, kmers, edges, links_list, sample_name,
+                     device=None) -> "LinkedWalker":
+        """A walker over a graph's records, as Partition's callers hold them:
+        kmers uint32 [N, W] (the canonical words, sorted as a .ctx holds
+        them), edges uint8 [N] (the walked colours' edge bytes), the links
+        files (io/links.LinksData or LinksRandomAccess) of the sample name
+        `sample_name` (or of any name in a collection of them)."""
+        walker = cls.__new__(cls)
+        walker._build(k, kmers, edges, links_list, sample_name, device)
+        return walker
 
     @classmethod
     def from_arrays(cls, k: int, buckets, edges, offsets, choices, lengths, forward,
@@ -541,11 +582,62 @@ class LinkedWalker:
                      resolve(device))
         return walker
 
+    def _build(self, k: int, kmers, edges, links_list, samples, device) -> None:
+        """The cuckoo table (payload record + 1) placed on the host, the link
+        CSR packed, both uploaded."""
+        dev = resolve(device)
+        kmers = np.ascontiguousarray(kmers, dtype=np.uint32)
+        with span("links.table"):
+            with span("links.table.place"):
+                placement = ck.place_cuckoo(kmers, 0.5, None, ck.BUCKET_SIZE, False)
+            with span("links.table.pack") as sp:
+                la = build_link_arrays_records(k, kmers, links_list, samples)
+                if sp:
+                    sp.set(records=int(la.offsets[-1]), truncated=la.truncated)
+            with span("links.table.upload") as sp:
+                table = ck.cuckoo_table(kmers, np.arange(kmers.shape[0], dtype=np.uint32) + 1,
+                                        placement, ck.BUCKET_SIZE, dev)
+                self._bind(k, (table.buckets, edges, la.offsets, la.choices, la.lengths,
+                               la.forward), la.truncated, dev)
+                if sp:
+                    sp.set(bytes=sum(x.nbytes for x in self.args))
+
     def _bind(self, k: int, arrays: tuple, truncated: int, dev: torch.device) -> None:
         self.k = k
         self.device = dev
         self.truncated = truncated
         self.args = link_tables(*arrays, k, dev)
+        self.stats = {"walks": 0, "steps": 0, "junctions_resolved": 0, "overflow_lanes": 0,
+                      "link_records": int(self.args[2][-1]), "truncated": truncated}
+
+    def walk_words(self, words, num_steps: int):
+        """Forward walks from walk-oriented seed words (uint32 [B, W]
+        numpy, or the kernels' int32 tensor), walked as given: (emitted
+        int8 [B, T] as numpy, base | store_active << 3 or -1 once the walk
+        ended; overflow bool [B]; steps int32 [B]; junctions int32 [B]).  On
+        the card the launch is waited for, then each output is copied to
+        pageable host memory, the stream's [B, T] view by way of one
+        contiguous copy on the card."""
+        with span("links.walk", walks=len(words)):
+            with span("links.walk.upload", bytes=words.nbytes):
+                seeds = _tensor(words, self.device)
+            with span("links.walk.launch"):
+                emitted, overflow, steps, junctions = walk_links_forward(
+                    *self.args, seeds, self.k, num_steps, device=self.device)
+            if self.device.type == "cuda":
+                with span("links.walk.wait"):
+                    torch.cuda.current_stream(self.device).synchronize()
+            with span("links.walk.copy") as sp:
+                out = (emitted.t().cpu().numpy(), overflow.cpu().numpy(), steps.cpu().numpy(),
+                       junctions.cpu().numpy())
+                if sp:
+                    sp.set(bytes=sum(x.nbytes for x in out))
+        st = self.stats
+        st["walks"] += out[2].shape[0]
+        st["steps"] += int(out[2].sum(dtype=np.int64))
+        st["junctions_resolved"] += int(out[3].sum(dtype=np.int64))
+        st["overflow_lanes"] += int(out[1].sum())
+        return out
 
     def walk(self, seeds: list, num_steps: int):
         """Forward walks then reverse walks of the seed strings, in one call:
@@ -554,10 +646,7 @@ class LinkedWalker:
         k = self.k
         rc_strs = [km.revcomp(s) for s in seeds]
         words = km.pack_codes(km.strings_to_codes(list(seeds) + rc_strs, k), k)
-        emitted, overflow, steps, junctions = walk_links_forward(
-            *self.args, words, k, num_steps, device=self.device)
-        return (emitted.t().cpu().numpy(), overflow.cpu().numpy(), steps.cpu().numpy(),
-                junctions.cpu().numpy(), rc_strs)
+        return (*self.walk_words(words, num_steps), rc_strs)
 
     def walk_split(self, seeds: list, num_steps: int = 1024, max_branch: int | None = None):
         """Per-direction link-assisted extensions: (fwd_exts, back_exts,

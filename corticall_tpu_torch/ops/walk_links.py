@@ -39,7 +39,7 @@ buckets, the LinkArrays fields, uint32 seeds).
 bytes, the links files), and walks seed words (`walk_words`, host arrays
 out) or seed strings both ways (`walk`, `assemble`).  Its spans
 (utils/profiling): `links.table` (`.place`, `.pack`, `.upload`) around the
-build, `links.walk` (`.upload`, `.launch`, `.wait`, `.copy`) around a walk.
+build, `links.walk` (`.upload`, `.launch`, `.copy`, `.wait`) around a walk.
 
 A reverse walk equals a forward walk from the reverse complement, so one
 kernel serves both directions of `assemble`.
@@ -65,8 +65,9 @@ JW = (MAX_J + 15) // 16  # uint32 words a choice string
 MAX_ADD = 16             # link records appended a k-mer arrival
 STORE_FIELDS = 7         # a store element in the kernels: ch0, ch1, len, pos, age, seq, valid
 
-# kernel launches (plain integers; chip_smoke.py resets and reads them)
-LAUNCHES = {"link_walk": 0}
+# kernel launches, and walk_words' pinned copies to the host (plain integers;
+# chip_smoke.py resets and reads them)
+LAUNCHES = {"link_walk": 0, "link_walk_copy": 0}
 
 _CODE = np.full(256, 255, dtype=np.uint8)
 _CODE[np.frombuffer(b"ACGT", dtype=np.uint8)] = np.arange(4, dtype=np.uint8)
@@ -467,6 +468,25 @@ def link_walk_kernel(buckets, edges, link_off, link_choices, link_len, link_fw, 
     LAUNCHES["link_walk"] += 1
 
 
+def _to_pinned(rows: torch.Tensor, lane: list) -> tuple:
+    """Enqueue the copies of a card walk's outputs into fresh pinned host
+    tensors on the current stream, and return those tensors (valid once the
+    stream is synchronized): rows, the [B, T] view of the kernel's [B,
+    pitch] stream, by one `ctk_copy_rows_to_host` (a pitched 2-D copy that
+    drops the rows' padding), each lane array by a non-blocking copy."""
+    b, t = rows.shape
+    host = torch.empty((b, t), dtype=rows.dtype, pin_memory=True)
+    if host.numel():
+        if rows.stride(1) != 1 or rows.stride(0) < t:
+            raise ValueError("rows must be a view of whole rows of a row-major stream")
+        _kernels.check(_kernels.library().ctk_copy_rows_to_host(
+            host.data_ptr(), t, rows.data_ptr(), rows.stride(0), t, b,
+            _kernels.stream(rows.device)), "copy_rows_to_host")
+    LAUNCHES["link_walk_copy"] += 1
+    return (host, *(torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(
+        x, non_blocking=True) for x in lane))
+
+
 def kernel_info(which: str, w: int, batch: int, buckets=None) -> dict:
     """How a launch of `batch` walks at W = w runs on the current card:
     ctk_link_walk ("link_walk", on the card table `buckets`, whose bucket
@@ -615,23 +635,27 @@ class LinkedWalker:
         numpy, or the kernels' int32 tensor), walked as given: (emitted
         int8 [B, T] as numpy, base | store_active << 3 or -1 once the walk
         ended; overflow bool [B]; steps int32 [B]; junctions int32 [B]).  On
-        the card the launch is waited for, then each output is copied to
-        pageable host memory, the stream's [B, T] view by way of one
-        contiguous copy on the card."""
+        the card the outputs are copied into fresh pinned host memory,
+        asynchronously on the current stream (the stream's rows by one
+        pitched 2-D copy that drops their padding), with one synchronize;
+        the arrays are views that keep their host tensors alive, so a later
+        call does not overwrite them."""
         with span("links.walk", walks=len(words)):
             with span("links.walk.upload", bytes=words.nbytes):
                 seeds = _tensor(words, self.device)
             with span("links.walk.launch"):
-                emitted, overflow, steps, junctions = walk_links_forward(
-                    *self.args, seeds, self.k, num_steps, device=self.device)
-            if self.device.type == "cuda":
-                with span("links.walk.wait"):
-                    torch.cuda.current_stream(self.device).synchronize()
+                emitted, *lane = walk_links_forward(*self.args, seeds, self.k, num_steps,
+                                                    device=self.device)
+            rows = emitted.t()
+            card = rows.device.type == "cuda"
             with span("links.walk.copy") as sp:
-                out = (emitted.t().cpu().numpy(), overflow.cpu().numpy(), steps.cpu().numpy(),
-                       junctions.cpu().numpy())
+                host = _to_pinned(rows, lane) if card else (rows, *lane)
                 if sp:
-                    sp.set(bytes=sum(x.nbytes for x in out))
+                    sp.set(bytes=sum(x.nbytes for x in host))
+            if card:
+                with span("links.walk.wait"):
+                    torch.cuda.current_stream(rows.device).synchronize()
+            out = tuple(x.numpy() for x in host)
         st = self.stats
         st["walks"] += out[2].shape[0]
         st["steps"] += int(out[2].sum(dtype=np.int64))

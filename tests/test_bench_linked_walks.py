@@ -256,6 +256,12 @@ def test_span_metrics_read_the_walks(served):
     names = [s.name for s in spans]
     assert names.count("links.walk") == MIX["batches"]
     assert {"links.walk.upload", "links.walk.launch", "links.walk.copy"} <= set(names)
+    # a call's steps in order: the copy is enqueued before the one wait (on a card)
+    steps = ["links.walk.upload", "links.walk.launch", "links.walk.copy"]
+    kids = profiling.children(spans)
+    for s in spans:
+        if s.name == "links.walk":
+            assert [c.name for c in kids[s.index]] in (steps, steps + ["links.walk.wait"])
     manifest = run.load_json(os.path.join(tiny.ROOT, "BENCHMARK.json"))
     entries = run.cell_metrics(manifest, "pf47_linked_walks", True)
     saved = profiling._REC.records

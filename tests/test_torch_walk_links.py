@@ -614,6 +614,33 @@ def test_walk_refuses_bad_inputs():
         twl.walk_links_forward(*walker.args, words, 5, -1)
 
 
+def _walk_words_want(walker, words, steps):
+    """What walk_words must return: the plain twin's outputs on the walker's
+    tables, emitted as [B, T]."""
+    seeds = torch.from_numpy(words.view(np.int32)).to(walker.device)
+    emitted, *lane = twl.walk_links_forward_plain(*walker.args, seeds, walker.k, steps)
+    return [x.cpu().numpy() for x in (emitted.t(), *lane)]
+
+
+WALK_WORDS_DTYPES = (np.int8, np.bool_, np.int32, np.int32)
+
+
+def test_walk_words_on_the_cpu_takes_no_pinned_route():
+    """On the CPU walk_words returns the twin's arrays as views, in the
+    dtypes callers take, and copies nothing into pinned memory."""
+    g, links, colour, seeds, _ = case("repeat")
+    pg, plinks = _port(g, links)
+    walker = twl.LinkedWalker(pg, [colour], plinks, device="cpu")
+    words = _both_ways(seeds, g.kmer_size)
+    before = dict(twl.LAUNCHES)
+    got = walker.walk_words(words, 77)
+    assert twl.LAUNCHES == before
+    assert [x.dtype for x in got] == list(WALK_WORDS_DTYPES)
+    assert got[0].shape == (len(words), 77) and got[2].shape == (len(words),)
+    _equal_walks(got, _walk_words_want(walker, words, 77))
+    assert int(got[2].sum()) > 0
+
+
 # ---------------------------------------------------------------------------
 # the kernel against the twin (a card only)
 # ---------------------------------------------------------------------------
@@ -774,3 +801,42 @@ def test_kernel_at_each_width(cuda, k):
     arrays, words, steps = width_case(k)
     got = _kernel_vs_twin([a.to(cuda) for a in arrays], words, k, steps, cuda)
     assert int(got[3].sum()) > 0 and bool(got[1].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps, lanes", [(1000, None), (0, None), (77, 0)])
+def test_walk_words_on_the_card_equals_the_twin(cuda, steps, lanes):
+    """walk_words' pinned route: the four arrays bit for bit the twin's, C-
+    contiguous numpy in the dtypes callers take, one pinned copy a call; at
+    a num_steps off the 32-byte pitch (the padding dropped), at none, and
+    with no seeds."""
+    g, links, colour, seeds, _ = case("trio47")
+    pg, plinks = _port(g, links)
+    walker = twl.LinkedWalker(pg, [colour], plinks, device=cuda)
+    words = _both_ways(seeds, g.kmer_size)[:lanes]
+    before = twl.LAUNCHES["link_walk_copy"]
+    got = walker.walk_words(words, steps)
+    assert twl.LAUNCHES["link_walk_copy"] == before + 1
+    assert [x.dtype for x in got] == list(WALK_WORDS_DTYPES)
+    assert all(isinstance(x, np.ndarray) and x.flags.c_contiguous for x in got)
+    assert got[0].shape == (len(words), steps)
+    _equal_walks(got, _walk_words_want(walker, words, steps))
+
+
+@pytest.mark.cuda
+def test_walk_words_arrays_outlive_later_calls(cuda):
+    """A call's arrays stay the caller's own: a later call on other seeds,
+    once the first call's host memory could be reused, leaves them as they
+    were."""
+    g, links, colour, seeds, steps = case("trio47")
+    pg, plinks = _port(g, links)
+    walker = twl.LinkedWalker(pg, [colour], plinks, device=cuda)
+    words = _both_ways(seeds, g.kmer_size)
+    first = walker.walk_words(words, steps)
+    kept = [x.copy() for x in first]
+    assert not np.array_equal(kept[0], kept[0][::-1])     # the later calls' rows differ
+    for _ in range(2):
+        later = walker.walk_words(words[::-1].copy(), steps)
+        _equal_walks(later, [x[::-1] for x in kept])
+        del later
+    _equal_walks(first, kept)
